@@ -1,0 +1,61 @@
+"""Converts the reference pipeline's parameter tree into the port's state.
+
+``from_jax_params(tree)`` takes ``{"unet": ..., "text": ...}`` as the
+reference's ``SDPipeline.params`` holds it, with every leaf already a numpy
+array, and returns ``{"unet": state_dict, "text": state_dict}`` for
+``repro_torch.core.pipeline.SDPipeline.from_state``. Dtypes are kept.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_tensor(a: np.ndarray) -> torch.Tensor:
+    """numpy -> torch, bfloat16 (ml_dtypes) included through a uint16 view,
+    since ``torch.from_numpy`` rejects it. Always a copy."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _flatten(tree, prefix=""):
+    """Yield (dotted path, leaf); ``None`` entries (levels without attention)
+    have no leaves."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}.")
+    elif tree is not None:
+        yield prefix[:-1], tree
+
+
+def unet_items(tree):
+    """(port key, numpy leaf in the port's layout): conv weights HWIO -> OIHW."""
+    for key, a in _flatten(tree):
+        if a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))
+        yield key, a
+
+
+def text_items(tree):
+    """(port key, numpy leaf): the encoder's one scan segment of stacked
+    ``attn`` blocks (leading ``layers`` axis) becomes ``layers.<i>``."""
+    segs = tree["segments"]
+    if len(segs) != 1 or not isinstance(segs[0], list) or len(segs[0]) != 1:
+        raise ValueError("expected one scanned segment of one attn block")
+    for key, a in _flatten(tree):
+        if not key.startswith("segments."):
+            yield key, a
+    for key, a in _flatten(segs[0][0]):
+        for i in range(a.shape[0]):
+            yield f"layers.{i}.{key}", a[i]
+
+
+def from_jax_params(tree) -> dict:
+    return {"unet": {k: to_tensor(a) for k, a in unet_items(tree["unet"])},
+            "text": {k: to_tensor(a) for k, a in text_items(tree["text"])}}

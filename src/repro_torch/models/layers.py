@@ -1,0 +1,108 @@
+"""Common layers as functions on tensors. Counterpart of
+``repro/models/layers.py``: each op casts its weights to the activation's
+dtype, and the norms compute in float32 and return the input's dtype."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def rmsnorm(scale, x, eps: float = 1e-6):
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def head_rmsnorm(scale, x, eps: float = 1e-6):
+    return rmsnorm(scale, x, eps)
+
+
+def layernorm(scale, bias, x, eps: float = 1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def embed(table, ids, dtype=None):
+    out = table[ids]
+    return out.to(dtype) if dtype is not None else out
+
+
+def dense(w, x):
+    return x @ w.to(x.dtype)
+
+
+def gelu_mlp(w_in, b_in, w_out, b_out, x):
+    """``jax.nn.gelu`` defaults to the tanh approximation; so does this."""
+    h = dense(w_in, x) + b_in.to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return dense(w_out, h) + b_out.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Split-halves RoPE. x (..., seq, heads, head_dim); positions (..., seq)."""
+    freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
+    angles = positions[..., :, None].float() * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def sinusoidal_embedding(positions, dim: int, max_period: float = 10000.0):
+    """positions (...,) -> (..., dim) float32, ``[cos, sin]`` in that order."""
+    half = dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(max_period) * ar / half)
+    args = positions.float()[..., None] * freqs
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+# -- parameters ----------------------------------------------------------------
+
+
+class Maker:
+    """Draws weights as ``repro``'s ``ArrayMaker`` scales them: normal times
+    ``scale`` (default 1/sqrt(fan-in), fan-in = product of all dims but the
+    last), or zeros, or ones. Numbers come from ``generator``, on ``device``."""
+
+    def __init__(self, generator, dtype, device):
+        self.generator, self.dtype, self.device = generator, dtype, torch.device(device)
+
+    def __call__(self, shape, *, init="normal", scale=None):
+        kw = dict(dtype=self.dtype, device=self.device)
+        if init == "zeros":
+            return torch.zeros(shape, **kw)
+        if init == "ones":
+            return torch.ones(shape, **kw)
+        if scale is None:
+            scale = 1.0 / math.sqrt(max(1, math.prod(shape[:-1])))
+        w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
+                        device=self.device)
+        return (w * scale).to(self.dtype)
+
+
+def tree_module(tree) -> nn.Module:
+    """A module whose children mirror a nested dict/list of tensors: dicts
+    become modules, lists ``ModuleList`` (``None`` entries kept), tensors
+    frozen parameters. State-dict keys are the tree's paths joined by '.'."""
+    if isinstance(tree, list):
+        return nn.ModuleList([None if t is None else tree_module(t) for t in tree])
+    m = nn.Module()
+    for name, v in tree.items():
+        if isinstance(v, torch.Tensor):
+            m.register_parameter(name, nn.Parameter(v, requires_grad=False))
+        else:
+            m.add_module(name, tree_module(v))
+    return m
