@@ -1,9 +1,12 @@
-"""Converts the reference pipeline's parameter tree into the port's state.
+"""Converts the reference's parameter trees into the port's state.
 
 ``from_jax_params(tree)`` takes ``{"unet": ..., "text": ...}`` as the
 reference's ``SDPipeline.params`` holds it, with every leaf already a numpy
 array, and returns ``{"unet": state_dict, "text": state_dict}`` for
-``repro_torch.core.pipeline.SDPipeline.from_state``. Dtypes are kept.
+``repro_torch.core.pipeline.SDPipeline.from_state``.
+``from_jax_model_params(tree)`` takes a decoder's ``init_model`` tree the
+same way and returns the state dict of
+``repro_torch.models.transformer.Transformer``. Dtypes are kept.
 """
 
 from __future__ import annotations
@@ -59,3 +62,29 @@ def text_items(tree):
 def from_jax_params(tree) -> dict:
     return {"unet": {k: to_tensor(a) for k, a in unet_items(tree["unet"])},
             "text": {k: to_tensor(a) for k, a in text_items(tree["text"])}}
+
+
+def model_items(tree):
+    """(port key, numpy leaf) of a decoder tree: each scanned segment (a list
+    of the pattern's blocks, every leaf with a leading ``layers`` axis) is
+    unstacked into ``layers.<i>``, group by group; a plain segment (one
+    block) is one layer."""
+    for key, a in _flatten({k: v for k, v in tree.items() if k != "segments"}):
+        yield key, a
+    layer = 0
+    for seg in tree["segments"]:
+        if isinstance(seg, dict):
+            for key, a in _flatten(seg):
+                yield f"layers.{layer}.{key}", a
+            layer += 1
+            continue
+        n = next(_flatten(seg[0]))[1].shape[0]
+        for j, block in enumerate(seg):
+            for key, a in _flatten(block):
+                for i in range(n):
+                    yield f"layers.{layer + i * len(seg) + j}.{key}", a[i]
+        layer += n * len(seg)
+
+
+def from_jax_model_params(tree) -> dict:
+    return {k: to_tensor(a) for k, a in model_items(tree)}

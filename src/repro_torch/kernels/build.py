@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -29,7 +31,12 @@ SIGNATURES = {
     "cfg_combine": [_P, _P, _P, _LL, _F, _I, _P],
     "cfg_combine_rowscale": [_P, _P, _P, _P, _LL, _LL, _I, _P],
     "apg_combine": [_P, _P, _P, _P, _LL, _LL, _F, _F, _F, _I, _P],
+    "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 }
+# dtype codes the C entry points take
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 
@@ -105,6 +112,32 @@ def load():
         lib.kernels_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def on_cuda(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a mix or on
+    any other device."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
+                         "need all on the CPU or all on one CUDA device")
+    return True
+
+
+def stream(t) -> int:
+    """The handle of the current CUDA stream of ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_inputs(*tensors) -> None:
+    """Raise unless every tensor is contiguous float32 or bfloat16."""
+    for t in tensors:
+        if t.dtype not in DTYPES:
+            raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel takes contiguous tensors")
 
 
 def check(lib, name: str, code: int) -> None:

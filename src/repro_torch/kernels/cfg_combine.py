@@ -23,7 +23,6 @@ from repro_torch.kernels import build
 
 EPS = 1e-12   # guards zero-norm rows; rows with u == c stay exact
 LAUNCHES = {"cfg_combine": 0, "cfg_combine_rowscale": 0, "apg_combine": 0}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -62,30 +61,10 @@ def apg_combine_plain(eps_uncond, eps_cond, scale: float, *, eta: float = 0.0,
 # -- wrappers ------------------------------------------------------------------
 
 
-def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix or on
-    any other device."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "
-                         "need all on the CPU or all on one CUDA device")
-    return True
-
-
 def _check_pair(u, c):
     if u.shape != c.shape or u.dtype != c.dtype:
         raise ValueError(f"eps_uncond {tuple(u.shape)} {u.dtype} vs eps_cond "
                          f"{tuple(c.shape)} {c.dtype}")
-
-
-def _check_kernel_inputs(*tensors):
-    for t in tensors:
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel takes contiguous tensors")
 
 
 def _rows(c) -> tuple[int, int]:
@@ -95,10 +74,6 @@ def _rows(c) -> tuple[int, int]:
     return c.shape[0], c.numel() // max(c.shape[0], 1)
 
 
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def cfg_combine(eps_uncond, eps_cond, scale: float):
     """Eq. 1. At ``scale == 1.0`` returns ``eps_cond`` itself, launching
     nothing: the COND skip is lossless only if this is bit-exact."""
@@ -106,14 +81,14 @@ def cfg_combine(eps_uncond, eps_cond, scale: float):
     scale = float(scale)
     if scale == 1.0:
         return eps_cond
-    if not _on_cuda(eps_uncond, eps_cond):
+    if not build.on_cuda(eps_uncond, eps_cond):
         return cfg_combine_plain(eps_uncond, eps_cond, scale)
-    _check_kernel_inputs(eps_uncond, eps_cond)
+    build.check_inputs(eps_uncond, eps_cond)
     out = torch.empty_like(eps_cond)
     lib = build.load()
     code = lib.cfg_combine(eps_uncond.data_ptr(), eps_cond.data_ptr(), out.data_ptr(),
-                           eps_cond.numel(), scale, _DTYPES[eps_cond.dtype],
-                           _stream(eps_cond))
+                           eps_cond.numel(), scale, build.DTYPES[eps_cond.dtype],
+                           build.stream(eps_cond))
     build.check(lib, "cfg_combine", code)
     LAUNCHES["cfg_combine"] += 1
     return out
@@ -126,16 +101,16 @@ def cfg_combine_rowscale(eps_uncond, eps_cond, scales):
     rows, feat = _rows(eps_cond)
     if scales.shape != (rows,):
         raise ValueError(f"scales {tuple(scales.shape)} for {rows} rows")
-    if not _on_cuda(eps_uncond, eps_cond, scales):
+    if not build.on_cuda(eps_uncond, eps_cond, scales):
         return cfg_combine_rowscale_plain(eps_uncond, eps_cond, scales)
-    _check_kernel_inputs(eps_uncond, eps_cond)
+    build.check_inputs(eps_uncond, eps_cond)
     if scales.dtype != torch.float32 or not scales.is_contiguous():
         raise TypeError("scales must be contiguous float32")
     out = torch.empty_like(eps_cond)
     lib = build.load()
     code = lib.cfg_combine_rowscale(eps_uncond.data_ptr(), eps_cond.data_ptr(),
                                     out.data_ptr(), scales.data_ptr(), rows, feat,
-                                    _DTYPES[eps_cond.dtype], _stream(eps_cond))
+                                    build.DTYPES[eps_cond.dtype], build.stream(eps_cond))
     build.check(lib, "cfg_combine_rowscale", code)
     LAUNCHES["cfg_combine_rowscale"] += 1
     return out
@@ -150,10 +125,10 @@ def apg_combine(eps_uncond, eps_cond, scale: float, *, eta: float = 0.0,
     tensors = (eps_uncond, eps_cond) if diff is None else (eps_uncond, eps_cond, diff)
     if diff is not None and diff.shape != eps_cond.shape:
         raise ValueError(f"diff {tuple(diff.shape)} vs eps {tuple(eps_cond.shape)}")
-    if not _on_cuda(*tensors):
+    if not build.on_cuda(*tensors):
         return apg_combine_plain(eps_uncond, eps_cond, scale, eta=eta,
                                  threshold=threshold, diff=diff)
-    _check_kernel_inputs(*tensors)
+    build.check_inputs(*tensors)
     if diff is not None and diff.dtype != torch.float32:
         raise TypeError("diff must be float32")
     rows, feat = _rows(eps_cond)
@@ -162,7 +137,7 @@ def apg_combine(eps_uncond, eps_cond, scale: float, *, eta: float = 0.0,
     code = lib.apg_combine(eps_uncond.data_ptr(), eps_cond.data_ptr(),
                            None if diff is None else diff.data_ptr(), out.data_ptr(),
                            rows, feat, float(scale) - 1.0, float(eta), float(threshold),
-                           _DTYPES[eps_cond.dtype], _stream(eps_cond))
+                           build.DTYPES[eps_cond.dtype], build.stream(eps_cond))
     build.check(lib, "apg_combine", code)
     LAUNCHES["apg_combine"] += 1
     return out

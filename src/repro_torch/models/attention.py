@@ -1,5 +1,20 @@
-"""GQA attention, the direct path only. Counterpart of the parameter shapes
-of ``repro.models.attention.init_attention`` and of ``attn_forward``."""
+"""GQA attention: RoPE, qk-norm, sliding windows, linear and ring decode
+caches. Counterpart of ``repro.models.attention``.
+
+* ``attn_forward``       the direct O(S^2)-scores path, positions given (the
+                         SD text encoder's path);
+* ``attn_forward_auto``  prefill at positions ``arange(S)``: the flash
+                         kernel for CUDA tensors at every S, its plain
+                         version (the same math as ``attn_forward``) on the
+                         CPU;
+* ``attn_decode``        one token vs a linear cache, written in place, then
+                         the flash-decode kernel (CUDA) or its plain version;
+* ``attn_decode_ring``   one token vs a ring buffer of ``window`` slots,
+                         plain torch.
+
+The decoder paths take RoPE tables (``layers.rope_tables``) that the stack
+computes once per forward. Grouped-head products never replicate KV.
+"""
 
 from __future__ import annotations
 
@@ -7,9 +22,10 @@ import math
 
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.kernels import decode_attention as KD
+from repro_torch.kernels import flash_attention as KF
 from repro_torch.models import layers as L
-
-NEG_INF = -1e30
 
 
 def init_attention(cfg, mk):
@@ -39,17 +55,103 @@ def attn_forward(p, cfg, x, positions, *, causal=True, window=None):
         q, k = L.head_rmsnorm(p.q_norm, q), L.head_rmsnorm(p.k_norm, k)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    B, S, H, hd = q.shape
-    K = cfg.num_kv_heads
-    qg = q.reshape(B, S, K, H // K, hd)
-    scores = torch.einsum("bqkrh,bskh->bkrqs", qg, k).float() / math.sqrt(hd)
+    mask = None
     if causal or window is not None:
         qpos = positions[:, None, None, :, None]
         kpos = positions[:, None, None, None, :]
         mask = (kpos <= qpos) if causal else torch.ones_like(kpos <= qpos)
         if window is not None:
             mask = mask & (kpos > qpos - window)
-        scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(dt)
-    ctx = torch.einsum("bkrqs,bskh->bqkrh", w, v).reshape(B, S, H, hd)
+    ctx = KF.grouped_attention_plain(q, k, v, mask)
     return torch.einsum("bqhk,hkd->bqd", ctx, p.wo.to(dt))
+
+
+def _qkv(p, cfg, x, rope):
+    """x (B,S,D) -> q (B,S,H,hd), k, v (B,S,K,hd), contiguous, in x's dtype;
+    qk-norm, then RoPE from the (cos, sin) tables."""
+    dt = x.dtype
+    B, S, D = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p.wq.to(dt).reshape(D, H * hd)).reshape(B, S, H, hd)
+    k = (x @ p.wk.to(dt).reshape(D, K * hd)).reshape(B, S, K, hd)
+    v = (x @ p.wv.to(dt).reshape(D, K * hd)).reshape(B, S, K, hd)
+    if cfg.qk_norm:
+        q, k = L.head_rmsnorm(p.q_norm, q), L.head_rmsnorm(p.k_norm, k)
+    return L.apply_rope_tables(q, *rope), L.apply_rope_tables(k, *rope), v
+
+
+def _out_proj(p, ctx):
+    """ctx (B,Q,H,hd) -> (B,Q,D)."""
+    B, Q, H, hd = ctx.shape
+    return ctx.reshape(B, Q, H * hd) @ p.wo.to(ctx.dtype).reshape(H * hd, -1)
+
+
+def attn_forward_auto(p, cfg, x, rope, *, causal=True, window=None):
+    """Prefill at positions ``arange(S)`` (``rope`` from those). x (B,S,D)
+    -> (out (B,S,D), cache {k, v} (B,S,K,hd))."""
+    q, k, v = _qkv(p, cfg, x, rope)
+    ctx = KF.flash_attention(q, k, v, causal=causal, window=window)
+    return _out_proj(p, ctx), {"k": k, "v": v}
+
+
+def attn_decode(p, cfg, x, cache, pos: int, rope, *, window=None):
+    """One token at ``pos`` vs a linear cache {k, v} (B,S,K,hd). Writes the
+    new K/V at ``pos`` in place (the reference updates functionally), then
+    attends to keys ``<= pos`` (and inside ``window``). x (B,1,D) ->
+    (out (B,1,D), cache)."""
+    q, k_new, v_new = _qkv(p, cfg, x, rope)
+    cache["k"][:, pos] = k_new[:, 0]
+    cache["v"][:, pos] = v_new[:, 0]
+    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], pos, window=window)
+    return _out_proj(p, ctx[:, None]), cache
+
+
+def attn_decode_ring(p, cfg, x, cache, pos: int, rope, *, window: int):
+    """One token vs a ring buffer {k, v (B,W,K,hd), slot_pos (W,) int32
+    absolute positions, -1 = empty}, updated in place at slot pos % W."""
+    W = cache["k"].shape[1]
+    q, k_new, v_new = _qkv(p, cfg, x, rope)
+    slot = pos % W
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["slot_pos"][slot] = pos
+    slot_pos = cache["slot_pos"]
+    valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - window)
+    ctx = KD.decode_attention_plain(q[:, 0], cache["k"], cache["v"], pos, valid=valid)
+    return _out_proj(p, ctx[:, None]), cache
+
+
+def cache_spec(cfg, batch: int, capacity: int, *, dtype=torch.bfloat16, device=None):
+    """A zero linear decode cache {k, v (batch, capacity, K, hd)} on
+    ``device`` (None: the GPU). (Ring caches come from
+    ``cache_from_prefill``.)"""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    device = resolve_device(device)
+    return {"k": torch.zeros(batch, capacity, K, hd, dtype=dtype, device=device),
+            "v": torch.zeros(batch, capacity, K, hd, dtype=dtype, device=device)}
+
+
+def cache_from_prefill(kv, *, window: int | None, seq_len: int):
+    """Prefill {k, v} (B,S,K,hd) -> the decode cache. ``window=None``: the
+    linear cache, padded to capacity by the caller. ``window=W``: a ring of
+    W slots holding the last W positions, position p at slot p % W, in the
+    slot order of the reference's argsort. With ``seq_len < W`` the slots
+    past ``seq_len`` are empty (slot_pos -1); the reference instead returns
+    the prefill cache unpadded there (see ROADMAP C)."""
+    if window is None:
+        return kv
+    k, v = kv["k"], kv["v"]
+    W = window
+    if seq_len < W:
+        B, _, K, hd = k.shape
+        ring = {"k": k.new_zeros(B, W, K, hd), "v": v.new_zeros(B, W, K, hd),
+                "slot_pos": torch.full((W,), -1, dtype=torch.int32, device=k.device)}
+        ring["k"][:, :seq_len] = k[:, :seq_len]
+        ring["v"][:, :seq_len] = v[:, :seq_len]
+        ring["slot_pos"][:seq_len] = torch.arange(seq_len, dtype=torch.int32, device=k.device)
+        return ring
+    abs_pos = torch.arange(seq_len - W, seq_len, dtype=torch.int32, device=k.device)
+    order = torch.argsort(abs_pos % W)
+    return {"k": k[:, seq_len - W:seq_len][:, order].contiguous(),
+            "v": v[:, seq_len - W:seq_len][:, order].contiguous(),
+            "slot_pos": abs_pos[order]}

@@ -1,9 +1,12 @@
 """Common layers as functions on tensors. Counterpart of
 ``repro/models/layers.py``: each op casts its weights to the activation's
-dtype, and the norms compute in float32 and return the input's dtype."""
+dtype, and the norms compute in float32 and return the input's dtype.
+``rmsnorm`` and ``head_rmsnorm`` go through the RMSNorm kernel wrapper:
+its kernel for CUDA tensors, its plain version for CPU tensors."""
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -11,15 +14,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels import rmsnorm as KR
+
+
+def init_rmsnorm(mk, dim: int):
+    return {"scale": mk((dim,), init="ones")}
+
 
 def rmsnorm(scale, x, eps: float = 1e-6):
-    xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (y * scale.float()).to(x.dtype)
+    return KR.rmsnorm(x, scale, eps)
 
 
 def head_rmsnorm(scale, x, eps: float = 1e-6):
-    return rmsnorm(scale, x, eps)
+    """Per-head qk-norm: x (..., head_dim), scale (head_dim,)."""
+    return KR.rmsnorm(x, scale, eps)
 
 
 def layernorm(scale, bias, x, eps: float = 1e-5):
@@ -28,6 +36,10 @@ def layernorm(scale, bias, x, eps: float = 1e-5):
     var = (xf - mu).square().mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def init_embedding(mk, vocab: int, dim: int):
+    return {"table": mk((vocab, dim), scale=1.0 / math.sqrt(dim))}
 
 
 def embed(table, ids, dtype=None):
@@ -46,18 +58,47 @@ def gelu_mlp(w_in, b_in, w_out, b_out, x):
     return dense(w_out, h) + b_out.to(x.dtype)
 
 
+def init_swiglu(mk, d_model: int, d_ff: int):
+    s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
+    return {"w_gate": mk((d_model, d_ff), scale=s_in),
+            "w_up": mk((d_model, d_ff), scale=s_in),
+            "w_down": mk((d_ff, d_model), scale=s_out)}
+
+
+def swiglu(p, x):
+    """The SiLU runs in float32 and is cast back, as in the reference."""
+    g = x @ p.w_gate.to(x.dtype)
+    u = x @ p.w_up.to(x.dtype)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ p.w_down.to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """Split-halves RoPE. x (..., seq, heads, head_dim); positions (..., seq)."""
-    freqs = torch.from_numpy(rope_freqs(x.shape[-1], theta)).to(x.device)
+@functools.lru_cache(maxsize=32)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
+def rope_tables(positions, head_dim: int, theta: float = 10000.0):
+    """positions (..., seq) -> (cos, sin), each (..., seq, 1, head_dim/2)
+    float32; computed once per forward and shared by its layers."""
+    freqs = _rope_freqs_on(head_dim, float(theta), positions.device)
     angles = positions[..., :, None].float() * freqs
-    cos = torch.cos(angles)[..., :, None, :]
-    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def apply_rope_tables(x, cos, sin):
+    """Split-halves RoPE of x (..., seq, heads, head_dim) from ``rope_tables``."""
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Split-halves RoPE. x (..., seq, heads, head_dim); positions (..., seq)."""
+    return apply_rope_tables(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 def sinusoidal_embedding(positions, dim: int, max_period: float = 10000.0):
@@ -99,10 +140,15 @@ def tree_module(tree) -> nn.Module:
     frozen parameters. State-dict keys are the tree's paths joined by '.'."""
     if isinstance(tree, list):
         return nn.ModuleList([None if t is None else tree_module(t) for t in tree])
-    m = nn.Module()
+    return adopt_tree(nn.Module(), tree)
+
+
+def adopt_tree(module: nn.Module, tree: dict) -> nn.Module:
+    """Registers a dict of tensors and subtrees on ``module``, as
+    ``tree_module`` does."""
     for name, v in tree.items():
         if isinstance(v, torch.Tensor):
-            m.register_parameter(name, nn.Parameter(v, requires_grad=False))
+            module.register_parameter(name, nn.Parameter(v, requires_grad=False))
         else:
-            m.add_module(name, tree_module(v))
-    return m
+            module.add_module(name, tree_module(v))
+    return module

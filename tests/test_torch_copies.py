@@ -112,3 +112,19 @@ def test_config_fields_equal():
     assert _fields(t) == _fields(j)
     assert _fields(t.reduced()) == _fields(j.reduced())
     assert (t.resolved_head_dim, t.blocks) == (j.resolved_head_dim, j.blocks)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-14b", "yi-9b", "h2o-danube-3-4b"])
+def test_decoder_config_copies_equal(arch):
+    from repro.configs import registry as jreg
+    from repro_torch.configs import registry as treg
+    t, j = treg.get_config(arch), jreg.get_config(arch)
+    assert _fields(t) == _fields(j)
+    assert _fields(treg.get_smoke_config(arch)) == _fields(jreg.get_smoke_config(arch))
+    assert (t.resolved_head_dim, t.blocks) == (j.resolved_head_dim, j.blocks)
+
+
+def test_prompt_copies_equal():
+    from repro.data import prompts as jprompts
+    from repro_torch.data import prompts as tprompts
+    assert tprompts.PAPER_PROMPTS == jprompts.PAPER_PROMPTS

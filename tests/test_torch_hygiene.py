@@ -65,14 +65,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.configs.base import UNetConfig
     from repro_torch.core.pipeline import TEXT_VOCAB, SDPipeline
     from repro_torch.models.frontends import text_encoder_config
-    from repro_torch.models.transformer import Encoder
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models.attention import cache_spec
+    from repro_torch.models.transformer import Encoder, Transformer
     from repro_torch.models.unet import UNet
 
     cfg = UNetConfig().reduced()
     tcfg = text_encoder_config(TEXT_VOCAB, cfg.text_dim, cfg.text_len)
+    dcfg = get_smoke_config("llama3.2-1b")
     assert resolve_device("cpu") == torch.device("cpu")
     assert next(UNet.init(cfg, device="cpu").parameters()).device.type == "cpu"
     assert next(Encoder.init(tcfg, device="cpu").parameters()).device.type == "cpu"
+    assert next(Transformer.init(dcfg, device="cpu").parameters()).device.type == "cpu"
+    assert cache_spec(dcfg, 1, 4, device="cpu")["k"].device.type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise here")
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -85,6 +90,57 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         UNet.init(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         Encoder.init(tcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Transformer.init(dcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cache_spec(dcfg, 1, 4)
+
+
+def test_kernel_wrappers_take_no_plain_version_for_cuda_requests():
+    """Every wrapper decides by its tensors' device alone: CPU tensors take
+    the plain version and launch nothing; a tensor on any other device goes
+    to the kernel or raises, and without CUDA that raises."""
+    from repro_torch.kernels import cfg_combine as KC
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import rmsnorm as KR
+
+    def calls(dev):
+        z = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+        return [lambda: KC.cfg_combine(z(2, 8), z(2, 8), 3.0),
+                lambda: KC.cfg_combine_rowscale(z(2, 8), z(2, 8), z(2)),
+                lambda: KC.apg_combine(z(2, 8), z(2, 8), 3.0),
+                lambda: KF.flash_attention(z(1, 8, 2, 8), z(1, 8, 1, 8), z(1, 8, 1, 8)),
+                lambda: KD.decode_attention(z(1, 2, 8), z(1, 8, 1, 8), z(1, 8, 1, 8), 3),
+                lambda: KR.rmsnorm(z(4, 8), z(8))]
+
+    modules = (KC, KF, KD, KR)
+    for m in modules:
+        m.reset_launches()
+    for call in calls("cpu"):
+        assert call().device.type == "cpu"
+    assert sum(v for m in modules for v in m.LAUNCHES.values()) == 0
+    for call in calls("meta"):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: a CUDA request would launch")
+    for call in calls("cuda"):
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA|Torch not compiled"):
+            call()
+
+
+def test_smoke_attention_tolerance_rejects_planted_causal_faults(monkeypatch):
+    """The chip smoke holds B4/B5 to their plain versions row by row. At the
+    main path's prefill shape, its planted faults (a late K/V tile or a
+    late row's own key mis-weighted) must fail that check; here the plain
+    version's faulty outputs are built on the CPU."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(5)
+    chip_smoke._planted_faults(
+        lambda *shape, dtype=torch.float32: torch.randn(shape, generator=gen).to(dtype))
 
 
 def _smoke(cwd):
