@@ -33,7 +33,24 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    new tokens, with exact launch counts, for COND suffix fractions
    f in {0, 0.2, 0.5, 1.0}; then where its time goes (device time of a
    step from a CUDA-graph replay, beside its eager wall time) and the
-   kernels that lead a FULL step under ``torch.profiler``.
+   kernels that lead a FULL step under ``torch.profiler``;
+10. paged kernels vs plain: the four paged/ragged decode kernels against
+   their plain version at the serve path's shapes (R 16, H 32, K 8, hd 64,
+   pages of 16, a pool of 640 pages, tables of 40), positions spread over
+   the tables, a quarter of the rows at phase 0, out-of-range table
+   entries, with and without a window, and at the other dense decoders'
+   head groups (every ``block_k`` giving the same bits: the kernel has no
+   sub-page tile); each timed beside its bytes bound and its plain version;
+11. serve parity: the same arrival trace through ``ContinuousEngine`` on
+   llama3.2-1b at full width, 2 layers, on the CPU (plain versions) and the
+   GPU (kernels), both step modes and both pool dtypes, and the apg and
+   interval combines: event streams equal, tokens equal up to the first
+   step the logits do not decide;
+12. serve main path: ``ContinuousEngine`` on llama3.2-1b at full width and
+   depth, 16 requests of 128 to 512 prompt tokens and 128 new tokens
+   arriving two a tick, ragged bf16 at f in {0, 0.2, 0.5} and at f = 0.2
+   ragged int8, signature bf16 and signature int8, each after a warm-up,
+   with exact launch counts of the paged kernels.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -115,8 +132,9 @@ def bound_ms(nbytes: int, flops: int, peak: float = H100_FP32_FLOPS) -> tuple[fl
 
 
 def kernel_modules():
-    from repro_torch.kernels import cfg_combine, decode_attention, flash_attention, rmsnorm
-    return (cfg_combine, flash_attention, decode_attention, rmsnorm)
+    from repro_torch.kernels import (cfg_combine, decode_attention, flash_attention,
+                                     paged_decode_attention, rmsnorm)
+    return (cfg_combine, flash_attention, decode_attention, rmsnorm, paged_decode_attention)
 
 
 def reset_launches() -> None:
@@ -621,8 +639,18 @@ def phase_attn_kernels():
     e, _ = _err_ok("apg_combine", f"(4, {V}) f32",
                    KC.apg_combine(lu, lc, DECODE_SCALE, eta=0.3),
                    KC.apg_combine_plain(lu, lc, DECODE_SCALE, eta=0.3), rel_to_max=1e-5)
+    # the per-row form the serve engine combines with; a self-paired row
+    # (u == c) returns c
+    lu2 = lu.clone()
+    lu2[0] = lc[0]
+    out = KC.apg_combine(lu2, lc, ls, eta=0.3, threshold=2.0)
+    e2, _ = _err_ok("apg_combine", f"(4, {V}) f32 per-row scales {ls.tolist()}", out,
+                    KC.apg_combine_plain(lu2, lc, ls, eta=0.3, threshold=2.0), rel_to_max=1e-5)
+    if not torch.equal(out[0], lc[0]):
+        fail("apg_combine per-row: a u == c row must return c")
     log(f"[attn] cfg_combine and cfg_combine_rowscale (4, {V}) f32 bit-exact; apg_combine "
-        f"within 1e-5 of max|out| (max abs err {e:.3g})")
+        f"within 1e-5 of max|out| (max abs err {e:.3g}), with per-row scales too "
+        f"({e2:.3g}), u == c rows exact")
     n = B * V
     row("cfg_combine", f"(4, {V}) f32", lambda: KC.cfg_combine(lu, lc, DECODE_SCALE),
         lambda: KC.cfg_combine_plain(lu, lc, DECODE_SCALE),
@@ -632,6 +660,10 @@ def phase_attn_kernels():
         lambda: torch.lerp(lu, lc, ls[:, None]), 12 * n + 4 * B, 3 * n, H100_FP32_FLOPS)
     row("apg_combine", f"(4, {V}) f32", lambda: KC.apg_combine(lu, lc, DECODE_SCALE, eta=0.3),
         lambda: KC.apg_combine_plain(lu, lc, DECODE_SCALE, eta=0.3), None, 12 * n, 16 * n,
+        H100_FP32_FLOPS)
+    row("apg_combine", f"(4, {V}) f32, per-row scales",
+        lambda: KC.apg_combine(lu, lc, ls, eta=0.3),
+        lambda: KC.apg_combine_plain(lu, lc, ls, eta=0.3), None, 12 * n + 4 * B, 16 * n,
         H100_FP32_FLOPS)
     return rows
 
@@ -927,6 +959,403 @@ def phase_decode_profile(model, toks) -> None:
     for rank, (name, (t, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]):
         log(f"[dprofile] {rank + 1}. {t / total:.3f} of kernel time, {k}x {name[:90]}")
 
+# -- the paged serve path (llama3.2-1b) ------------------------------------------
+
+SERVE_R, SERVE_PS, SERVE_PAGES, SERVE_NB = 16, 16, 640, 40     # the serve main path
+SERVE_LENS = (128, 256, 384, 512)
+SERVE_NEW, SERVE_SCALE = 128, 3.0
+PAGED = ("ragged_paged_decode_attention", "ragged_paged_decode_attention_int8",
+         "paged_decode_attention", "paged_decode_attention_int8")
+
+
+def _paged_case(gen, dtype, int8: bool, H: int = 32, K: int = 8, hd: int = 64):
+    """Inputs of the paged kernels at the serve path's shapes: positions
+    spread over the tables' 640 keys, every fourth row at phase 0, each
+    row's live pages distinct pool pages (a few past the pool, which the
+    kernels clamp to its last page), the rest of its table past the pool."""
+    import torch
+    dev = gen.device
+    R, ps, P, nb = SERVE_R, SERVE_PS, SERVE_PAGES, SERVE_NB
+    pos = torch.linspace(0, nb * ps - 1, R, device=dev).round().int()
+    phase = (torch.arange(R, device=dev) % 4 != 0).int()
+    bt = torch.full((R, nb), P + 3, dtype=torch.int32, device=dev)
+    perm = torch.randperm(P, generator=gen, device=dev).int()
+    for r in range(R):
+        live = int(pos[r]) // ps + 1
+        bt[r, :live] = perm[(r * 37) % (P - live):][:live]
+        if r % 3 == 1:
+            bt[r, live // 2] = P + r                   # out of range inside the span
+    q = torch.randn(R, H, hd, generator=gen, device=dev).to(dtype)
+    shape = (P, ps, K, hd)
+    if int8:
+        pages = [torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(shape[:3] + (1,), generator=gen, device=dev) * 0.05 + 1e-3
+                  for _ in range(2)]
+        kv = (pages[0], scales[0], pages[1], scales[1])
+    else:
+        kv = tuple(torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+    return q, kv, bt, pos, phase
+
+
+def _paged_call(mod, name, q, kv, bt, pos, phase, **kw):
+    fn = getattr(mod, name)
+    if name.startswith("ragged"):
+        return lambda: fn(q, *kv, bt, pos, phase, **kw)
+    return lambda: fn(q, *kv, bt, pos, **kw)
+
+
+def _paged_plain(mod, name, q, kv, bt, pos, phase, **kw):
+    """The plain version on the same inputs. For int8 pages it runs on q's
+    values in float32 and rounds the result to q's dtype once, as the int8
+    kernels compute (the TPU kernels and ``ref.py``'s int8 oracle do too);
+    with a bf16 q the plain version itself would dequantize into bf16 and
+    round the scores and weights, as the reference's jnp path does."""
+    ph = phase if name.startswith("ragged") else None
+    if name.endswith("int8"):
+        k, ks, v, vs = kv
+        return lambda: mod.paged_attention_plain(q.float(), k, v, bt, pos, phase=ph,
+                                                 k_scales=ks, v_scales=vs, **kw).to(q.dtype)
+    k, v = kv
+    return lambda: mod.paged_attention_plain(q, k, v, bt, pos, phase=ph, **kw)
+
+
+def _paged_bytes(name, q, kv, pos, phase, ps: int, window=None) -> tuple[int, int]:
+    """(bytes, flops) the call must move and do. Each live row reads the K
+    and V rows of its keys [lo, pos] (lo the window's first key), and their
+    scales for int8, its q, its position and the table entries of the pages
+    those keys lie on; every row writes its out, and the ragged forms read
+    every row's phase. QK and PV take 2 flops a key, head and head dim."""
+    import torch
+    R, H, hd = q.shape
+    K = kv[0].shape[2]
+    ragged = name.startswith("ragged")
+    live = phase.bool() if ragged else torch.ones_like(pos, dtype=torch.bool)
+    hi = pos.long().clamp(max=SERVE_NB * ps - 1)
+    lo = (pos.long() - window + 1).clamp(min=0) if window else torch.zeros_like(hi)
+    span = hi >= lo
+    keys = int((hi - lo + 1)[live & span].sum())
+    entries = int((hi // ps - lo // ps + 1)[live & span].sum())
+    n_live = int(live.sum())
+    per_key = 2 * K * hd * kv[0].element_size() + (2 * K * 4 if name.endswith("int8") else 0)
+    nbytes = (keys * per_key + (n_live + R) * H * hd * q.element_size()
+              + (n_live + entries + (R if ragged else 0)) * 4)
+    return nbytes, 4 * H * hd * keys
+
+
+def phase_paged_kernels():
+    """B7-B10 against their plain version at the serve path's shapes. ->
+    {name: row} for the JSON line: bf16 (B7, B9) and int8 pages with bf16 q
+    (B8, B10), no window."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as KP
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs, worst, rows = {n: 0.0 for n in PAGED}, {}, {}
+    for dtype in (bf16, f32):
+        for int8 in (False, True):
+            q, kv, bt, pos, phase = _paged_case(gen, dtype, int8)
+            names = [n for n in PAGED if n.endswith("int8") == int8]
+            for name in names:
+                for window in (None, 64):
+                    tag = f"{str(dtype)[6:]} window={window}"
+                    out = _paged_call(KP, name, q, kv, bt, pos, phase, window=window)()
+                    ref = _paged_plain(KP, name, q, kv, bt, pos, phase, window=window)()
+                    tol = ATTN_BF16_STEPS * BF16_STEP if dtype == bf16 else 1e-5
+                    e = _err_ok(name, tag, out, ref, per_row=tol)
+                    errs[name] = max(errs[name], e[0])
+                    worst[name, dtype] = max(worst.get((name, dtype), 0.0), e[1])
+                    if name.startswith("ragged"):
+                        dead = out[phase == 0]
+                        if not torch.equal(dead, torch.zeros_like(dead)):
+                            fail(f"{name} {tag}: phase-0 rows are not exact zeros")
+                    # the kernel has no sub-page tile: every block_k gives these bits
+                    for bk in KP.block_k_candidates(SERVE_PS)[1:]:
+                        got = _paged_call(KP, name, q, kv, bt, pos, phase, window=window,
+                                          block_k=bk)()
+                        if not torch.equal(got, out):
+                            fail(f"{name} {tag}: block_k={bk} differs from whole pages")
+            log(f"[paged] {', '.join(names)} {str(dtype)[6:]} q: R={SERVE_R} H=32 K=8 hd=64 "
+                f"pages {SERVE_PAGES}x{SERVE_PS}, tables of {SERVE_NB} with out-of-range "
+                f"entries, window None/64: within tolerance; phase-0 rows exact zeros; "
+                f"block_k {KP.block_k_candidates(SERVE_PS)} bit-identical")
+    # the other dense decoders' head groups take other instantiations
+    for H, K, hd in ((40, 8, 128), (32, 4, 128), (32, 8, 120)):
+        for int8 in (False, True):
+            q, kv, bt, pos, phase = _paged_case(gen, bf16, int8, H, K, hd)
+            for name in [n for n in PAGED if n.endswith("int8") == int8]:
+                tag = f"bf16 H={H} K={K} hd={hd}"
+                out = _paged_call(KP, name, q, kv, bt, pos, phase)()
+                ref = _paged_plain(KP, name, q, kv, bt, pos, phase)()
+                e = _err_ok(name, tag, out, ref, per_row=ATTN_BF16_STEPS * BF16_STEP)
+                worst[name, bf16] = max(worst[name, bf16], e[1])
+    log("[paged] all four at H/K/hd 40/8/128, 32/4/128, 32/8/120 (bf16 q): within tolerance")
+    for (name, dtype), w in sorted(worst.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        log(f"[paged] {name} {str(dtype)[6:]}: largest error over the sweep {w:.3g} of its "
+            f"row's max|out| ({w / BF16_STEP:.2f} bf16 steps)")
+
+    for int8 in (False, True):
+        q, kv, bt, pos, phase = _paged_case(gen, bf16, int8)
+        for name in [n for n in PAGED if n.endswith("int8") == int8]:
+            kern = _paged_call(KP, name, q, kv, bt, pos, phase)
+            plain = _paged_plain(KP, name, q, kv, bt, pos, phase)
+            (ms, host_ms), (plain_ms, _) = time_ms(kern), time_ms(plain, iters=20)
+            nbytes, flops = _paged_bytes(name, q, kv, pos, phase, SERVE_PS)
+            b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_FLOPS)
+            log(f"[paged] {name} R={SERVE_R} pos 0..{SERVE_NB * SERVE_PS - 1} "
+                f"{'int8 pages, bf16 q' if int8 else 'bf16'}: device time kernel "
+                f"{ms * 1e3:.2f} us (host {host_ms * 1e3:.2f} us/call), plain "
+                f"{plain_ms * 1e3:.2f} us, library none, bound {b_ms * 1e3:.3f} us ({b_by}: "
+                f"{nbytes} B, {flops} flop)")
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                              bound_by=b_by, max_abs_err=errs[name])
+    return rows
+
+
+def _serve_requests(cfg, n: int, lens, new: int, seed: int):
+    import numpy as np
+    from repro_torch.serve import ServeRequest
+    rng = np.random.default_rng(seed)
+    return [ServeRequest(uid=f"q{i}", prompt=rng.integers(4, cfg.vocab_size, lens[i % len(lens)])
+                         .tolist(), max_new_tokens=new, guidance_scale=SERVE_SCALE,
+                         temperature=0.0, prompt_len=lens[i % len(lens)]) for i in range(n)]
+
+
+def _recording_engine():
+    """``ContinuousEngine`` keeping the logits each request's tokens came
+    from (host float32 copies: a parity run only)."""
+    from repro_torch.serve import ContinuousEngine
+
+    class Recording(ContinuousEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.logits = {}
+
+        def _sample(self, logits, uids, temps, keys, steps):
+            host = logits[:len(uids)].float().cpu()
+            for i, uid in enumerate(uids):
+                self.logits.setdefault(uid, []).append(host[i])
+            return super()._sample(logits, uids, temps, keys, steps)
+
+    return Recording
+
+
+def _decode_forwards(metrics, step_mode: str) -> int:
+    """Decode forwards of a run's steps: one per ragged step; per signature
+    step two for a FULL group and one for a COND group."""
+    if step_mode == "ragged":
+        return metrics.step_launches
+    return sum(2 * (r.n_full > 0) + (r.n_cond > 0) for r in metrics.records
+               if r.n_full + r.n_cond)
+
+
+def _paged_kernel_of(step_mode: str, kv_dtype: str) -> str:
+    return ("ragged_" if step_mode == "ragged" else "") + "paged_decode_attention" + \
+        ("_int8" if kv_dtype == "int8" else "")
+
+
+def phase_serve_parity():
+    """The same trace through the engine on the CPU (plain versions) and the
+    GPU (kernels): llama3.2-1b at full width, 2 layers, bf16 weights."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(CONFIG, num_layers=2)
+    cpu = Transformer.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                           device="cpu")
+    gpu = Transformer.from_state_dict(cfg, {k: t.cuda() for k, t in cpu.state_dict().items()})
+    Recording = _recording_engine()
+    lens, new = (24, 40, 17, 33), 12
+    arrivals = [0, 0, 1, 1, 2, 3]
+    kw = dict(kv="paged", page_size=16, num_slots=4, pass_budget=6, prompt_len=48,
+              max_new=new, stop_on_eos=False, prefills_per_tick=2, seed=0,
+              selective_fraction=0.5)
+    cases = [(s, d, {}) for s in ("ragged", "signature") for d in ("bf16", "int8")]
+    cases += [("ragged", "bf16", dict(combine="apg", apg_eta=0.3)),
+              ("ragged", "bf16", dict(combine="interval", interval=(0.25, 0.75)))]
+    for step_mode, kv_dtype, comb in cases:
+        runs = {}
+        for side, model in (("cpu", cpu), ("gpu", gpu)):
+            reqs = _serve_requests(cfg, len(arrivals), lens, new, seed=7)
+            eng = Recording(model, cfg, step_mode=step_mode, kv_dtype=kv_dtype, **comb,
+                            **kw)
+            reset_launches()
+            out = eng.serve_trace(reqs, arrivals)
+            torch.cuda.synchronize()
+            runs[side] = (eng, out, launch_counts())
+        (ce, co, cl), (ge, go, gl) = runs["cpu"], runs["gpu"]
+        tag = f"step_mode={step_mode} kv_dtype={kv_dtype} combine={eng.combine}"
+        kern = _paged_kernel_of(step_mode, kv_dtype)
+        want = cfg.num_layers * _decode_forwards(ge.metrics, step_mode)
+        if ce.metrics.trace.keys() != ge.metrics.trace.keys():
+            fail(f"sparity {tag}: event streams differ")
+        comb_kern, other = ("apg_combine", "cfg_combine_rowscale") if ge.combine == "apg" \
+            else ("cfg_combine_rowscale", "apg_combine")
+        if sum(cl.values()) != 0 or gl[kern] != want or not gl[comb_kern] or gl[other]:
+            fail(f"sparity {tag}: launches CPU {cl}, GPU {gl}; want {kern} x{want} and "
+                 f"{comb_kern} alone of the combines")
+        compared = total = 0
+        worst = 0.0
+        for uid in co:
+            a, b = co[uid], go[uid]
+            n = min(len(a), len(b))
+            mis = next((i for i in range(n) if a[i] != b[i]), n)
+            upto = min(mis + 1, n)
+            la = torch.stack(ce.logits[uid][:upto])
+            lb = torch.stack(ge.logits[uid][:upto])
+            big = la.abs().max().item()
+            err = (lb - la).abs()
+            worst = max(worst, err.max().item() / big)
+            if not err.max().item() <= SERVE_LOGIT_TOL * big:
+                fail(f"sparity {tag} {uid}: logits rel err {err.max().item() / big:.3g} "
+                     f"> {SERVE_LOGIT_TOL}")
+            top = la.argmax(-1, keepdim=True)
+            gap = la.gather(-1, top) - la
+            slack = err.gather(-1, top) + err
+            undecided = ((gap <= slack) & (torch.arange(la.shape[-1]) != top)).any(-1)
+            if mis < n and not bool(undecided[mis]):
+                fail(f"sparity {tag} {uid}: tokens part at decided step {mis}: {a} vs {b}")
+            compared += mis
+            total += n
+        log(f"[sparity] {tag}: {len(co)} requests, {ge.tick_count} ticks, events equal "
+            f"({len(ge.metrics.trace.keys())}), {kern} x{gl[kern]} "
+            f"(= {cfg.num_layers} layers x decode forwards); logits rel err {worst:.3g} "
+            f"(tol {SERVE_LOGIT_TOL}); tokens equal on {compared} of {total} before any "
+            f"undecided parting")
+
+
+SERVE_LOGIT_TOL = 3e-2   # CPU vs GPU serve logits, of max|logit| (bf16 stacks, int8 pools)
+
+
+def phase_serve_main():
+    """``ContinuousEngine`` on llama3.2-1b at full width and depth. -> (model,
+    launches per kernel summed over the counted runs, rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ContinuousEngine
+
+    t0 = time.perf_counter()
+    model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    arrivals = [i // 2 for i in range(16)]
+    log(f"[smain] {cfg.name}: {cfg.num_layers} layers, bf16, init "
+        f"{time.perf_counter() - t0:.2f} s; 16 requests, prompts {SERVE_LENS} cycling, "
+        f"{SERVE_NEW} new tokens, scale {SERVE_SCALE}, greedy, two arriving at each of "
+        f"ticks 0-7; pages of {SERVE_PS}, 8 slots, pass budget 16")
+    runs = [("ragged", "bf16", 0.0), ("ragged", "bf16", 0.2), ("ragged", "bf16", 0.5),
+            ("ragged", "int8", 0.2), ("signature", "bf16", 0.2), ("signature", "int8", 0.2)]
+    totals, rows = {}, []
+    for step_mode, kv_dtype, f in runs:
+        def engine():
+            return ContinuousEngine(model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8,
+                                    pass_budget=16, prompt_len=512, max_new=SERVE_NEW,
+                                    stop_on_eos=False, prefills_per_tick=2, seed=0,
+                                    selective_fraction=f, step_mode=step_mode,
+                                    kv_dtype=kv_dtype)
+        engine().serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
+        eng = engine()
+        reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t1 = time.perf_counter()
+        out = eng.serve_trace(reqs, arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = launch_counts()
+        m = eng.metrics
+        tokens = sum(len(v) for v in out.values())
+        if len(out) != 16 or any(len(v) != SERVE_NEW for v in out.values()) or not all(
+                0 <= t < cfg.vocab_size for v in out.values() for t in v):
+            fail(f"smain {step_mode} {kv_dtype} f={f}: results {len(out)} requests, lengths "
+                 f"{sorted({len(v) for v in out.values()})}")
+        if eng.pages.n_free != eng.pages.num_pages:
+            fail(f"smain {step_mode} {kv_dtype} f={f}: pool not balanced at drain")
+        kern = _paged_kernel_of(step_mode, kv_dtype)
+        want = cfg.num_layers * _decode_forwards(m, step_mode)
+        others = sum(counts[n] for n in PAGED if n != kern)
+        if counts[kern] != want or others:
+            fail(f"smain {step_mode} {kv_dtype} f={f}: {kern} x{counts[kern]}, want {want} "
+                 f"(= {cfg.num_layers} layers x decode forwards); other paged kernels x{others}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        row = dict(step_mode=step_mode, kv_dtype=kv_dtype, f=f, wall_s=wall,
+                   tokens_per_s=tokens / wall, ticks=m.ticks, passes=m.denoiser_passes,
+                   prefill_passes=m.prefill_passes, reclaimed=m.pages_reclaimed,
+                   peak_pages=m.peak_pages_in_use, peak_bytes=m.peak_bytes_in_use,
+                   step_launches=m.step_launches, peak_gb=peak)
+        rows.append(row)
+        log(f"[smain] {step_mode} {kv_dtype} f={f}: wall {wall:.4f} s, {tokens / wall:.1f} "
+            f"tokens/s, ticks {m.ticks}, denoiser passes {m.denoiser_passes}, prefill passes "
+            f"{m.prefill_passes}, pages reclaimed {m.pages_reclaimed}, peak pages "
+            f"{m.peak_pages_in_use}, peak bytes {m.peak_bytes_in_use}, step launches "
+            f"{m.step_launches} (compiles {m.step_compiles}), launches "
+            f"{ {k: v for k, v in counts.items() if v} }, peak device memory {peak:.2f} GB; "
+            f"first tokens {out['q0'][:6]}")
+    return model, totals, rows
+
+
+def phase_serve_profile(model) -> None:
+    """Where a steady serve tick's time goes (ragged, bf16, f = 0.2, ticks
+    20-49, eight requests in flight and no admissions): the wall and its
+    phases from the engine's tick timer over ticks 20-39, then the kernels'
+    device time over ticks 40-49 under ``torch.profiler``, and the busy
+    share, device time over wall."""
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
+    from repro_torch.serve import ContinuousEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ContinuousEngine(model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8,
+                           pass_budget=16, prompt_len=512, max_new=SERVE_NEW, stop_on_eos=False,
+                           prefills_per_tick=2, seed=0, selective_fraction=0.2)
+    reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
+    arrivals = [i // 2 for i in range(16)]
+    i = 0
+    while eng.tick_count < 40:
+        while i < len(reqs) and arrivals[i] <= eng.tick_count:
+            eng.submit(reqs[i])
+            i += 1
+        eng.tick()
+    torch.cuda.synchronize()
+    steady = eng.metrics.tick_timings[20:40]
+    wall = sum(t.duration_s for t in steady) / len(steady)
+    seg = {}
+    for t in steady:
+        for name, s in t.segment_s().items():
+            seg[name] = seg.get(name, 0.0) + s / len(steady)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            eng.tick()
+        torch.cuda.synchronize()
+    by_name, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t_, k = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t_ + e.end_ns() - e.start_ns(), k + 1)
+            n += 1
+    total = sum(t_ for t_, _ in by_name.values())
+    log(f"[sprofile] steady ragged tick (bf16, f=0.2, 8 requests in flight): wall "
+        f"{wall * 1e3:.3f} ms, of which " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in seg.items()))
+    if not total:
+        log("[sprofile] device time not measured: the profiler saw no device time")
+        return
+    dev_ms = total / 1e6 / 10
+    log(f"[sprofile] {n / 10:.0f} kernel launches and {dev_ms:.3f} ms of kernel time per tick "
+        f"(profiled); device-busy share of the unprofiled wall {dev_ms / (wall * 1e3):.4f}")
+    for rank, (name, (t_, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]):
+        log(f"[sprofile] {rank + 1}. {t_ / total:.3f} of kernel time, {k / 10:.0f}x per tick "
+            f"{name[:80]}")
+
+
 def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     smi = phase_device()
@@ -950,6 +1379,13 @@ def main() -> None:
     model, toks, ar_launches, ar_rows = phase_decode_main()
     phase_decode_breakdown(model, toks, ar_rows)
     phase_decode_profile(model, toks)
+    del model
+    torch.cuda.empty_cache()
+
+    rows.update(phase_paged_kernels())
+    phase_serve_parity()
+    model, serve_launches, _ = phase_serve_main()
+    phase_serve_profile(model)
 
     cu = "src/repro_torch/csrc/"
     kernels = {
@@ -959,16 +1395,26 @@ def main() -> None:
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:69"),
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
         "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24"),
+        "ragged_paged_decode_attention": (
+            "paged_decode_attention.cu", "src/repro/kernels/paged_decode_attention.py:276"),
+        "ragged_paged_decode_attention_int8": (
+            "paged_decode_attention.cu", "src/repro/kernels/paged_decode_attention.py:344"),
+        "paged_decode_attention": (
+            "paged_decode_attention.cu", "src/repro/kernels/paged_decode_attention.py:161"),
+        "paged_decode_attention_int8": (
+            "paged_decode_attention.cu", "src/repro/kernels/paged_decode_attention.py:214"),
     }
     out = []
     for name, (src, replaces) in kernels.items():
         sd, ar = sd_launches.get(name, 0), ar_launches.get(name, 0)
-        if sd + ar == 0:
+        sv = serve_launches.get(name, 0)
+        if sd + ar + sv == 0:
             fail(f"{name}: launched no time on the main paths")
-        log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's")
+        log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
+            f"{sv} in the serve runs'")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar, **r))
+                        launches=sd + ar + sv, **r))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

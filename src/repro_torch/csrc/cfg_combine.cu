@@ -96,15 +96,18 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
 // reduces |d|^2, |c|^2 and d.c in fp32; the threshold clamp then enters as
 // one scalar factor k on d, and d_par = (k d.c / |c|) * c / |c|. Pass 2
 // re-reads the row, which at 64 KB per row is served from L2, and writes
-// c + (s - 1) * ((k d - d_par) + eta * d_par). A row with d == 0 gives
+// c + (s - 1) * ((k d - d_par) + eta * d_par), with s the row's own scale
+// when a (rows,) scale vector is given. A row with d == 0 gives
 // c + (s - 1) * 0 == c exactly; an all-zero row stays finite through kEps.
 // Known weakness: with B <= 4 rows only B of the 132 SMs are busy.
 template <typename T>
 __global__ void apg_kernel(const T* __restrict__ u, const T* __restrict__ c,
-                           const float* __restrict__ diff, T* __restrict__ out,
-                           long long feat, float scale_m1, float eta, float threshold) {
+                           const float* __restrict__ diff, const float* __restrict__ scales,
+                           T* __restrict__ out, long long feat, float scale_m1, float eta,
+                           float threshold) {
   __shared__ float red[32];
   const long long base = blockIdx.x * feat;
+  if (scales) scale_m1 = scales[blockIdx.x] - 1.0f;
   float dd = 0.0f, cc = 0.0f, dc = 0.0f;
   for (long long j = threadIdx.x; j < feat; j += blockDim.x) {
     const float cj = to_f32(c[base + j]);
@@ -174,20 +177,23 @@ int cfg_combine_rowscale(const void* u, const void* c, void* out, const void* sc
   return launch_combine<true>(u, c, out, scales, 0.0f, rows * feat, feat, dtype, stream);
 }
 
-// diff: float32 (rows, feat) replacing c - u, or null. scale_m1 is s - 1.
-int apg_combine(const void* u, const void* c, const void* diff, void* out, long long rows,
-                long long feat, float scale_m1, float eta, float threshold, int dtype,
-                void* stream) {
+// diff: float32 (rows, feat) replacing c - u, or null. scales: float32
+// (rows,), one guidance scale per row, or null for the one scale whose
+// s - 1 is scale_m1.
+int apg_combine(const void* u, const void* c, const void* diff, const void* scales, void* out,
+                long long rows, long long feat, float scale_m1, float eta, float threshold,
+                int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* df = static_cast<const float*>(diff);
+  const float* sc = static_cast<const float*>(scales);
   if (rows <= 0) return (int)cudaGetLastError();
   if (dtype == 0) {
     apg_kernel<float><<<(unsigned)rows, kThreads, 0, st>>>(
-        static_cast<const float*>(u), static_cast<const float*>(c), df,
+        static_cast<const float*>(u), static_cast<const float*>(c), df, sc,
         static_cast<float*>(out), feat, scale_m1, eta, threshold);
   } else if (dtype == 1) {
     apg_kernel<__nv_bfloat16><<<(unsigned)rows, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(c), df,
+        static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(c), df, sc,
         static_cast<__nv_bfloat16*>(out), feat, scale_m1, eta, threshold);
   } else {
     return (int)cudaErrorInvalidValue;

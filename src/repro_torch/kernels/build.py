@@ -30,10 +30,11 @@ _P, _LL, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_i
 SIGNATURES = {
     "cfg_combine": [_P, _P, _P, _LL, _F, _I, _P],
     "cfg_combine_rowscale": [_P, _P, _P, _P, _LL, _LL, _I, _P],
-    "apg_combine": [_P, _P, _P, _P, _LL, _LL, _F, _F, _F, _I, _P],
+    "apg_combine": [_P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F, _I, _P],
     "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
 }
 # dtype codes the C entry points take
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -6,8 +6,9 @@ plain PyTorch version of each beside it.
 * ``cfg_combine_rowscale`` Eq. 1 with one scale per batch row (replaces
                            ``cfg_combine_rowscale_pallas``);
 * ``apg_combine``          APG normalised/projected guidance, arXiv 2410.02416
-                           (replaces ``apg_combine_pallas``; with ``diff`` it
-                           computes what ``apg_combine_ref`` does).
+                           (replaces ``apg_combine_pallas``; with ``diff``
+                           or a (B,) scale vector it computes what
+                           ``apg_combine_ref`` does).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. All three
@@ -44,9 +45,11 @@ def cfg_combine_rowscale_plain(eps_uncond, eps_cond, scales):
     return (u + s * (c - u)).to(eps_cond.dtype)
 
 
-def apg_combine_plain(eps_uncond, eps_cond, scale: float, *, eta: float = 0.0,
+def apg_combine_plain(eps_uncond, eps_cond, scale, *, eta: float = 0.0,
                       threshold: float = 0.0, diff=None):
     u, c = eps_uncond.float(), eps_cond.float()
+    if isinstance(scale, torch.Tensor):
+        scale = scale.float().reshape(-1, *([1] * (c.ndim - 1)))
     d = (c - u) if diff is None else diff.float()
     dims = tuple(range(1, c.ndim)) if c.ndim > 1 else (0,)
     if threshold > 0.0:
@@ -116,28 +119,37 @@ def cfg_combine_rowscale(eps_uncond, eps_cond, scales):
     return out
 
 
-def apg_combine(eps_uncond, eps_cond, scale: float, *, eta: float = 0.0,
+def apg_combine(eps_uncond, eps_cond, scale, *, eta: float = 0.0,
                 threshold: float = 0.0, diff=None):
     """APG per batch row: ``d = c - u`` (or ``diff``, float32) norm-clamped
     to ``threshold`` (0 disables), split against ``c / |c|``, and
-    ``c + (s - 1) * (d_orth + eta * d_par)``."""
+    ``c + (s - 1) * (d_orth + eta * d_par)``. ``scale`` is one float, or a
+    (B,) float32 tensor with each row's own scale."""
     _check_pair(eps_uncond, eps_cond)
-    tensors = (eps_uncond, eps_cond) if diff is None else (eps_uncond, eps_cond, diff)
+    rows, feat = _rows(eps_cond)
+    per_row = isinstance(scale, torch.Tensor)
+    if per_row and scale.shape != (rows,):
+        raise ValueError(f"scales {tuple(scale.shape)} for {rows} rows")
+    tensors = [eps_uncond, eps_cond] + [t for t in (diff, scale if per_row else None)
+                                        if t is not None]
     if diff is not None and diff.shape != eps_cond.shape:
         raise ValueError(f"diff {tuple(diff.shape)} vs eps {tuple(eps_cond.shape)}")
     if not build.on_cuda(*tensors):
         return apg_combine_plain(eps_uncond, eps_cond, scale, eta=eta,
                                  threshold=threshold, diff=diff)
-    build.check_inputs(*tensors)
+    build.check_inputs(eps_uncond, eps_cond, *([] if diff is None else [diff]))
     if diff is not None and diff.dtype != torch.float32:
         raise TypeError("diff must be float32")
-    rows, feat = _rows(eps_cond)
+    if per_row and (scale.dtype != torch.float32 or not scale.is_contiguous()):
+        raise TypeError("scales must be contiguous float32")
     out = torch.empty_like(eps_cond)
     lib = build.load()
     code = lib.apg_combine(eps_uncond.data_ptr(), eps_cond.data_ptr(),
-                           None if diff is None else diff.data_ptr(), out.data_ptr(),
-                           rows, feat, float(scale) - 1.0, float(eta), float(threshold),
-                           build.DTYPES[eps_cond.dtype], build.stream(eps_cond))
+                           None if diff is None else diff.data_ptr(),
+                           scale.data_ptr() if per_row else None, out.data_ptr(),
+                           rows, feat, 0.0 if per_row else float(scale) - 1.0, float(eta),
+                           float(threshold), build.DTYPES[eps_cond.dtype],
+                           build.stream(eps_cond))
     build.check(lib, "apg_combine", code)
     LAUNCHES["apg_combine"] += 1
     return out

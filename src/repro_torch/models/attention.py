@@ -10,7 +10,12 @@ caches. Counterpart of ``repro.models.attention``.
 * ``attn_decode``        one token vs a linear cache, written in place, then
                          the flash-decode kernel (CUDA) or its plain version;
 * ``attn_decode_ring``   one token vs a ring buffer of ``window`` slots,
-                         plain torch.
+                         plain torch;
+* ``attn_decode_paged``  one token per row vs the shared paged KV pool
+                         through block tables, per-row positions, then the
+                         paged/ragged decode kernels (CUDA) or their plain
+                         version; ``paged_scatter_prefill`` writes a
+                         batched prefill's KV into the pool.
 
 The decoder paths take RoPE tables (``layers.rope_tables``) that the stack
 computes once per forward. Grouped-head products never replicate KV.
@@ -25,6 +30,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels import flash_attention as KF
+from repro_torch.kernels import paged_decode_attention as KP
+from repro_torch.kernels.quant import quantize_kv
 from repro_torch.models import layers as L
 
 
@@ -155,3 +162,97 @@ def cache_from_prefill(kv, *, window: int | None, seq_len: int):
     return {"k": k[:, seq_len - W:seq_len][:, order].contiguous(),
             "v": v[:, seq_len - W:seq_len][:, order].contiguous(),
             "slot_pos": abs_pos[order]}
+
+
+# -- paged KV pool ---------------------------------------------------------------
+#
+# A layer's pool is {k, v: (P + 1, page_size, K, hd)}, plus for int8
+# {k_scale, v_scale: (P + 1, page_size, K, 1) float32}. Pages 0..P-1 are the
+# reference's pool; the one page past them takes every write the reference
+# drops (``mode="drop"``: padding rows, masked uncond shares, positions a
+# short prompt's table does not cover), so a dropped write never lands on a
+# real page and no write needs a host-side mask. Nothing reads it: reads go
+# through ``pool_view``, which clamps table entries into [0, P).
+
+
+def paged_cache_spec(cfg, num_pages: int, page_size: int, *, kv_dtype: str = "bf16",
+                     dtype=torch.bfloat16, device=None):
+    """One layer's zero pool of ``num_pages`` pages (and the spare page) on
+    ``device`` (None: the GPU); int8 pools carry float32 scales."""
+    if kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in ('bf16', 'int8')")
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    device = resolve_device(device)
+    shape = (num_pages + 1, page_size, K, hd)
+    vdt = torch.int8 if kv_dtype == "int8" else dtype
+    pool = {"k": torch.zeros(shape, dtype=vdt, device=device),
+            "v": torch.zeros(shape, dtype=vdt, device=device)}
+    if kv_dtype == "int8":
+        for name in ("k_scale", "v_scale"):
+            pool[name] = torch.zeros(shape[:3] + (1,), dtype=torch.float32, device=device)
+    return pool
+
+
+def pool_view(pool):
+    """The layer's P real pages, without the spare: {name: (P, ...)} views."""
+    return {name: t[:-1] for name, t in pool.items()}
+
+
+def _spare(pages, num_pages: int):
+    """Destination pages with every entry outside [0, P) sent to the spare."""
+    return torch.where((pages < 0) | (pages >= num_pages), num_pages, pages)
+
+
+def _pool_put(pool, pages, offs, name: str, vals):
+    """Write ``vals`` (n, K, hd) at (pages, offs), quantizing for int8."""
+    if "k_scale" in pool:
+        vals, scales = quantize_kv(vals)
+        pool[name + "_scale"][pages, offs] = scales
+    pool[name][pages, offs] = vals.to(pool[name].dtype)
+
+
+def attn_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, window=None, phase=None):
+    """One token per row vs the shared paged pool. x (B,1,D); block_table
+    (B, nb) int32, entries >= P are padding; pos (B,) int32 per-row
+    positions, ``rope`` from them; ``phase`` (B,) int32 marks a ragged pass
+    list, rows at phase 0 give zeros. The new K/V is written (in place) at
+    each row's position before attention, quantized for int8 pools.
+    -> (out (B,1,D), pool)."""
+    P, ps = pool["k"].shape[0] - 1, pool["k"].shape[1]
+    nb = block_table.shape[1]
+    q, k_new, v_new = _qkv(p, cfg, x, rope)
+    col = (pos // ps).long()
+    wpage = block_table.gather(1, col.clamp(max=nb - 1)[:, None])[:, 0].long()
+    wpage = _spare(torch.where(col < nb, wpage, P), P)
+    woff = (pos % ps).long()
+    _pool_put(pool, wpage, woff, "k", k_new[:, 0])
+    _pool_put(pool, wpage, woff, "v", v_new[:, 0])
+    view = pool_view(pool)
+    if "k_scale" in pool:
+        kv = (view["k"], view["k_scale"], view["v"], view["v_scale"])
+        if phase is None:
+            ctx = KP.paged_decode_attention_int8(q[:, 0], *kv, block_table, pos, window=window)
+        else:
+            ctx = KP.ragged_paged_decode_attention_int8(q[:, 0], *kv, block_table, pos, phase,
+                                                        window=window)
+    elif phase is None:
+        ctx = KP.paged_decode_attention(q[:, 0], view["k"], view["v"], block_table, pos,
+                                        window=window)
+    else:
+        ctx = KP.ragged_paged_decode_attention(q[:, 0], view["k"], view["v"], block_table, pos,
+                                               phase, window=window)
+    return _out_proj(p, ctx[:, None]), pool
+
+
+def paged_scatter_prefill(pool, cache, pages, offs):
+    """Write one layer's batched prefill KV, cache {k, v} (kb, Sb, K, hd),
+    into its pool at the flattened (kb*Sb,) destinations ``pages``,
+    ``offs``; pages outside [0, P) drop (to the spare page). int8 pools
+    quantize on write. -> pool (updated in place)."""
+    P = pool["k"].shape[0] - 1
+    pages = _spare(pages.long(), P)
+    offs = offs.long()
+    for name in ("k", "v"):
+        c = cache[name]
+        _pool_put(pool, pages, offs, name, c.reshape(-1, *c.shape[2:]))
+    return pool

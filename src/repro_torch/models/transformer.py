@@ -5,7 +5,9 @@
 * ``Transformer``  the dense decoder, every block ``attn`` or ``swa`` (RMSNorm,
                    causal GQA attention, SwiGLU): ``forward`` with caches
                    (prefill), ``decode_step``, the cache preparation between
-                   them, and the (tied) unembedding.
+                   them, ``decode_step_paged`` against the paged KV pools of
+                   ``paged_cache_specs`` (per-row positions), and the (tied)
+                   unembedding.
 
 The reference stacks the layers for a ``lax.scan``; here they are an
 ``nn.ModuleList``. The reference's sharding ``rules`` have no counterpart:
@@ -145,6 +147,27 @@ def block_decode(p, cfg, x, cache, pos: int, rope, *, window):
     return x, cache
 
 
+def block_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, window, phase=None):
+    """One-token step per row against the layer's paged pool (updated in
+    place). -> (y, pool)."""
+    h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
+    mix, pool = A.attn_decode_paged(p.attn, cfg, h, pool, block_table, pos, rope,
+                                    window=window, phase=phase)
+    x = x + mix
+    if hasattr(p, "mlp"):
+        x = x + L.swiglu(p.mlp, L.rmsnorm(p.norm2.scale, x, cfg.norm_eps))
+    return x, pool
+
+
+def paged_cache_specs(cfg, num_pages: int, page_size: int, *, kv_dtype: str = "bf16",
+                      device=None):
+    """One zero paged pool per layer (``attention.paged_cache_spec``); raises
+    ``ValueError`` for stacks the paged arena cannot hold."""
+    _check_decoder(cfg)
+    return [A.paged_cache_spec(cfg, num_pages, page_size, kv_dtype=kv_dtype, device=device)
+            for _ in range(cfg.num_layers)]
+
+
 class Transformer(nn.Module):
     """The dense decoder: tokens (B, S) -> hidden (B, S, D) in bf16 (the
     embedding is cast to bf16 on entry, as in the reference)."""
@@ -212,6 +235,22 @@ class Transformer(nn.Module):
             x, _ = block_decode(layer, self.cfg, x, cache, pos, rope,
                                 window=self._window(kind, long_ctx))
         return x, caches
+
+    def decode_step_paged(self, token_embeds, pools, block_table, pos, *, phase=None,
+                          long_ctx: bool = False):
+        """One token per row for the whole stack against the paged pools of
+        ``paged_cache_specs`` (updated in place). token_embeds (B,1,D);
+        block_table (B, nb) int32, one table per request-stream shared by
+        every layer; pos (B,) int32 per-row positions, for RoPE and the
+        masks; ``phase`` (B,) int32 marks a ragged pass list (rows at phase
+        0 are padding: zero attention output, dropped writes). -> (hidden
+        (B,1,D), pools)."""
+        x = token_embeds
+        rope = self._rope(pos[:, None])
+        for kind, layer, pool in zip(self.cfg.blocks, self.layers, pools):
+            x, _ = block_decode_paged(layer, self.cfg, x, pool, block_table, pos, rope,
+                                      window=self._window(kind, long_ctx), phase=phase)
+        return x, pools
 
     def prepare_decode_caches(self, caches, *, seq_len: int, capacity: int,
                               long_ctx: bool = False):
