@@ -8,7 +8,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 1. device: needs CUDA; prints the card's name and power limit; turns TF32
    off for matmuls and convolutions (the reference is full float32) and
    bf16 matmuls' reduced-precision reductions off;
-2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a;
+2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a and
+   logs the B4/B5 kernels' registers, shared memory and spills;
 3. kernels vs plain: each guidance-combine kernel against its plain
    PyTorch version at the main path's shapes (B, 64, 64, 4), B in {1, 2, 8},
    float32 and bfloat16, and its time beside its bytes-moved bound;
@@ -21,32 +22,38 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 6. where the time goes: component times by CUDA events, and the kernels
    that lead one generate under ``torch.profiler``;
 7. attention and norm kernels vs plain: the flash-prefill, flash-decode and
-   RMSNorm kernels against their plain versions around the decode path's
-   shapes (attention held row by row, and shown to reject planted causal
-   faults), and the three guidance-combine kernels on (4, 128256) float32
-   logits, each timed beside its bound and a library call;
+   RMSNorm kernels against their plain versions at every dense decoder's
+   head dim and group (hd 64/120/128, H/K 4/5/8), the prefill at S 77 to
+   2048 and a serve bucket (B 2, S 128), the decode at capacities 768 and
+   4096 and in its ring form (attention held row by row, and shown to
+   reject planted causal faults), and the three guidance-combine kernels on
+   (4, 128256) float32 logits, each timed beside its bound and a library
+   call;
 8. decode parity: ``guided_decode`` on llama3.2-1b at full width, 2 layers,
    on the CPU (plain versions) and the GPU (kernels), teacher-forced logits
    and margin-guarded tokens, for each combine mode;
-9. decode main path: ``guided_decode`` on llama3.2-1b at full width and
+9. ring parity: the same on h2o-danube-3-4b at full width, 2 layers, its
+   window cut to 128 under a 160-token prompt, so that every decode step
+   attends through a ring cache (the flash-decode kernel's ring form);
+10. decode main path: ``guided_decode`` on llama3.2-1b at full width and
    depth (random bf16 weights from a seed), B = 4 prompts of 512 tokens, 256
    new tokens, with exact launch counts, for COND suffix fractions
    f in {0, 0.2, 0.5, 1.0}; then where its time goes (device time of a
    step from a CUDA-graph replay, beside its eager wall time) and the
    kernels that lead a FULL step under ``torch.profiler``;
-10. paged kernels vs plain: the four paged/ragged decode kernels against
+11. paged kernels vs plain: the four paged/ragged decode kernels against
    their plain version at the serve path's shapes (R 16, H 32, K 8, hd 64,
    pages of 16, a pool of 640 pages, tables of 40), positions spread over
    the tables, a quarter of the rows at phase 0, out-of-range table
    entries, with and without a window, and at the other dense decoders'
    head groups (every ``block_k`` giving the same bits: the kernel has no
    sub-page tile); each timed beside its bytes bound and its plain version;
-11. serve parity: the same arrival trace through ``ContinuousEngine`` on
+12. serve parity: the same arrival trace through ``ContinuousEngine`` on
    llama3.2-1b at full width, 2 layers, on the CPU (plain versions) and the
    GPU (kernels), both step modes and both pool dtypes, and the apg and
    interval combines: event streams equal, tokens equal up to the first
    step the logits do not decide;
-12. serve main path: ``ContinuousEngine`` on llama3.2-1b at full width and
+13. serve main path: ``ContinuousEngine`` on llama3.2-1b at full width and
    depth, 16 requests of 128 to 512 prompt tokens and 128 new tokens
    arriving two a tick, ragged bf16 at f in {0, 0.2, 0.5} and at f = 0.2
    ragged int8, signature bf16 and signature int8, each after a warm-up,
@@ -170,15 +177,49 @@ def phase_device():
     return smi.stdout.strip().splitlines()[0]
 
 
+def _ptxas_report(text: str) -> list:
+    """-> [(kernel, registers, static shared bytes, spill stores, spill
+    loads)] from ``nvcc -Xptxas -v``'s log, one entry per kernel."""
+    import re
+    out, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out.append((name, int(m.group(1)), int(m.group(2) or 0), *spill))
+            name = None
+    return out
+
+
+# the B4/B5 kernels whose resources phase 2 reports, by the name nvcc
+# mangles into each instantiation
+REPORTED_KERNELS = ("flash_wgmma_kernel", "decode_mma_kernel", "decode_kernel")
+
+
 def phase_build():
+    import re
+
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     path, text = build.build(verbose=True)
     build.load()
     log(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.2f} s")
     for line in text.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if "error" in line.lower() or "Performance Loss" in line:
             log(f"[build] {line.strip()}")
+    for name, regs, smem, st, ld in _ptxas_report(text):
+        m = re.search("(" + "|".join(REPORTED_KERNELS) + r")I(\w*?)E(Ev|v)", name)
+        if m:
+            log(f"[build] {m.group(1)}<{m.group(2)}>: {regs} registers, {smem} bytes static "
+                f"shared memory (the rest is dynamic, sized per launch), spills {st} bytes "
+                f"stored / {ld} loaded")
 
 
 def phase_kernels():
@@ -513,7 +554,7 @@ def phase_attn_kernels():
     # versions round the scores to bf16 (as ref.py and the reference's
     # model do) and the weights once; the kernels keep the scores in
     # float32 and round p per tile (as the TPU kernels do). On an H100 this
-    # sweep's largest per-row differences were 6.31 steps (flash) and 3.97
+    # sweep's largest per-row differences were 6.10 steps (flash) and 3.58
     # (decode). float32: 1e-5.
     # RMSNorm in bf16: one step of each value; float32 1e-5 of max|out|.
     def tol(dtype):
@@ -525,38 +566,61 @@ def phase_attn_kernels():
     def note(name, dtype, e):
         errs[name] = max(errs[name], e[0])
         worst[name, dtype] = max(worst.get((name, dtype), 0.0), e[1])
-    for hd, H, K in ((64, 32, 8), (128, 40, 8)):
-        for B in (1, 4):
-            for S in (77, 512, 2048):
-                for dtype in (bf16, f32):
-                    q, k, v = rnd(B, S, H, hd, dtype=dtype), rnd(B, S, K, hd, dtype=dtype), \
-                        rnd(B, S, K, hd, dtype=dtype)
-                    for causal in (True, False):
-                        for window in (None, 256):
-                            tag = (f"hd={hd} H={H} K={K} B={B} S={S} {str(dtype)[6:]} "
-                                   f"causal={causal} window={window}")
-                            e = _err_ok("flash_attention", tag,
-                                        KF.flash_attention(q, k, v, causal=causal, window=window),
-                                        KF.flash_attention_plain(q, k, v, causal=causal,
-                                                                 window=window),
-                                        per_row=tol(dtype))
-                            note("flash_attention", dtype, e)
-        log(f"[attn] flash_attention hd={hd} H/K={H}/{K}: B in (1, 4) x S in (77, 512, 2048) "
-            f"x causal/non-causal x window None/256 x bf16/f32 within tolerance")
-        for B in (1, 4):
+    # every dense decoder's (hd, rep): llama3.2-1b (64, 4), qwen3-14b (128, 5),
+    # h2o-danube-3-4b (120, 4), yi-9b (128, 8)
+    for hd, H, K in ((64, 32, 8), (128, 40, 8), (120, 32, 8), (128, 32, 4)):
+        for B, S in ((1, 77), (1, 512), (1, 2048), (4, 77), (4, 512), (4, 2048), (2, 128)):
             for dtype in (bf16, f32):
-                q, k, v = rnd(B, H, hd, dtype=dtype), rnd(B, 768, K, hd, dtype=dtype), \
-                    rnd(B, 768, K, hd, dtype=dtype)
-                for pos in (0, 511, 767):
+                q, k, v = rnd(B, S, H, hd, dtype=dtype), rnd(B, S, K, hd, dtype=dtype), \
+                    rnd(B, S, K, hd, dtype=dtype)
+                for causal in (True, False):
                     for window in (None, 256):
-                        tag = f"hd={hd} B={B} S=768 pos={pos} window={window} {str(dtype)[6:]}"
+                        tag = (f"hd={hd} H={H} K={K} B={B} S={S} {str(dtype)[6:]} "
+                               f"causal={causal} window={window}")
+                        e = _err_ok("flash_attention", tag,
+                                    KF.flash_attention(q, k, v, causal=causal, window=window),
+                                    KF.flash_attention_plain(q, k, v, causal=causal,
+                                                             window=window),
+                                    per_row=tol(dtype))
+                        note("flash_attention", dtype, e)
+        log(f"[attn] flash_attention hd={hd} H/K={H}/{K}: (B, S) in (1|4, 77|512|2048) and "
+            f"(2, 128) x causal/non-causal x window None/256 x bf16/f32 within tolerance")
+        for B, cap, positions in ((1, 768, (0, 63, 64, 511, 767)), (4, 768, (0, 63, 64, 511, 767)),
+                                  (1, 4096, (4095,))):
+            for dtype in (bf16, f32):
+                q, k, v = rnd(B, H, hd, dtype=dtype), rnd(B, cap, K, hd, dtype=dtype), \
+                    rnd(B, cap, K, hd, dtype=dtype)
+                for pos in positions:
+                    for window in (None, 256):
+                        tag = f"hd={hd} B={B} S={cap} pos={pos} window={window} {str(dtype)[6:]}"
                         e = _err_ok("decode_attention", tag,
                                     KD.decode_attention(q, k, v, pos, window=window),
                                     KD.decode_attention_plain(q, k, v, pos, window=window),
                                     per_row=tol(dtype))
                         note("decode_attention", dtype, e)
-        log(f"[attn] decode_attention hd={hd} H/K={H}/{K}: capacity 768, pos in (0, 511, 767) "
-            f"x window None/256 x B in (1, 4) x bf16/f32 within tolerance")
+        # the ring form: W slots, position p at slot p % W, the positions past
+        # the ring's fill and eight random slots empty (-1)
+        W = 256
+        for dtype in (bf16, f32):
+            q, k, v = rnd(2, H, hd, dtype=dtype), rnd(2, W, K, hd, dtype=dtype), \
+                rnd(2, W, K, hd, dtype=dtype)
+            for pos in (150, 1000):
+                slots = torch.arange(W, device=dev, dtype=torch.int32)
+                slot_pos = pos - (pos - slots) % W
+                slot_pos = torch.where(slot_pos < 0, -1, slot_pos).to(torch.int32)
+                slot_pos[torch.randperm(W, generator=gen, device=dev)[:8]] = -1
+                slot_pos[pos % W] = pos
+                for window in (64, 256):
+                    tag = f"hd={hd} ring W={W} pos={pos} window={window} {str(dtype)[6:]}"
+                    e = _err_ok("decode_attention", tag,
+                                KD.decode_attention(q, k, v, pos, window=window, slot_pos=slot_pos),
+                                KD.decode_attention_plain(
+                                    q, k, v, pos, valid=KD.ring_valid(slot_pos, pos, window)),
+                                per_row=tol(dtype))
+                    note("decode_attention", dtype, e)
+        log(f"[attn] decode_attention hd={hd} H/K={H}/{K}: capacity 768 at pos in (0, 63, 64, 511, "
+            f"767) x B in (1, 4), capacity 4096 at pos 4095, x window None/256; ring of {W} slots "
+            f"at pos 150/1000 x window 64/256; bf16/f32 within tolerance")
     for rows, D in ((4, 2048), (2048, 2048), (4 * 32, 64)):
         for xdt, sdt in ((bf16, bf16), (bf16, f32), (f32, f32)):
             x, sc = rnd(rows, D, dtype=xdt) * 3, rnd(D, dtype=sdt)
@@ -579,10 +643,8 @@ def phase_attn_kernels():
     B, S, H, K, hd, D, cap = DECODE_B, DECODE_S, 32, 8, 64, 2048, DECODE_S + DECODE_NEW
     q, k, v = rnd(B, S, H, hd, dtype=bf16), rnd(B, S, K, hd, dtype=bf16), rnd(B, S, K, hd,
                                                                              dtype=bf16)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     qd, kc, vc = rnd(B, H, hd, dtype=bf16), rnd(B, cap, K, hd, dtype=bf16), \
         rnd(B, cap, K, hd, dtype=bf16)
-    kct, vct = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     x, sc = rnd(B, D, dtype=bf16), rnd(D, dtype=bf16)
     xp = rnd(B * S, D, dtype=bf16)
     rows = {}
@@ -598,18 +660,26 @@ def phase_attn_kernels():
         return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                     max_abs_err=errs.get(name, 0.0), host_us=host_ms * 1e3)
 
-    pairs = S * (S + 1) // 2
-    rows["flash_attention"] = row(
-        "flash_attention", f"B={B} S={S} H={H} K={K} hd={hd} bf16 causal",
-        lambda: KF.flash_attention(q, k, v), lambda: KF.flash_attention_plain(q, k, v),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-        2 * B * S * (2 * H + 2 * K) * hd, 4 * B * H * hd * pairs)
-    for pos in (DECODE_S, cap - 1):
-        mask = (torch.arange(cap, device=dev) <= pos)[None, None, None, :]
-        r = row("decode_attention", f"B={B} capacity={cap} pos={pos} H={H} K={K} hd={hd} bf16",
-                lambda: KD.decode_attention(qd, kc, vc, pos),
-                lambda: KD.decode_attention_plain(qd, kc, vc, pos),
-                lambda: F.scaled_dot_product_attention(qd[:, :, None], kct, vct, attn_mask=mask,
+    def flash_row(q, k, v):
+        Bq, Sq = q.shape[:2]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return row("flash_attention", f"B={Bq} S={Sq} H={H} K={K} hd={hd} bf16 causal",
+                   lambda: KF.flash_attention(q, k, v), lambda: KF.flash_attention_plain(q, k, v),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True),
+                   2 * Bq * Sq * (2 * H + 2 * K) * hd, 4 * Bq * H * hd * Sq * (Sq + 1) // 2)
+
+    rows["flash_attention"] = flash_row(q, k, v)
+    flash_row(*(t[:2, :128].contiguous() for t in (q, k, v)))     # a serve prefill bucket
+    kc4, vc4 = rnd(B, 4096, K, hd, dtype=bf16), rnd(B, 4096, K, hd, dtype=bf16)
+    for kk, vv, pos in ((kc, vc, DECODE_S), (kc, vc, cap - 1), (kc4, vc4, 4095)):
+        S_kv = kk.shape[1]
+        kkt, vvt = kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous()
+        mask = (torch.arange(S_kv, device=dev) <= pos)[None, None, None, :]
+        r = row("decode_attention", f"B={B} capacity={S_kv} pos={pos} H={H} K={K} hd={hd} bf16",
+                lambda: KD.decode_attention(qd, kk, vv, pos),
+                lambda: KD.decode_attention_plain(qd, kk, vv, pos),
+                lambda: F.scaled_dot_product_attention(qd[:, :, None], kkt, vvt, attn_mask=mask,
                                                        enable_gqa=True),
                 2 * (2 * B * H * hd + 2 * B * (pos + 1) * K * hd), 4 * B * H * hd * (pos + 1))
         if pos == cap - 1:
@@ -722,6 +792,51 @@ COMBINE_MODES = {"cfg": ("cfg_combine", {}),
                  "interval": ("cfg_combine_rowscale", dict(interval=(0.25, 0.75)))}
 
 
+def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None) -> str:
+    """The same ``guided_decode`` on the CPU (plain versions) and the GPU
+    (kernels, inside the context ``around_gpu()`` if given): the GPU run's
+    launch counts must equal ``want``, the teacher-forced logits agree
+    within ``LOGIT_TOL`` of max|logit|, tokens equal up to each row's first
+    step the logits do not decide. -> the log's summary."""
+    import contextlib
+
+    import torch
+    from repro_torch.core import ar_decode as AR
+
+    a, _ = AR.guided_decode(cpu, toks, plan, **kw)
+    reset_launches()
+    with (around_gpu or contextlib.nullcontext)():
+        b, _ = AR.guided_decode(gpu, toks.cuda(), plan, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != want:
+        fail(f"{tag}: launches {counts}, want {want}")
+    la = AR.teacher_forced_logits(cpu, toks, plan, a, **kw)
+    lb = AR.teacher_forced_logits(gpu, toks.cuda(), plan, a.cuda(), **kw).cpu()
+    big = la.abs().max().item()
+    err = (lb - la).abs()
+    if not err.max().item() <= LOGIT_TOL * big:
+        fail(f"{tag}: teacher-forced logits rel err {err.max().item() / big:.3g} > {LOGIT_TOL}")
+    # a step is decided where the CPU's margin of its top token over every
+    # other token exceeds the two logits' CPU-GPU differences
+    top = la.argmax(-1, keepdim=True)
+    gap = la.gather(-1, top) - la
+    slack = err.gather(-1, top) + err
+    other = torch.arange(la.shape[-1]) != top
+    undecided = ((gap <= slack) & other).any(-1)                 # (B, n_new)
+    compared = 0
+    for r in range(a.shape[0]):
+        low = undecided[r].nonzero()
+        upto = int(low[0]) if len(low) else a.shape[1]
+        if not torch.equal(a[r, :upto], b[r, :upto].cpu()):
+            fail(f"{tag}: row {r} tokens differ before step {upto}: "
+                 f"{a[r].tolist()} vs {b[r].tolist()}")
+        compared += upto
+    return (f"launches {want}; teacher-forced logits rel err {err.max().item() / big:.3g} "
+            f"(tol {LOGIT_TOL}, max|logit| {big:.3g}); tokens equal on the {compared} of "
+            f"{a.numel()} decided steps, {int((a == b.cpu()).sum())} equal overall")
+
+
 def phase_decode_parity():
     """The same ``guided_decode`` on the CPU (plain versions) and the GPU
     (kernels): llama3.2-1b at full width, 2 layers, bf16 weights, B = 2,
@@ -730,7 +845,6 @@ def phase_decode_parity():
 
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG
-    from repro_torch.core import ar_decode as AR
     from repro_torch.core.selective import GuidancePlan
     from repro_torch.data.prompts import PAPER_PROMPTS
     from repro_torch.data.tokenizer import encode_batch
@@ -748,40 +862,63 @@ def phase_decode_parity():
         f"{plan.total_steps - plan.optimized_steps} FULL + {plan.optimized_steps} COND steps; "
         f"set-up {time.perf_counter() - t0:.2f} s")
     for mode, (kernel, kw) in COMBINE_MODES.items():
-        kw = dict(kw, combine=mode)
-        a, _ = AR.guided_decode(cpu, toks, plan, **kw)
-        reset_launches()
-        b, _ = AR.guided_decode(gpu, toks.cuda(), plan, **kw)
-        torch.cuda.synchronize()
-        counts, want = launch_counts(), _expected_launches(cfg.num_layers, plan, kernel)
-        if counts != want:
-            fail(f"dparity {mode}: launches {counts}, want {want}")
-        la = AR.teacher_forced_logits(cpu, toks, plan, a, **kw)
-        lb = AR.teacher_forced_logits(gpu, toks.cuda(), plan, a.cuda(), **kw).cpu()
-        big = la.abs().max().item()
-        err = (lb - la).abs()
-        if not err.max().item() <= LOGIT_TOL * big:
-            fail(f"dparity {mode}: teacher-forced logits rel err {err.max().item() / big:.3g} "
-                 f"> {LOGIT_TOL}")
-        # a step is decided where the CPU's margin of its top token over every
-        # other token exceeds the two logits' CPU-GPU differences
-        top = la.argmax(-1, keepdim=True)
-        gap = la.gather(-1, top) - la
-        slack = err.gather(-1, top) + err
-        other = torch.arange(la.shape[-1]) != top
-        undecided = ((gap <= slack) & other).any(-1)                 # (B, n_new)
-        compared = 0
-        for r in range(a.shape[0]):
-            low = undecided[r].nonzero()
-            upto = int(low[0]) if len(low) else a.shape[1]
-            if not torch.equal(a[r, :upto], b[r, :upto].cpu()):
-                fail(f"dparity {mode}: row {r} tokens differ before step {upto}: "
-                     f"{a[r].tolist()} vs {b[r].tolist()}")
-            compared += upto
-        log(f"[dparity] {mode}: launches {want}; teacher-forced logits rel err "
-            f"{err.max().item() / big:.3g} (tol {LOGIT_TOL}, max|logit| {big:.3g}); tokens "
-            f"equal on the {compared} of {a.numel()} decided steps, "
-            f"{int((a == b.cpu()).sum())} equal overall")
+        summary = _decode_pair(f"dparity {mode}", cpu, gpu, toks, plan, dict(kw, combine=mode),
+                               _expected_launches(cfg.num_layers, plan, kernel))
+        log(f"[dparity] {mode}: {summary}")
+
+
+RING_WINDOW, RING_PROMPT = 128, 160
+
+
+def phase_ring_parity():
+    """The ring path: h2o-danube-3-4b at full width (d_model 3840, hd 120),
+    2 layers, its window cut to ``RING_WINDOW`` so that a prompt of
+    ``RING_PROMPT`` tokens and the decode run on ring caches, B = 2, 16 new
+    tokens, CPU against GPU as in the decode parity phase. Every decode
+    forward's attention must take the ring path (counted), which on the GPU
+    is the flash-decode kernel: one launch per layer and decode forward."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.h2o_danube3_4b import CONFIG
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.data.prompts import PAPER_PROMPTS
+    from repro_torch.data.tokenizer import encode_batch
+    from repro_torch.models import attention as A
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(CONFIG, num_layers=2, sliding_window=RING_WINDOW)
+    t0 = time.perf_counter()
+    cpu = Transformer.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                           device="cpu")
+    gpu = Transformer.from_state_dict(cfg, {k: t.cuda() for k, t in cpu.state_dict().items()})
+    prompts = [" ".join(PAPER_PROMPTS[i::2]) for i in range(2)]
+    toks = torch.from_numpy(encode_batch(prompts, cfg.vocab_size, RING_PROMPT)).long()
+    plan = GuidancePlan.suffix(16, 0.25, DECODE_SCALE)
+    want = _expected_launches(cfg.num_layers, plan, "cfg_combine")
+    ring_calls = [0]
+    ring = A.attn_decode_ring
+
+    def counted(*args, **kw):
+        ring_calls[0] += 1
+        return ring(*args, **kw)
+
+    @contextlib.contextmanager
+    def counting():
+        A.attn_decode_ring = counted
+        try:
+            yield
+        finally:
+            A.attn_decode_ring = ring
+    summary = _decode_pair("ring parity", cpu, gpu, toks, plan, dict(combine="cfg"), want,
+                           counting)
+    if ring_calls[0] != want["decode_attention"]:
+        fail(f"ring parity: {ring_calls[0]} ring-cache decode calls on the GPU, want "
+             f"{want['decode_attention']} (layers x decode forwards)")
+    log(f"[ring] {cfg.name} x{cfg.num_layers} layers, window {RING_WINDOW}, B=2 S={RING_PROMPT}, "
+        f"16 new tokens, the ring path: attn_decode_ring {ring_calls[0]} times in the GPU run, "
+        f"each one decode_attention launch; set-up {time.perf_counter() - t0:.2f} s; {summary}")
 
 
 def phase_decode_main():
@@ -1376,6 +1513,7 @@ def main() -> None:
 
     rows.update(phase_attn_kernels())
     phase_decode_parity()
+    phase_ring_parity()
     model, toks, ar_launches, ar_rows = phase_decode_main()
     phase_decode_breakdown(model, toks, ar_rows)
     phase_decode_profile(model, toks)

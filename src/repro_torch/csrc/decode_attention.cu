@@ -3,48 +3,77 @@
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/decode_attention.py::decode_attention_pallas: one query
-// token per row, q (B,H,hd), against a linear cache k, v (B,S,K,hd); key
-// kpos is valid iff kpos <= pos (one pos for the batch) and, with a window,
-// kpos > pos - window. fp32 softmax; p is cast to v's dtype before PV.
+// token per row, q (B,H,hd), against a cache k, v (B,S,K,hd); fp32 softmax;
+// p is cast to v's dtype before PV. A linear cache holds position kpos at
+// slot kpos, and key kpos is valid iff lo <= kpos <= pos (one pos for the
+// batch; lo = pos - window + 1 with a window, else 0). A ring cache (the
+// sliding-window decode cache) holds the position of slot s in
+// slot_pos[s] (-1: empty), and slot s is valid iff lo <= slot_pos[s] <= pos.
 //
 // What bounds it: bytes. Each valid key's K and V rows are read once and
 // used for rep = H/K query heads, about rep flops per byte.
 //
-// Design: split-K. The TPU kernel sweeps the cache in one sequential grid
-// axis; here B*K = 32 blocks would leave 100 of 132 SMs idle, so the valid
-// key range [lo, pos] is cut into chunks of kChunk keys, one block per
-// (chunk, batch, kv head). Only chunks that hold a valid key are launched,
-// and inside them only valid keys are read. A block loads its chunk's K/V
-// once into shared memory (K with an odd row stride: conflict-free), then
-// each warp takes one query head of the group: a lane owns two keys for the
-// scores, then a slice of head dims for the PV sum. It writes the chunk's
-// (m, l, acc) for each head to the scratch buffer; a second kernel combines
-// the chunks per (batch, head), acc * exp(m - M) summed over chunks, and
-// divides by l. Any capacity S: the launch covers the chunks of [lo, pos],
-// not the cache.
+// One launch, no scratch. One thread-block cluster per (batch, kv head)
+// splits the keys: the linear form's [lo, pos] (the ring form's S slots) in
+// 64-key tiles (32 at float32) from first_key, per_cta consecutive tiles per
+// block, ``cluster`` blocks (at most 8, the portable cluster size: on the
+// H100 clusters of 12 and 16 blocks cost more than they saved;
+// kernels/decode_attention.py ``decode_split_plan`` sizes the cluster from
+// the number of tiles, so pos 0 runs one block). Tiles come through a ring
+// of 16-byte cp.async copies into shared memory, in the cache's dtype, the
+// next tiles' bytes in flight while one is computed; invalid slots are
+// zero-filled, not read. The blocks end holding (m, l, acc) for each head
+// and merge through distributed shared memory: after a cluster barrier,
+// block r combines a slice of the group's rep * hd outputs from every
+// block's state and writes out; a second barrier keeps each block's shared
+// memory alive until all have read it.
 //
-// Every entry point launches on the caller's stream, allocates nothing
-// (the scratch buffer is the caller's), does not synchronise and returns
-// cudaGetLastError().
+// The math inside a tile, by one fixed rule, the dtype:
+//   * bfloat16: mma.sync tensor cores. Each warp owns 16 keys of every tile:
+//     it copies their K and V rows itself (lane i one row, so all 32 lanes
+//     issue), keeps NS - 1 tiles in flight (a ring of NS = 3 stages, 2 at
+//     hd > 128), and never waits on the other warps until the merge.
+//     S = q K^T for the group's heads padded to 16 rows (m16n8k16; ldmatrix
+//     from rows at a stride of 16 bytes past a multiple of 128, which is
+//     conflict-free), softmax on the accumulator fragment in the log2
+//     domain, p rounded to bf16 as the A fragment of PV (V by
+//     ldmatrix.trans). The block's four warp states are merged in shared
+//     memory before the cluster merge. The first version, on CUDA cores
+//     like the float32 kernel, spent most of a tile issuing instructions:
+//     per-key dot products over hd read q from shared memory for every key.
+//   * float32: CUDA cores (mma.sync would round q and K to TF32, outside
+//     float32's 1e-5). Each thread scores one key for a share of the heads
+//     (K rows at the same conflict-free stride), then each warp takes
+//     heads h = warp + 4i: the tile's max and sum over its 32 lanes and PV
+//     with each lane owning DPL contiguous head dims; a two-stage ring.
+//
+// Every entry point launches on the caller's stream, allocates nothing,
+// does not synchronise and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kChunk = 64;  // keys per block; kernels/decode_attention.py CHUNK
-constexpr int kCombineThreads = 64;
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCluster = 8;   // kernels/decode_attention.py MAX_CLUSTER
+constexpr int kMaxGroup = 32;    // query heads per kv head
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// keys per tile: 128 bytes of keys' worth per row; kernels/decode_attention.py TILE
+template <typename T> constexpr int kTile = 128 / (int)sizeof(T);
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
@@ -62,172 +91,678 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Block (chunk c, batch b * K + kv head g). ml holds (m, l) and acc holds hd
-// floats per (b, head, chunk), heads of a group adjacent.
-template <typename T, int HDV>
-__global__ void __launch_bounds__(kWarps * 32)
-partial_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               float* __restrict__ ml, float* __restrict__ accs, int S, int K, int hd, int rep,
-               int pos, int lo, int first_chunk, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                     // rep x hd
-  float* ks = qs + rep * hd;            // kChunk x (hd + 1)
-  float* vs = ks + kChunk * (hd + 1);   // kChunk x hd
-  const int c = blockIdx.x, nchunks = gridDim.x;
-  const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
-  const int k0 = (first_chunk + c) * kChunk;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kstride = hd + 1;
-
-  // q (B,H,hd): the group's heads g * rep + r are rows bg * rep + r
-  const T* qg = q + (long long)bg * rep * hd;
-  for (int i = threadIdx.x; i < rep * hd; i += blockDim.x) qs[i] = to_f32(qg[i]);
-  for (int i = threadIdx.x; i < kChunk * hd; i += blockDim.x) {
-    const int j = i / hd, d = i - j * hd;
-    const int kp = k0 + j;
-    float kx = 0.0f, vx = 0.0f;
-    if (kp >= lo && kp <= pos) {
-      const long long idx = ((b * (long long)S + kp) * K + g) * hd + d;
-      kx = to_f32(k[idx]);
-      vx = to_f32(v[idx]);
+// N values of T from 16-byte-aligned shared memory, as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_vals(const unsigned char* p, float (&out)[N]) {
+  constexpr int bytes = N * (int)sizeof(T);
+  if constexpr (bytes >= 16) {
+#pragma unroll
+    for (int c = 0; c < bytes / 16; ++c) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[c];
+      const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int e = 0; e < 16 / (int)sizeof(T); ++e) out[c * (16 / sizeof(T)) + e] = to_f32(t[e]);
     }
-    ks[j * kstride + d] = kx;
-    vs[j * hd + d] = vx;
+  } else if constexpr (bytes == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = to_f32(t[e]);
+  } else {
+    static_assert(bytes == 4, "4, 8 or a multiple of 16 bytes");
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    const T* t = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = to_f32(t[e]);
   }
-  __syncthreads();
+}
 
-  const int kp0 = k0 + lane, kp1 = k0 + 32 + lane;
-  const bool ok0 = kp0 >= lo && kp0 <= pos, ok1 = kp1 >= lo && kp1 <= pos;
-  for (int r = warp; r < rep; r += kWarps) {
-    const float* qr = qs + r * hd;
-    const float* k0r = ks + lane * kstride;
-    const float* k1r = ks + (lane + 32) * kstride;
-    float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      const float qd = qr[d];
-      s0 += qd * k0r[d];
-      s1 += qd * k1r[d];
+__device__ __forceinline__ float lane_of(const float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+
+// bytes between two K (or V) rows of a tile in shared memory
+__host__ __device__ __forceinline__ int row_stride(int hd, int elem) {
+  return (hd * elem + 127) / 128 * 128 + 16;
+}
+
+// Cluster (per_cta-tile blocks) per (batch b, kv head g) = blockIdx.y. HPW:
+// heads per warp (rep <= 4 * HPW); DPL: head dims per lane (hd <= 32 * DPL).
+// Shared memory: the K/V ring (2 stages of K then V, kTile rows each), then
+// q (rep x hd floats), the scores (rep x kTile), acc (rep x hd) and (m, l)
+// (rep x 2) of the merge.
+template <typename T, int HPW, int DPL>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              T* __restrict__ out, const int* __restrict__ slot_pos, int S, int K, int hd,
+              int rep, int pos, int lo, int first_key, int ntiles, int per_cta, float scale) {
+  constexpr int TK = kTile<T>;
+  constexpr int NHG = kThreads / TK;                  // head groups in the score pass
+  constexpr int HPA = (4 * HPW + NHG - 1) / NHG;      // heads per thread there
+  constexpr int VEC = 16 / (int)sizeof(T);            // elements per 16-byte copy
+  constexpr int KPL = TK / 32;                        // keys per lane in the softmax
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rstride = row_stride(hd, (int)sizeof(T));
+  const int stage_bytes = 2 * TK * rstride;
+  float* qs = reinterpret_cast<float*>(smem + 2 * stage_bytes);
+  float* sc = qs + rep * hd;
+  float* accs = sc + rep * TK;
+  float* mls = accs + rep * hd;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)gridDim.x;  // one cluster spans x
+  const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t_begin = rank * per_cta, t_end = min(ntiles, t_begin + per_cta);
+
+  // whether slot ``s`` holds a key this query attends to
+  auto valid = [&](int s) {
+    if (s >= S) return false;
+    const int kp = slot_pos != nullptr ? slot_pos[s] : s;
+    return kp >= lo && kp <= pos;
+  };
+
+  // this thread's copies of a tile: 16-byte chunk c of row j of K (which 0)
+  // or V (1), stepping kThreads copies at a time
+  const int cpr = hd / VEC;  // copies per row
+  const int step_j = kThreads / cpr, step_c = kThreads - step_j * cpr;
+  const int first_j = tid / cpr, first_c = tid - first_j * cpr;
+  auto issue = [&](int t, int stage) {
+    const int k0 = first_key + t * TK;
+    unsigned char* dst = smem + stage * stage_bytes;
+    int which = 0, j = first_j, c = first_c;
+    while (j >= TK) {
+      j -= TK;
+      ++which;
     }
-    s0 = ok0 ? s0 * scale : kNegInf;
-    s1 = ok1 ? s1 * scale : kNegInf;
-    // every launched chunk holds a valid key, so m is finite
-    const float m = warp_max(fmaxf(s0, s1));
-    const float p0 = expf(s0 - m), p1 = expf(s1 - m);
-    const float l = warp_sum(p0 + p1);
-    const float pv0 = round_to<T>(p0), pv1 = round_to<T>(p1);
-    float acc[HDV];
-#pragma unroll
-    for (int e = 0; e < HDV; ++e) acc[e] = 0.0f;
-    for (int j = 0; j < 32; ++j) {
-      const float pa = __shfl_sync(0xffffffffu, pv0, j);
-      const float pb = __shfl_sync(0xffffffffu, pv1, j);
-      const float* va = vs + j * hd;
-      const float* vb = vs + (j + 32) * hd;
-#pragma unroll
-      for (int e = 0; e < HDV; ++e) {
-        const int d = lane + 32 * e;
-        if (d < hd) acc[e] += pa * va[d] + pb * vb[d];
+    for (int i = tid; i < 2 * TK * cpr; i += kThreads) {
+      const int s = k0 + j;
+      const bool ok = valid(s);
+      const T* src = (which ? v : k) +
+                     ((static_cast<long long>(b) * S + (ok ? s : 0)) * K + g) * hd + c * VEC;
+      const uint32_t d = static_cast<uint32_t>(
+          __cvta_generic_to_shared(dst + which * TK * rstride + j * rstride + c * 16));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+                   "r"(ok ? 16 : 0)
+                   : "memory");
+      c += step_c;
+      j += step_j;
+      if (c >= cpr) {
+        c -= cpr;
+        ++j;
+      }
+      while (j >= TK) {
+        j -= TK;
+        ++which;
       }
     }
-    const long long row = (long long)bg * rep + r;
-    const long long slot = row * nchunks + c;
-    if (lane == 0) {
-      ml[2 * slot] = m;
-      ml[2 * slot + 1] = l;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  const T* qg = q + static_cast<long long>(bg) * rep * hd;
+  for (int i = tid; i < rep * hd; i += kThreads) qs[i] = to_f32(qg[i]);
+
+  float m[HPW], l[HPW], acc[HPW][DPL];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[i][e] = 0.0f;
+  }
+  const bool has_dims = lane * DPL < hd;
+
+  if (t_begin < t_end) issue(t_begin, 0);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) & 1;
+    if (t + 1 < t_end) {
+      issue(t + 1, stage ^ 1);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();  // tile t (and q) visible to every thread
+    const unsigned char* kt = smem + stage * stage_bytes;
+    const unsigned char* vt = kt + TK * rstride;
+    const int k0 = first_key + t * TK;
+
+    {  // scores: thread (key j, head group hg)
+      const int j = tid % TK, hg = tid / TK;
+      const bool ok = valid(k0 + j);
+      float s[HPA], s2[HPA];
+#pragma unroll
+      for (int i = 0; i < HPA; ++i) s[i] = s2[i] = 0.0f;
+      if (ok) {
+        const unsigned char* kr = kt + j * rstride;
+        for (int d = 0; d < hd; d += VEC) {
+          float kf[VEC];
+          load_vals<T, VEC>(kr + d * sizeof(T), kf);
+#pragma unroll
+          for (int i = 0; i < HPA; ++i) {
+            const int h = hg + NHG * i;
+            if (h < rep) {
+              const float4* qr = reinterpret_cast<const float4*>(qs + h * hd + d);
+#pragma unroll
+              for (int e = 0; e < VEC / 4; ++e) {
+                const float4 qv = qr[e];
+                s[i] += qv.x * kf[4 * e] + qv.y * kf[4 * e + 1];
+                s2[i] += qv.z * kf[4 * e + 2] + qv.w * kf[4 * e + 3];
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < HPA; ++i) s[i] += s2[i];
+#pragma unroll
+      for (int i = 0; i < HPA; ++i) {
+        const int h = hg + NHG * i;
+        if (h < rep) sc[h * TK + j] = ok ? s[i] * scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // softmax per head: warp takes heads warp + 4i; p replaces the scores
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+      const int h = warp + 4 * i;
+      if (h < rep) {
+        float x[KPL], mt = kNegInf;
+#pragma unroll
+        for (int kk = 0; kk < KPL; ++kk) {
+          x[kk] = sc[h * TK + lane + 32 * kk];
+          mt = fmaxf(mt, x[kk]);
+        }
+        const float mn = fmaxf(m[i], warp_max(mt));
+        const float corr = expf(m[i] - mn);
+        float ps = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KPL; ++kk) {
+          const float p = expf(x[kk] - mn);
+          ps += p;
+          sc[h * TK + lane + 32 * kk] = round_to<T>(p);
+        }
+        l[i] = l[i] * corr + warp_sum(ps);
+        m[i] = mn;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[i][e] *= corr;
+      }
+    }
+    __syncwarp();
+    if (has_dims) {
+      for (int j = 0; j < TK; j += 4) {
+        float4 pj[HPW];
+#pragma unroll
+        for (int i = 0; i < HPW; ++i) {
+          const int h = warp + 4 * i;
+          pj[i] = h < rep ? *reinterpret_cast<const float4*>(sc + h * TK + j)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float vf[DPL];
+          load_vals<T, DPL>(vt + (j + jj) * rstride + lane * DPL * sizeof(T), vf);
+#pragma unroll
+          for (int i = 0; i < HPW; ++i) {
+            const float p = lane_of(pj[i], jj);
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) acc[i][e] += p * vf[e];
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage and the scores are reused
+  }
+
+  // publish this block's (m, l, acc), then merge a slice of the outputs
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int h = warp + 4 * i;
+    if (h < rep) {
+      if (lane == 0) {
+        mls[2 * h] = m[i];
+        mls[2 * h + 1] = l[i];
+      }
+      if (has_dims) {
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) accs[h * hd + lane * DPL + e] = acc[i][e];
+      }
+    }
+  }
+  cluster.sync();
+  T* og = out + static_cast<long long>(bg) * rep * hd;
+  for (int idx = rank * kThreads + tid; idx < rep * hd; idx += csize * kThreads) {
+    const int h = idx / hd;
+    float mx = kNegInf;
+    for (int r = 0; r < csize; ++r) mx = fmaxf(mx, cluster.map_shared_rank(mls, r)[2 * h]);
+    float lsum = 0.0f, a = 0.0f;
+    for (int r = 0; r < csize; ++r) {
+      const float* rml = cluster.map_shared_rank(mls, r);
+      const float w = expf(rml[2 * h] - mx);
+      lsum += rml[2 * h + 1] * w;
+      a += cluster.map_shared_rank(accs, r)[idx] * w;
+    }
+    og[idx] = from_f32<T>(a / fmaxf(lsum, 1e-20f));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// ---- bfloat16: mma.sync tensor cores ------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices from shared memory, lane i giving a row address of
+// matrix i / 8; reg j holds (row lane/4, cols 2(lane%4), +1) of matrix j,
+// or with .trans (rows 2(lane%4), +1, col lane/4)
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// bfloat16. MT: 16-row m tiles of the group's heads (rep <= 16 * MT); D:
+// the padded head dim's bound (hdp <= D). Each warp takes 16 keys of every
+// tile (two 8-key n blocks) and keeps its own (m, l, acc) for the group's
+// rows; thread (lane) holds rows lane/4 and lane/4 + 8 of each m tile.
+// Shared memory: the K/V ring (2 stages of K then V, 64 rows each, at
+// rstride), q (16 MT rows at rstride), later reused for the warps'
+// (m, l, acc) of the merge.
+template <int MT, int D, int NS>
+__global__ void __launch_bounds__(kThreads)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                  const int* __restrict__ slot_pos, int S, int K, int hd, int rep, int pos,
+                  int lo, int first_key, int ntiles, int per_cta, float scale_log2) {
+  constexpr int TK = kTile<__nv_bfloat16>;   // 64 keys: 16 a warp
+  constexpr int NB = D / 8;                  // n blocks of the PV product at most
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hdp = (hd + 15) / 16 * 16;       // QK depth, 16 a k step
+  const int rstride = row_stride(hdp, 2);
+  const int stage_bytes = 2 * TK * rstride;
+  unsigned char* qs = smem + NS * stage_bytes;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), csize = (int)gridDim.x;  // one cluster spans x
+  const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int t_begin = rank * per_cta, t_end = min(ntiles, t_begin + per_cta);
+
+  auto valid = [&](int s) {
+    if (s >= S) return false;
+    const int kp = slot_pos != nullptr ? slot_pos[s] : s;
+    return kp >= lo && kp <= pos;
+  };
+
+  // a warp's copies of its 16 keys of tile t: lane i copies row i & 15 of K
+  // (i < 16) or V, chunk by chunk; chunks past hd and invalid slots are
+  // zero-filled (hd 120 -> 128)
+  const int cpr = hdp / 8;  // 16-byte chunks per row
+  const int which = lane >> 4, j = lane & 15;
+  const __nv_bfloat16* kv = which ? v : k;
+  auto issue = [&](int t) {
+    if (t < t_end) {
+      const int s = first_key + t * TK + warp * 16 + j;
+      const bool ok = valid(s);
+      const __nv_bfloat16* src = kv + ((static_cast<long long>(b) * S + (ok ? s : 0)) * K + g) * hd;
+      const uint32_t dst = smem_u32(smem + (t - t_begin) % NS * stage_bytes) +
+                           (which * TK + warp * 16 + j) * rstride;
+      for (int c = 0; c < cpr; ++c) {
+        const bool in = ok && c * 8 < hd;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst + c * 16),
+                     "l"(src + (in ? c * 8 : 0)), "r"(in ? 16 : 0)
+                     : "memory");
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+
+  // NS - 1 tiles in flight ahead of the one computed (empty groups past the
+  // block's last tile keep the count)
+  for (int i = 0; i < NS - 1; ++i) issue(t_begin + i);
+  // q rows of the group's heads, zero past rep and past hd
+  const __nv_bfloat16* qg = q + static_cast<long long>(bg) * rep * hd;
+  for (int i = tid; i < 16 * MT * hdp; i += kThreads) {
+    const int r = i / hdp, d = i - r * hdp;
+    reinterpret_cast<__nv_bfloat16*>(qs + r * rstride)[d] =
+        r < rep && d < hd ? qg[r * hd + d] : __float2bfloat16_rn(0.0f);
+  }
+
+  float m[MT][2], l[MT][2], o[MT][NB][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mt][h] = kNegInf;
+      l[mt][h] = 0.0f;
     }
 #pragma unroll
-    for (int e = 0; e < HDV; ++e) {
-      const int d = lane + 32 * e;
-      if (d < hd) accs[slot * hd + d] = acc[e];
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][nb][e] = 0.0f;
+
+  // ldmatrix row addresses: lane gives row (lane & 7) of matrix lane >> 3
+  const int lrow = lane & 7, lmat = lane >> 3;
+  __syncthreads();  // q visible to every warp; from here on a warp reads only its own keys
+  for (int t = t_begin; t < t_end; ++t) {
+    const int stage = (t - t_begin) % NS;
+    asm volatile("cp.async.wait_group %0;" ::"n"(NS - 2) : "memory");
+    __syncwarp();  // tile t's rows visible to the warp
+    const uint32_t kt = smem_u32(smem + stage * stage_bytes) + warp * 16 * rstride;
+    const uint32_t vt = kt + TK * rstride;
+    const int k0 = first_key + t * TK + warp * 16;
+
+    // S (16 MT rows x this warp's 16 keys) = q K^T
+    float sc[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mt][n][e] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      if (ks * 16 < hdp) {
+        // K: matrices (keys 0-7, k lo), (0-7, k hi), (8-15, lo), (8-15, hi)
+        uint32_t kb[4];
+        ldsm_x4(kt + ((lmat >> 1) * 8 + lrow) * rstride + (ks * 16 + (lmat & 1) * 8) * 2, kb);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          // q: matrices (rows 0-7, k lo), (8-15, lo), (0-7, hi), (8-15, hi)
+          uint32_t qa[4];
+          ldsm_x4(smem_u32(qs) + (mt * 16 + (lmat & 1) * 8 + lrow) * rstride +
+                      (ks * 16 + (lmat >> 1) * 8) * 2,
+                  qa);
+          mma_bf16(sc[mt][0], qa, kb[0], kb[1]);
+          mma_bf16(sc[mt][1], qa, kb[2], kb[3]);
+        }
+      }
+    }
+
+    // online softmax over the warp's 16 keys: thread's keys 2(lane%4) + e of
+    // n block n, its rows lane/4 (e < 2) and lane/4 + 8 (e >= 2)
+    bool ok[2][2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) ok[n][e] = valid(k0 + 8 * n + 2 * (lane & 3) + e);
+    uint32_t pa[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[mt][h];
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[mt][n][2 * h + e];
+            x = ok[n][e] ? x * scale_log2 : kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        mx = quad_max(mx);
+        const float corr = exp2f(m[mt][h] - mx);
+        m[mt][h] = mx;
+        float sum = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[mt][n][2 * h + e];
+            x = exp2f(x - mx);
+            sum += x;
+          }
+        l[mt][h] = l[mt][h] * corr + sum;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          o[mt][nb][2 * h] *= corr;
+          o[mt][nb][2 * h + 1] *= corr;
+        }
+      }
+      // p as the A fragment of the PV product (k = the warp's 16 keys)
+      pa[mt][0] = pack_bf16(sc[mt][0][0], sc[mt][0][1]);
+      pa[mt][1] = pack_bf16(sc[mt][0][2], sc[mt][0][3]);
+      pa[mt][2] = pack_bf16(sc[mt][1][0], sc[mt][1][1]);
+      pa[mt][3] = pack_bf16(sc[mt][1][2], sc[mt][1][3]);
+    }
+
+    // O += P V: V matrices (keys 0-7, dims n), (8-15, n), (0-7, n+8), (8-15, n+8)
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2) {
+      if (nb * 8 < hdp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vt + ((lmat & 1) * 8 + lrow) * rstride + (nb * 8 + (lmat >> 1) * 8) * 2, vb);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][nb], pa[mt], vb[0], vb[1]);
+          mma_bf16(o[mt][nb + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncwarp();  // the warp is done with this stage before it is refilled
+    issue(t + NS - 1);
+  }
+
+  // publish each warp's (m, l, acc) rows < rep in the ring's place
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  float* accs = reinterpret_cast<float*>(smem);        // [warp][rep][hd]
+  float* mls = accs + kWarps * rep * hd;                // [warp][rep][2]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = mt * 16 + h * 8 + (lane >> 2);
+      const float lsum = quad_sum(l[mt][h]);
+      if (r < rep) {
+        if ((lane & 3) == 0) {
+          mls[(warp * rep + r) * 2] = m[mt][h];
+          mls[(warp * rep + r) * 2 + 1] = lsum;
+        }
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = nb * 8 + 2 * (lane & 3) + e;
+            if (d < hd) accs[(warp * rep + r) * hd + d] = o[mt][nb][2 * h + e];
+          }
+      }
+    }
+  __syncthreads();
+  // the block's four warps merged here, so that the cluster merges one
+  // partial state per block
+  float* cacc = mls + kWarps * rep * 2;  // [rep][hd]
+  float* cml = cacc + rep * hd;          // [rep][2]
+  for (int idx = tid; idx < rep * hd; idx += kThreads) {
+    const int h = idx / hd;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, mls[(w * rep + h) * 2]);
+    float lsum = 0.0f, a = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = exp2f(mls[(w * rep + h) * 2] - mx);
+      lsum += mls[(w * rep + h) * 2 + 1] * wt;
+      a += accs[w * rep * hd + idx] * wt;
+    }
+    cacc[idx] = a;
+    if (idx - h * hd == 0) {
+      cml[2 * h] = mx;
+      cml[2 * h + 1] = lsum;
     }
   }
+  cluster.sync();
+  __nv_bfloat16* og = out + static_cast<long long>(bg) * rep * hd;
+  for (int idx = rank * kThreads + tid; idx < rep * hd; idx += csize * kThreads) {
+    const int h = idx / hd;
+    float mx = kNegInf;
+    for (int r = 0; r < csize; ++r) mx = fmaxf(mx, cluster.map_shared_rank(cml, r)[2 * h]);
+    float lsum = 0.0f, a = 0.0f;
+    for (int r = 0; r < csize; ++r) {
+      const float* rml = cluster.map_shared_rank(cml, r);
+      const float wt = exp2f(rml[2 * h] - mx);
+      lsum += rml[2 * h + 1] * wt;
+      a += cluster.map_shared_rank(cacc, r)[idx] * wt;
+    }
+    og[idx] = __float2bfloat16_rn(a / fmaxf(lsum, 1e-20f));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// One block per (b, head) row of q: combines its chunks.
-template <typename T>
-__global__ void __launch_bounds__(kCombineThreads)
-combine_kernel(const float* __restrict__ ml, const float* __restrict__ accs, T* __restrict__ out,
-               int nchunks, int hd) {
-  const long long row = blockIdx.x;
-  const float* mlr = ml + 2 * row * nchunks;
-  float mx = kNegInf;
-  for (int c = 0; c < nchunks; ++c) mx = fmaxf(mx, mlr[2 * c]);
-  float l = 0.0f;
-  for (int c = 0; c < nchunks; ++c) l += mlr[2 * c + 1] * expf(mlr[2 * c] - mx);
-  const float inv_l = 1.0f / fmaxf(l, 1e-20f);
-  const float* ar = accs + row * nchunks * hd;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float a = 0.0f;
-    for (int c = 0; c < nchunks; ++c) a += ar[(long long)c * hd + d] * expf(mlr[2 * c] - mx);
-    out[row * hd + d] = from_f32<T>(a * inv_l);
-  }
-}
-
-template <typename T, int HDV>
-int launch(const void* q, const void* k, const void* v, void* out, float* scratch, int B, int S,
-           int H, int K, int hd, int pos, int lo, int first_chunk, int nchunks, float scale,
-           cudaStream_t st) {
-  const int rep = H / K;
-  const size_t smem =
-      sizeof(float) * ((size_t)rep * hd + (size_t)kChunk * (hd + 1) + (size_t)kChunk * hd);
-  auto kernel = partial_kernel<T, HDV>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  float* ml = scratch;
-  float* accs = scratch + 2LL * B * H * nchunks;
-  kernel<<<dim3(nchunks, B * K), kWarps * 32, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), ml, accs, S,
-      K, hd, rep, pos, lo, first_chunk, scale);
-  const cudaError_t err = cudaGetLastError();
+// Launches ``kernel`` on a (cluster, blocks_y) grid of kThreads-thread
+// blocks in clusters of ``cluster`` along x.
+template <typename... Params, typename... Args>
+int cluster_launch(void (*kernel)(Params...), size_t smem, int cluster, int blocks_y,
+                   cudaStream_t st, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T><<<B * H, kCombineThreads, 0, st>>>(ml, accs, static_cast<T*>(out), nchunks,
-                                                       hd);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, blocks_y, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <int HPW, int DPL>
+int launch_f32(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
+               int B, int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
+               int per_cta, int cluster, float scale, cudaStream_t st) {
+  constexpr int TK = kTile<float>;
+  const int rep = H / K;
+  const size_t smem = 2 * 2 * (size_t)TK * row_stride(hd, 4) +
+                      sizeof(float) * ((size_t)2 * rep * hd + (size_t)rep * TK + 2 * rep);
+  return cluster_launch(decode_kernel<float, HPW, DPL>, smem, cluster, B * K, st,
+                        static_cast<const float*>(q), static_cast<const float*>(k),
+                        static_cast<const float*>(v), static_cast<float*>(out), slot_pos, S, K,
+                        hd, rep, pos, lo, first_key, ntiles, per_cta, scale);
+}
+
+template <int MT, int D, int NS>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
+                int B, int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
+                int per_cta, int cluster, float scale, cudaStream_t st) {
+  constexpr int TK = kTile<__nv_bfloat16>;
+  const int rep = H / K;
+  const size_t rs = row_stride((hd + 15) / 16 * 16, 2);
+  const size_t tiles_and_q = NS * 2 * TK * rs + 16 * MT * rs;
+  const size_t merge = sizeof(float) * (kWarps + 1) * rep * ((size_t)hd + 2);
+  return cluster_launch(decode_mma_kernel<MT, D, NS>, tiles_and_q > merge ? tiles_and_q : merge,
+                        cluster, B * K, st, static_cast<const __nv_bfloat16*>(q),
+                        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+                        static_cast<__nv_bfloat16*>(out), slot_pos, S, K, hd, rep, pos, lo,
+                        first_key, ntiles, per_cta, scale * kLog2e);
+}
+
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, float* scratch, int B,
-             int S, int H, int K, int hd, int pos, int lo, int first_chunk, int nchunks,
-             float scale, cudaStream_t st) {
-#define DECODE_LAUNCH(HDV)                                                                    \
-  return launch<T, HDV>(q, k, v, out, scratch, B, S, H, K, hd, pos, lo, first_chunk, nchunks, \
-                        scale, st)
-  if (hd <= 32) DECODE_LAUNCH(1);
-  if (hd <= 64) DECODE_LAUNCH(2);
-  if (hd <= 128) DECODE_LAUNCH(4);
-  DECODE_LAUNCH(8);
-#undef DECODE_LAUNCH
+int dispatch(const void* q, const void* k, const void* v, void* out, const int* slot_pos, int B,
+             int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
+             int per_cta, int cluster, float scale, cudaStream_t st) {
+  constexpr int TK = kTile<T>;
+  // the plan must cover the keys exactly: [lo, pos] or the ring's S slots
+  const bool plan_ok =
+      slot_pos != nullptr
+          ? first_key == 0 && ntiles == (S + TK - 1) / TK
+          : pos < S && first_key == lo - lo % TK && first_key + (ntiles - 1) * TK <= pos &&
+                pos < first_key + ntiles * TK;
+  if (!plan_ok || per_cta < 1 || cluster < 1 || cluster > kMaxCluster ||
+      (cluster - 1) * per_cta >= ntiles || ntiles > cluster * per_cta)
+    return (int)cudaErrorInvalidValue;
+  const int rep = H / K;
+#define DECODE_ARGS \
+  q, k, v, out, slot_pos, B, S, H, K, hd, pos, lo, first_key, ntiles, per_cta, cluster, scale, st
+  if constexpr (sizeof(T) == 2) {
+    const int hdp = (hd + 15) / 16 * 16;
+    if (rep <= 16) {
+      if (hdp <= 64) return launch_bf16<1, 64, 3>(DECODE_ARGS);
+      if (hdp <= 128) return launch_bf16<1, 128, 3>(DECODE_ARGS);
+      return launch_bf16<1, 256, 2>(DECODE_ARGS);
+    }
+    if (hdp <= 64) return launch_bf16<2, 64, 3>(DECODE_ARGS);
+    if (hdp <= 128) return launch_bf16<2, 128, 3>(DECODE_ARGS);
+    return launch_bf16<2, 256, 2>(DECODE_ARGS);
+  } else {
+#define DECODE_DIMS(HPW)                                 \
+  if (hd <= 64) return launch_f32<HPW, 2>(DECODE_ARGS);  \
+  if (hd <= 128) return launch_f32<HPW, 4>(DECODE_ARGS); \
+  return launch_f32<HPW, 8>(DECODE_ARGS)
+    if (rep <= 4) { DECODE_DIMS(1); }
+    if (rep <= 8) { DECODE_DIMS(2); }
+    DECODE_DIMS(8);
+#undef DECODE_DIMS
+  }
+#undef DECODE_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, out: (B,H,hd); k, v: (B,S,K,hd); all contiguous, dtype 0 = float32 or
-// 1 = bfloat16; H % K == 0; hd a multiple of 8, at most 256. Valid keys are
-// [lo, pos], 0 <= lo <= pos < S; they lie in chunks first_chunk ..
-// first_chunk + nchunks - 1 of kChunk keys. scratch: float32,
-// B * H * nchunks * (hd + 2) elements.
-int decode_attention(const void* q, const void* k, const void* v, void* out, void* scratch,
-                     int B, int S, int H, int K, int hd, int pos, int lo, int first_chunk,
-                     int nchunks, float scale, int dtype, void* stream) {
+// q, out: (B,H,hd); k, v: (B,S,K,hd); all contiguous, k and v 16-byte
+// aligned; dtype 0 = float32 or 1 = bfloat16; H % K == 0 with H / K <= 32;
+// hd a multiple of 8, at most 256. slot_pos: null for a linear cache (then
+// pos < S), else (S,) int32 slot positions of a ring. Valid keys' positions
+// are [lo, pos], 0 <= lo <= pos. The split (first_key, ntiles, per_cta,
+// cluster) is kernels/decode_attention.py ``decode_split_plan``'s, in
+// tiles of 64 keys (bfloat16) or 32 (float32).
+int decode_attention(const void* q, const void* k, const void* v, void* out, const void* slot_pos,
+                     int B, int S, int H, int K, int hd, int pos, int lo, int first_key,
+                     int ntiles, int per_cta, int cluster, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0) return (int)cudaGetLastError();
-  if (K <= 0 || H % K != 0 || hd <= 0 || hd % 8 != 0 || hd > 256 || pos < 0 || pos >= S ||
-      lo < 0 || lo > pos || first_chunk != lo / kChunk ||
-      nchunks != pos / kChunk - first_chunk + 1)
+  if (K <= 0 || H % K != 0 || H / K > kMaxGroup || hd <= 0 || hd % 8 != 0 || hd > 256 ||
+      S <= 0 || pos < 0 || lo < 0 || lo > pos)
     return (int)cudaErrorInvalidValue;
-  float* sc = static_cast<float*>(scratch);
+  const int* sp = static_cast<const int*>(slot_pos);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, sc, B, S, H, K, hd, pos, lo, first_chunk, nchunks,
-                           scale, st);
+    return dispatch<float>(q, k, v, out, sp, B, S, H, K, hd, pos, lo, first_key, ntiles, per_cta,
+                           cluster, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, sc, B, S, H, K, hd, pos, lo, first_chunk,
-                                   nchunks, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, out, sp, B, S, H, K, hd, pos, lo, first_key, ntiles,
+                                   per_cta, cluster, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -32,8 +32,8 @@ SIGNATURES = {
     "cfg_combine_rowscale": [_P, _P, _P, _P, _LL, _LL, _I, _P],
     "apg_combine": [_P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F, _I, _P],
     "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
+    "decode_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
     "paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
 }
 # dtype codes the C entry points take
@@ -139,6 +139,14 @@ def check_inputs(*tensors) -> None:
             raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel takes contiguous tensors")
+
+
+def check_aligned(*tensors) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels'
+    16-byte and TMA copies need it)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("kernel takes tensors that start on a 16-byte boundary")
 
 
 def check(lib, name: str, code: int) -> None:

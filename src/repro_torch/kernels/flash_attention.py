@@ -5,13 +5,16 @@
 GQA attention of q (B,S,H,hd) over k, v (B,S,K,hd) at positions
 ``arange(S)``, causal and/or sliding-window masked, float32 softmax, out in
 q's dtype. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. Unlike the TPU kernel, S need not divide by a tile: the
-kernel masks its tails. ``LAUNCHES`` counts kernel launches.
+kernel or raises: bfloat16 the warpgroup tensor-core kernel, float32 the
+CUDA-core one (the dtype is the one rule). Unlike the TPU kernel, S need not
+divide by a tile: the kernels mask their tails. ``flash_tile_plan`` is the
+bfloat16 kernel's launch plan. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -21,6 +24,26 @@ LAUNCHES = {"flash_attention": 0}
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32     # query heads per kv head that one kernel block holds
+ROWS = 64          # query rows per block: one consumer warpgroup's wgmma tile
+PAD = 64           # hd is padded to a multiple of this in shared memory (128-byte rows)
+
+
+class FlashPlan(NamedTuple):
+    """A bfloat16 launch: each block holds ``positions`` x rep query rows
+    (``rows`` <= ``ROWS``) of one kv head's group, head dims padded to
+    ``hd_pad`` in shared memory; ``q_tiles`` blocks per (batch, kv head)."""
+    rows: int
+    positions: int
+    hd_pad: int
+    q_tiles: int
+
+
+def flash_tile_plan(S: int, H: int, K: int, hd: int) -> FlashPlan:
+    rep = H // K
+    if H % K or not 1 <= rep <= MAX_GROUP:
+        raise ValueError(f"H {H}, K {K}: need H % K == 0 and H/K in [1, {MAX_GROUP}]")
+    bq = ROWS // rep
+    return FlashPlan(bq * rep, bq, -(-hd // PAD) * PAD, -(-S // bq))
 
 
 def reset_launches() -> None:
@@ -80,11 +103,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     if hd % 8 or hd > MAX_HEAD_DIM or H // K > MAX_GROUP:
         raise ValueError(f"kernel takes hd a multiple of 8 up to {MAX_HEAD_DIM} and H/K up "
                          f"to {MAX_GROUP}, got hd {hd}, H/K {H // K}")
+    build.check_aligned(q, k, v)
+    plan = flash_tile_plan(S, H, K, hd)
     out = torch.empty_like(q)
     lib = build.load()
     code = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                B, S, H, K, hd, int(causal), window or 0, 1.0 / math.sqrt(hd),
-                               build.DTYPES[q.dtype], build.stream(q))
+                               build.DTYPES[q.dtype], plan.positions, build.stream(q))
     build.check(lib, "flash_attention", code)
     LAUNCHES["flash_attention"] += 1
     return out

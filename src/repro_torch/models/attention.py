@@ -10,7 +10,8 @@ caches. Counterpart of ``repro.models.attention``.
 * ``attn_decode``        one token vs a linear cache, written in place, then
                          the flash-decode kernel (CUDA) or its plain version;
 * ``attn_decode_ring``   one token vs a ring buffer of ``window`` slots,
-                         plain torch;
+                         written in place, then the flash-decode kernel's
+                         ring form (CUDA) or its plain version;
 * ``attn_decode_paged``  one token per row vs the shared paged KV pool
                          through block tables, per-row positions, then the
                          paged/ragged decode kernels (CUDA) or their plain
@@ -122,9 +123,8 @@ def attn_decode_ring(p, cfg, x, cache, pos: int, rope, *, window: int):
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
     cache["slot_pos"][slot] = pos
-    slot_pos = cache["slot_pos"]
-    valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - window)
-    ctx = KD.decode_attention_plain(q[:, 0], cache["k"], cache["v"], pos, valid=valid)
+    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], pos, window=window,
+                              slot_pos=cache["slot_pos"])
     return _out_proj(p, ctx[:, None]), cache
 
 
