@@ -9,7 +9,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    off for matmuls and convolutions (the reference is full float32) and
    bf16 matmuls' reduced-precision reductions off;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a and
-   logs the B4/B5 kernels' registers, shared memory and spills;
+   logs the B1/B3, B4, B5 and B6 kernels' registers, shared memory and
+   spills (a B1/B3 or B6 instantiation that spills fails);
 3. kernels vs plain: each guidance-combine kernel against its plain
    PyTorch version at the main path's shapes (B, 64, 64, 4), B in {1, 2, 8},
    float32 and bfloat16, and its time beside its bytes-moved bound;
@@ -26,9 +27,14 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    head dim and group (hd 64/120/128, H/K 4/5/8), the prefill at S 77 to
    2048 and a serve bucket (B 2, S 128), the decode at capacities 768 and
    4096 and in its ring form (attention held row by row, and shown to
-   reject planted causal faults), and the three guidance-combine kernels on
-   (4, 128256) float32 logits, each timed beside its bound and a library
-   call;
+   reject planted causal faults), RMSNorm timed at 4, 16, 256 and 2048 rows
+   of 2048, and the three guidance-combine kernels on (4, 128256) float32
+   logits, each timed beside its bound and a library call; then the
+   latency-bound kernels: RMSNorm over rows {1 .. 4097} x dims {64 .. 8192}
+   x the four x/scale dtype pairs (its route logged), Eq. 1 and its per-row
+   form bit-exact on ragged lengths and unaligned views, and B1, B3 and B6
+   timed in turns against ``torch.lerp`` and ``F.rms_norm`` (median and
+   min-max of six each);
 8. decode parity: ``guided_decode`` on llama3.2-1b at full width, 2 layers,
    on the CPU (plain versions) and the GPU (kernels), teacher-forced logits
    and margin-guarded tokens, for each combine mode;
@@ -37,10 +43,11 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    attends through a ring cache (the flash-decode kernel's ring form);
 10. decode main path: ``guided_decode`` on llama3.2-1b at full width and
    depth (random bf16 weights from a seed), B = 4 prompts of 512 tokens, 256
-   new tokens, with exact launch counts, for COND suffix fractions
-   f in {0, 0.2, 0.5, 1.0}; then where its time goes (device time of a
-   step from a CUDA-graph replay, beside its eager wall time) and the
-   kernels that lead a FULL step under ``torch.profiler``;
+   new tokens, with exact launch counts (RMSNorm's split by rows), for COND
+   suffix fractions f in {0, 0.2, 0.5, 1.0}; then where its time goes
+   (device time of a step from a CUDA-graph replay, beside its eager wall
+   time) and the kernels that lead a FULL step under ``torch.profiler``,
+   with RMSNorm's and Eq. 1's shares;
 11. paged kernels vs plain: the four paged/ragged decode kernels against
    their plain version at the serve path's shapes (R 16, H 32, K 8, hd 64,
    pages of 16, a pool of 640 pages, tables of 40), positions spread over
@@ -57,7 +64,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    depth, 16 requests of 128 to 512 prompt tokens and 128 new tokens
    arriving two a tick, ragged bf16 at f in {0, 0.2, 0.5} and at f = 0.2
    ragged int8, signature bf16 and signature int8, each after a warm-up,
-   with exact launch counts of the paged kernels.
+   with exact launch counts of the paged kernels and RMSNorm's launches by
+   rows; then a steady tick under ``torch.profiler``, with RMSNorm's share.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -153,6 +161,33 @@ def launch_counts() -> dict:
     return {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
+class _NormCensus:
+    """Counts the RMSNorm kernel's launches by (rows, dim) while active: the
+    wrapper is swapped for one that counts each CUDA call and calls it."""
+
+    def __init__(self):
+        self.by_shape = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import rmsnorm as KR
+        self._inner = inner = KR.rmsnorm
+
+        def counted(x, scale, eps=1e-6):
+            if x.is_cuda and x.numel():
+                key = (x.numel() // x.shape[-1], x.shape[-1])
+                self.by_shape[key] = self.by_shape.get(key, 0) + 1
+            return inner(x, scale, eps)
+        KR.rmsnorm = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import rmsnorm as KR
+        KR.rmsnorm = self._inner
+
+    def summary(self) -> str:
+        return ", ".join(f"{r}x{d}: {n}" for (r, d), n in sorted(self.by_shape.items()))
+
+
 # -- phases ----------------------------------------------------------------------
 
 
@@ -198,9 +233,28 @@ def _ptxas_report(text: str) -> list:
     return out
 
 
-# the B4/B5 kernels whose resources phase 2 reports, by the name nvcc
-# mangles into each instantiation
-REPORTED_KERNELS = ("flash_wgmma_kernel", "decode_mma_kernel", "decode_kernel")
+# the kernels whose resources phase 2 reports, by the name nvcc mangles into
+# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B6) must not spill
+REPORTED_KERNELS = ("flash_wgmma_kernel", "decode_mma_kernel", "decode_kernel",
+                    "combine_kernel", "rmsnorm_kernel")
+NO_SPILL_KERNELS = ("combine_kernel", "rmsnorm_kernel")
+
+
+def _template_args(mangled: str) -> str:
+    """A readable form of an instantiation's mangled template arguments;
+    what it does not know it leaves mangled."""
+    import re
+    words = {"f": "float", "j": "uint32", "y": "uint64", "13__nv_bfloat16": "bf16",
+             "Lb0E": "false", "Lb1E": "true"}
+    out, last_type = [], ""
+    for m in re.finditer(r"13__nv_bfloat16|S\d*_|Lb[01]E|Li(\d+)E|[fjy]|.+?", mangled):
+        if m.group(0)[0] == "S":               # a substitution: the type named before
+            out.append(last_type)
+            continue
+        out.append(m.group(1) or words.get(m.group(0), m.group(0)))
+        if m.group(0) in ("f", "13__nv_bfloat16"):
+            last_type = out[-1]
+    return ",".join(out)
 
 
 def phase_build():
@@ -214,12 +268,19 @@ def phase_build():
     for line in text.splitlines():
         if "error" in line.lower() or "Performance Loss" in line:
             log(f"[build] {line.strip()}")
+    spilled = []
     for name, regs, smem, st, ld in _ptxas_report(text):
         m = re.search("(" + "|".join(REPORTED_KERNELS) + r")I(\w*?)E(Ev|v)", name)
         if m:
-            log(f"[build] {m.group(1)}<{m.group(2)}>: {regs} registers, {smem} bytes static "
-                f"shared memory (the rest is dynamic, sized per launch), spills {st} bytes "
-                f"stored / {ld} loaded")
+            log(f"[build] {m.group(1)}<{_template_args(m.group(2))}>: {regs} registers, {smem} "
+                f"bytes static shared memory (the rest is dynamic, sized per launch), spills "
+                f"{st} bytes stored / {ld} loaded")
+            if m.group(1) in NO_SPILL_KERNELS and st + ld:
+                spilled.append(f"{m.group(1)}<{m.group(2)}>")
+    if not text:
+        log("[build] the library was built before: no register report")
+    if spilled:
+        fail(f"B1/B3/B6 instantiations spill registers: {spilled}")
 
 
 def phase_kernels():
@@ -494,6 +555,10 @@ def phase_profile(pipe) -> None:
 # -- guided AR decode (llama3.2-1b) ----------------------------------------------
 
 DECODE_B, DECODE_S, DECODE_NEW = 4, 512, 256     # the decode main path
+# B6's timed shapes at llama3.2-1b's d_model: rows and where the main paths
+# give them
+NORM_SHAPES = ((4, "decode"), (16, "a serve ragged tick"), (256, "a serve prefill bucket"),
+               (2048, "decode prefill"))
 DECODE_SCALE = 3.0
 LOGIT_TOL = 2e-2    # CPU vs GPU logits, relative to max|logit| (bf16 stacks)
 
@@ -645,8 +710,7 @@ def phase_attn_kernels():
                                                                              dtype=bf16)
     qd, kc, vc = rnd(B, H, hd, dtype=bf16), rnd(B, cap, K, hd, dtype=bf16), \
         rnd(B, cap, K, hd, dtype=bf16)
-    x, sc = rnd(B, D, dtype=bf16), rnd(D, dtype=bf16)
-    xp = rnd(B * S, D, dtype=bf16)
+    sc = rnd(D, dtype=bf16)
     rows = {}
 
     def row(name, tag, kern, plain, lib, nbytes, flops, peak=H100_BF16_FLOPS):
@@ -684,12 +748,15 @@ def phase_attn_kernels():
                 2 * (2 * B * H * hd + 2 * B * (pos + 1) * K * hd), 4 * B * H * hd * (pos + 1))
         if pos == cap - 1:
             rows["decode_attention"] = r
-    for xs, tag in ((x, f"rows={B} D={D} (decode)"), (xp, f"rows={B * S} D={D} (prefill)")):
+    for n_rows, what in NORM_SHAPES:
+        xs = rnd(n_rows, D, dtype=bf16)
         n = xs.numel()
-        r = row("rmsnorm", f"{tag} bf16, bf16 scale",
+        plan = KR.rmsnorm_plan(n_rows, D, bf16)
+        r = row("rmsnorm", f"rows={n_rows} D={D} ({what}) bf16, bf16 scale, {plan.route} "
+                f"{plan.threads}x{plan.vecs}x{plan.rows_per_block}",
                 lambda: KR.rmsnorm(xs, sc, 1e-5), lambda: KR.rmsnorm_plain(xs, sc, 1e-5),
                 lambda: F.rms_norm(xs, (D,), sc, 1e-5), 2 * (2 * n + D), 4 * n)
-        if xs is x:
+        if n_rows == DECODE_B:
             rows["rmsnorm"] = r
 
     # B1-B3 on the decode path's logits: (B, V) float32; B3's rows at 1.0
@@ -736,6 +803,130 @@ def phase_attn_kernels():
         lambda: KC.apg_combine_plain(lu, lc, ls, eta=0.3), None, 12 * n + 4 * B, 16 * n,
         H100_FP32_FLOPS)
     return rows
+
+
+def phase_latency_sweeps():
+    """B6 against its plain version over rows {1, 4, 8, 16, 17, 256, 2048,
+    4097} x dims {64, 120, 128, 2048, 3840, 4096, 5120, 8192} x the four
+    x/scale dtype pairs, logging each case's route; B1 and B3 bit-exact on
+    ragged lengths (a partial last vector) and on views that are not 16-byte
+    aligned (the scalar path)."""
+    import torch
+    from repro_torch.kernels import cfg_combine as KC
+    from repro_torch.kernels import rmsnorm as KR
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    worst = {bf16: 0.0, f32: 0.0}
+    for n_rows in (1, 4, 8, 16, 17, 256, 2048, 4097):
+        routes = []
+        for D in (64, 120, 128, 2048, 3840, 4096, 5120, 8192):
+            for xdt, sdt in ((bf16, bf16), (bf16, f32), (f32, bf16), (f32, f32)):
+                x, sc = rnd(n_rows, D, dtype=xdt) * 3, rnd(D, dtype=sdt)
+                out, ref = KR.rmsnorm(x, sc, 1e-5), KR.rmsnorm_plain(x, sc, 1e-5)
+                tag = f"rows={n_rows} D={D} x {str(xdt)[6:]} scale {str(sdt)[6:]}"
+                if xdt == bf16:
+                    e = _err_ok("rmsnorm", tag, out, ref, elementwise=2 * BF16_STEP)
+                else:
+                    e = _err_ok("rmsnorm", tag, out, ref, rel_to_max=1e-5)
+                worst[xdt] = max(worst[xdt], e[1])
+            p, q = KR.rmsnorm_plan(n_rows, D, bf16), KR.rmsnorm_plan(n_rows, D, f32)
+            routes.append(f"D={D} {p.route} {p.threads}x{p.vecs}x{p.rows_per_block}"
+                          f"/{q.threads}x{q.vecs}x{q.rows_per_block}")
+        log(f"[lsweep] rmsnorm rows={n_rows}, 4 dtype pairs within tolerance; route "
+            f"threads x vecs x rows a block (bf16/f32 x): " + ", ".join(routes))
+    log(f"[lsweep] rmsnorm largest error: bf16 x {worst[bf16]:.3g} of |out| elementwise "
+        f"(tol {2 * BF16_STEP:.3g}), float32 x {worst[f32]:.3g} of max|out| (tol 1e-5)")
+
+    cases = []
+    for dtype in (f32, bf16):
+        for n in (1, 3, 7, 4095, 16385, 4 * 128256 + 3):
+            cases.append(("1-D", rnd(n + 1, dtype=dtype), rnd(n + 1, dtype=dtype), n, None))
+        for R, F_ in ((3, 1001), (4, 128256), (2, 64 * 64 * 4), (5, 24)):
+            cases.append(("rows", rnd(R * F_ + 1, dtype=dtype), rnd(R * F_ + 1, dtype=dtype),
+                          R * F_, R))
+    for kind, ub, cb, n, R in cases:
+        for off in (0, 1):                       # 1: one element off a 16-byte boundary
+            u, c = ub[off:off + n], cb[off:off + n]
+            shape = (n,) if R is None else (R, n // R)
+            u, c = u.view(shape), c.view(shape)
+            tag = f"{shape} {str(u.dtype)[6:]} offset {off}"
+            out, ref = KC.cfg_combine(u, c, 7.5), KC.cfg_combine_plain(u, c, 7.5)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                fail(f"cfg_combine {tag}: not bit-exact")
+            rows_ = shape[0] if len(shape) > 1 else 1
+            s = torch.tensor([7.5 if r % 2 == 0 else 1.0 for r in range(rows_)], device=dev)
+            out = KC.cfg_combine_rowscale(u, c, s)
+            ref = KC.cfg_combine_rowscale_plain(u, c, s)
+            torch.cuda.synchronize()
+            if not torch.equal(out, ref):
+                fail(f"cfg_combine_rowscale {tag}: not bit-exact")
+    log(f"[lsweep] cfg_combine and cfg_combine_rowscale bit-exact on {len(cases) // 2} shapes "
+        f"x float32/bf16 x 16-byte aligned (the vector path, but B3 on rows of 1001 takes "
+        f"the scalar one) / one element off (the scalar path): 1-D lengths 1, 3, 7, "
+        f"4095, 16385, 4*128256+3; rows (3, 1001), (4, 128256), (2, 16384), (5, 24)")
+
+
+def _median_spread(ts):
+    import statistics
+    return statistics.median(ts), max(ts) - min(ts), min(ts), max(ts)
+
+
+def phase_alternation() -> dict:
+    """B1, B3 and B6 against one PyTorch call of the same function, in turns
+    (kernel, library, library, kernel, three times over) at the main paths'
+    shapes: B1/B3 at the SD latent and the decode logits against
+    ``torch.lerp``, B6 at ``NORM_SHAPES`` against ``F.rms_norm``. Logs each
+    one's median device time and min-max, and whether the kernel is at or
+    under the library within the larger spread. -> {label: (kernel median
+    us, library median us)}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cfg_combine as KC
+    from repro_torch.kernels import rmsnorm as KR
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    pairs = []
+    for shape, scales in (((1, *LATENT), [7.5]), ((DECODE_B, 128256),
+                                                  [DECODE_SCALE, 1.0, 1.0, DECODE_SCALE])):
+        u, c = rnd(*shape), rnd(*shape)
+        s = torch.tensor(scales, device=dev)
+        sv = s.view(-1, *([1] * (len(shape) - 1)))
+        pairs.append((f"cfg_combine {shape} f32", lambda u=u, c=c: KC.cfg_combine(u, c, 7.5),
+                      lambda u=u, c=c: torch.lerp(u, c, 7.5)))
+        pairs.append((f"cfg_combine_rowscale {shape} f32",
+                      lambda u=u, c=c, s=s: KC.cfg_combine_rowscale(u, c, s),
+                      lambda u=u, c=c, sv=sv: torch.lerp(u, c, sv)))
+    D = 2048
+    sc = rnd(D, dtype=bf16)
+    for n_rows, what in NORM_SHAPES:
+        x = rnd(n_rows, D, dtype=bf16)
+        pairs.append((f"rmsnorm {n_rows}x{D} bf16 ({what})",
+                      lambda x=x: KR.rmsnorm(x, sc, 1e-5),
+                      lambda x=x: F.rms_norm(x, (D,), sc, 1e-5)))
+    out = {}
+    for label, kern, lib in pairs:
+        ts = {"k": [], "l": []}
+        for _ in range(3):
+            for who, fn in (("k", kern), ("l", lib), ("l", lib), ("k", kern)):
+                ts[who].append(time_ms(fn)[0] * 1e3)
+        (km, ks, k0, k1), (lm, ls, l0, l1) = _median_spread(ts["k"]), _median_spread(ts["l"])
+        verdict = "at or under" if km <= lm + max(ks, ls) else "SLOWER than"
+        log(f"[alt] {label}: kernel median {km:.3f} us (min-max {k0:.3f}-{k1:.3f}), library "
+            f"median {lm:.3f} us ({l0:.3f}-{l1:.3f}); kernel {verdict} the library within "
+            f"the larger spread {max(ks, ls):.3f} us; kernel/library {km / lm:.3f}")
+        out[label] = (km, lm)
+    return out
 
 
 def _planted_faults(rnd) -> None:
@@ -921,6 +1112,38 @@ def phase_ring_parity():
         f"each one decode_attention launch; set-up {time.perf_counter() - t0:.2f} s; {summary}")
 
 
+def _decode_model():
+    """-> (llama3.2-1b at full width and depth, random bf16 weights from seed
+    0; ``DECODE_B`` prompts of ``DECODE_S`` random ids from seed 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DECODE_B, DECODE_S))).long().cuda()
+    torch.cuda.synchronize()
+    return model, toks
+
+
+def _decode_steps(model, toks, pos: int):
+    """-> (FULL step, COND step) at ``pos`` as callables, on caches of
+    capacity ``DECODE_S + DECODE_NEW`` prefilled from ``toks`` and the null
+    prompt. Call under ``torch.no_grad()``."""
+    from repro_torch.core import ar_decode as AR
+
+    cap = DECODE_S + DECODE_NEW
+    _, cc = AR.prefill(model, toks)
+    _, cu = AR.prefill(model, AR.null_prompt(toks))
+    cc = model.prepare_decode_caches(cc, seq_len=DECODE_S, capacity=cap)
+    cu = model.prepare_decode_caches(cu, seq_len=DECODE_S, capacity=cap)
+    tok = toks[:, -1]
+    return (lambda: AR.decode_step_full(model, tok, cc, cu, pos, DECODE_SCALE),
+            lambda: AR.decode_step_cond(model, tok, cc, pos))
+
+
 def phase_decode_main():
     """``guided_decode`` on llama3.2-1b at full width and depth. -> (model,
     prompts, launches of the counted f = 0.2 runs, seconds per generate by f)."""
@@ -929,15 +1152,10 @@ def phase_decode_main():
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
     from repro_torch.core import ar_decode as AR
     from repro_torch.core.selective import GuidancePlan
-    from repro_torch.models.transformer import Transformer
 
     t0 = time.perf_counter()
-    model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                             dtype=torch.bfloat16)
-    torch.cuda.synchronize()
+    model, toks = _decode_model()
     n_params = sum(p.numel() for p in model.parameters())
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (DECODE_B, DECODE_S))).long().cuda()
     log(f"[dmain] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params} "
         f"params in bf16, init {time.perf_counter() - t0:.2f} s; B={DECODE_B} prompts of "
         f"{DECODE_S} tokens, {DECODE_NEW} new tokens, scale {DECODE_SCALE}, greedy")
@@ -957,8 +1175,15 @@ def phase_decode_main():
     plan = GuidancePlan.suffix(DECODE_NEW, 0.2, DECODE_SCALE)
     for mode, (kernel, kw) in COMBINE_MODES.items():
         reset_launches()
-        out, dt = run(plan, combine=mode, **kw)
+        with _NormCensus() as census:
+            out, dt = run(plan, combine=mode, **kw)
         counts, want = launch_counts(), _expected_launches(cfg.num_layers, plan, kernel)
+        if sum(census.by_shape.values()) != counts["rmsnorm"]:
+            fail(f"dmain combine={mode}: rmsnorm census {census.by_shape} against "
+                 f"{counts['rmsnorm']} launches")
+        if mode == "cfg":
+            log(f"[dmain] rmsnorm launches by rows x dim, one generate f=0.2: "
+                f"{census.summary()}")
         if counts != want:
             fail(f"dmain combine={mode}: launches {counts}, want {want}")
         for name in ("flash_attention", "decode_attention", "rmsnorm", kernel):
@@ -1033,18 +1258,12 @@ def phase_decode_breakdown(model, toks, rows) -> None:
     from repro_torch.core import ar_decode as AR
     from repro_torch.core.selective import GuidancePlan
 
-    cap = DECODE_S + DECODE_NEW
     null = AR.null_prompt(toks)
+    pos = DECODE_S + DECODE_NEW // 2
     with torch.no_grad():
         prefills = lambda: (AR.prefill(model, toks), AR.prefill(model, null))  # noqa: E731
         pre_dev, pre_wall = _graph_ms(prefills, iters=3), _wall_ms(prefills, iters=3)
-        _, cc = AR.prefill(model, toks)
-        _, cu = AR.prefill(model, null)
-        cc = model.prepare_decode_caches(cc, seq_len=DECODE_S, capacity=cap)
-        cu = model.prepare_decode_caches(cu, seq_len=DECODE_S, capacity=cap)
-        tok, pos = toks[:, -1], DECODE_S + DECODE_NEW // 2
-        full = lambda: AR.decode_step_full(model, tok, cc, cu, pos, DECODE_SCALE)  # noqa: E731
-        cond = lambda: AR.decode_step_cond(model, tok, cc, pos)  # noqa: E731
+        full, cond = _decode_steps(model, toks, pos)
         full_wall, cond_wall = _wall_ms(full), _wall_ms(cond)
         full_dev, cond_dev = _graph_ms(full), _graph_ms(cond)
     plan = GuidancePlan.suffix(DECODE_NEW, 0.2, DECODE_SCALE)
@@ -1061,21 +1280,21 @@ def phase_decode_breakdown(model, toks, rows) -> None:
         f"loop {loop_s:.4f} s ({n_full} FULL + {n_cond} COND steps); device-busy share of the "
         f"loop {busy:.4f}")
 
+def _profile_share(by_name: dict, key: str) -> tuple[int, int]:
+    """(ns, launches) summed over the profiled kernels whose name holds ``key``."""
+    hits = [v for name, v in by_name.items() if key in name]
+    return sum(t for t, _ in hits), sum(k for _, k in hits)
+
+
 def phase_decode_profile(model, toks) -> None:
     """The kernels that take a FULL decode step's device time under
     ``torch.profiler``: summed device time by kernel, its share of the
     step's kernel time, and launches per step."""
     import torch
-    from repro_torch.core import ar_decode as AR
     from torch.profiler import ProfilerActivity, profile
 
-    cap = DECODE_S + DECODE_NEW
     with torch.no_grad():
-        _, cc = AR.prefill(model, toks)
-        _, cu = AR.prefill(model, AR.null_prompt(toks))
-        cc = model.prepare_decode_caches(cc, seq_len=DECODE_S, capacity=cap)
-        cu = model.prepare_decode_caches(cu, seq_len=DECODE_S, capacity=cap)
-        step = lambda: AR.decode_step_full(model, toks[:, -1], cc, cu, DECODE_S, DECODE_SCALE)  # noqa: E731
+        step, _ = _decode_steps(model, toks, DECODE_S)
         step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1095,6 +1314,10 @@ def phase_decode_profile(model, toks) -> None:
         f"of kernel time (profiled)")
     for rank, (name, (t, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]):
         log(f"[dprofile] {rank + 1}. {t / total:.3f} of kernel time, {k}x {name[:90]}")
+    for label, key in (("B6 rmsnorm", "rmsnorm_kernel"), ("B1 cfg_combine", "combine_kernel")):
+        t, k = _profile_share(by_name, key)
+        log(f"[dprofile] {label}: {t / total:.4f} of the step's kernel time, {k} launches, "
+            f"{t / max(k, 1) / 1e3:.2f} us each (profiled)")
 
 # -- the paged serve path (llama3.2-1b) ------------------------------------------
 
@@ -1389,6 +1612,7 @@ def phase_serve_main():
     runs = [("ragged", "bf16", 0.0), ("ragged", "bf16", 0.2), ("ragged", "bf16", 0.5),
             ("ragged", "int8", 0.2), ("signature", "bf16", 0.2), ("signature", "int8", 0.2)]
     totals, rows = {}, []
+    census = _NormCensus()
     for step_mode, kv_dtype, f in runs:
         def engine():
             return ContinuousEngine(model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8,
@@ -1403,7 +1627,8 @@ def phase_serve_main():
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t1 = time.perf_counter()
-        out = eng.serve_trace(reqs, arrivals)
+        with census:
+            out = eng.serve_trace(reqs, arrivals)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         counts = launch_counts()
@@ -1437,6 +1662,9 @@ def phase_serve_main():
             f"{m.step_launches} (compiles {m.step_compiles}), launches "
             f"{ {k: v for k, v in counts.items() if v} }, peak device memory {peak:.2f} GB; "
             f"first tokens {out['q0'][:6]}")
+    if sum(census.by_shape.values()) != totals["rmsnorm"]:
+        fail(f"smain: rmsnorm census {census.by_shape} against {totals['rmsnorm']} launches")
+    log(f"[smain] rmsnorm launches by rows x dim over the six runs: {census.summary()}")
     return model, totals, rows
 
 
@@ -1491,6 +1719,9 @@ def phase_serve_profile(model) -> None:
     for rank, (name, (t_, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]):
         log(f"[sprofile] {rank + 1}. {t_ / total:.3f} of kernel time, {k / 10:.0f}x per tick "
             f"{name[:80]}")
+    t_, k = _profile_share(by_name, "rmsnorm_kernel")
+    log(f"[sprofile] B6 rmsnorm: {t_ / total:.4f} of a tick's kernel time, {k / 10:.0f} launches "
+        f"a tick, {t_ / max(k, 1) / 1e3:.2f} us each (profiled)")
 
 
 def main() -> None:
@@ -1512,6 +1743,8 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     rows.update(phase_attn_kernels())
+    phase_latency_sweeps()
+    phase_alternation()
     phase_decode_parity()
     phase_ring_parity()
     model, toks, ar_launches, ar_rows = phase_decode_main()
@@ -1560,5 +1793,30 @@ def main() -> None:
                                              "count": torch.cuda.device_count()}}))
 
 
+def decode_steps_main(src: str) -> None:
+    """``python3 chip_smoke.py --decode-steps [SRC]``: the FULL and COND
+    decode steps' device time (three CUDA-graph replays each, at the
+    position ``[dbreak]`` uses) and a FULL step under ``torch.profiler``
+    (``[dprofile]``), for the ``repro_torch`` package under SRC (this
+    checkout's ``src`` by default). Two trees compare on one card when one
+    call runs this for each in turns (parent, change, change, parent)."""
+    sys.path.insert(0, os.path.abspath(src))
+    phase_device()
+    import torch
+
+    import repro_torch
+    model, toks = _decode_model()
+    with torch.no_grad():
+        full, cond = _decode_steps(model, toks, DECODE_S + DECODE_NEW // 2)
+        f = [_graph_ms(full) for _ in range(3)]
+        c = [_graph_ms(cond) for _ in range(3)]
+    log(f"[steps] {os.path.dirname(repro_torch.__file__)}: FULL step device ms "
+        f"{', '.join(f'{t:.3f}' for t in f)}; COND {', '.join(f'{t:.3f}' for t in c)}")
+    phase_decode_profile(model, toks)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--decode-steps"]:
+        decode_steps_main(sys.argv[2] if len(sys.argv) > 2 else os.path.join(ROOT, "src"))
+    else:
+        main()

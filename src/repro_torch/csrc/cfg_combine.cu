@@ -6,13 +6,30 @@
 //   cfg_combine_rowscale  <- cfg_combine_rowscale_pallas  (Eq. 1, one s per row)
 //   apg_combine           <- apg_combine_pallas           (APG, arXiv 2410.02416)
 //
-// What bounds them: bytes. Each does a few flops per element against 6-12
-// bytes of traffic, far below the ~20 flop/byte ridge of fp32 on an H100
-// (67 TFLOP/s over 3.35 TB/s). The designs therefore read every input once
-// and write the output once, with 16-byte vector accesses where the
-// pointers allow, no intermediate in device memory, and fp32 arithmetic on
-// bf16 or fp32 storage. At the main path's size (B x 64 x 64 x 4) a launch
-// moves a few hundred KB, so launch latency, not bandwidth, sets the time.
+// What bounds B1 and B3 at the main paths' shapes: latency, not bytes. A
+// combine does 3 flops per element against 12 bytes of traffic, so bytes
+// would bound it at any size, but an SD latent (1 x 64 x 64 x 4 float32)
+// moves 192 KB (0.06 us at 3.35 TB/s) and the decode logits (4 x 128256
+// float32) 6 MB (1.8 us), against about 2 us that a launch and one trip to
+// L2 cost. So the design spends as little as it can between the launch and
+// the stores: one wave of blocks with no grid-stride loop, each thread
+// issuing its two independent 16-byte loads of u and of c (and their rows'
+// scales) before any arithmetic, 32-bit vector indices, the vector or
+// scalar path chosen by the wrapper for the whole launch, and the ragged
+// tail masked in the last block only. Blocks are of 64 threads while that
+// needs no more blocks than the 132 SMs, else of 128: on an H100, at the SD
+// latent 32 blocks of 64 threads measured faster than 128 blocks of 32
+// threads with one vector each, and two vectors a thread faster than one or
+// four at every main-path shape (timed while the design was chosen;
+// chip_smoke.py times the plan itself). Read-only non-allocating loads and
+// streaming stores measured no faster, so the accesses are plain. B3 finds
+// each vector's row by a multiply and a shift (a divisor's magic number
+// from the host), not a 64-bit divide. The launch plan is combine_plan in
+// kernels/cfg_combine.py; launch_combine checks it. Eq. 1 keeps one
+// rounding per operation, so both stay bit-exact against their plain
+// PyTorch versions.
+//
+// B2 (APG) reduces over whole rows; its note is at apg_kernel.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise and returns cudaGetLastError().
@@ -21,11 +38,13 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // 16 resident blocks on each of 132 SMs
+constexpr int kThreads = 256;          // APG's block
+constexpr int kMaxCombineThreads = 128;
+constexpr int kVecs = 2;               // B1/B3 accesses a thread
 constexpr float kEps = 1e-12f;        // guards zero-norm rows, as in the TPU kernel
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -43,32 +62,87 @@ __device__ __forceinline__ float eq1(float u, float c, float s) {
   return __fadd_rn(u, __fmul_rn(s, __fsub_rn(c, u)));
 }
 
-// B1 and B3. A grid-stride pass over 16-byte vectors, then a scalar tail.
-// ROWSCALE reads s from scales[i / feat]; the vector path is taken only when
-// feat is a multiple of the vector width, so a vector never straddles rows.
-template <typename T, bool ROWSCALE>
-__global__ void combine_kernel(const T* __restrict__ u, const T* __restrict__ c,
-                               T* __restrict__ out, const float* __restrict__ scales,
-                               float scale, long long n, long long feat, bool vec) {
-  constexpr int V = 16 / sizeof(T);
-  const long long tid = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long nvec = vec ? n / V : 0;
-  for (long long v = tid; v < nvec; v += stride) {
-    const uint4 ru = reinterpret_cast<const uint4*>(u)[v];
-    const uint4 rc = reinterpret_cast<const uint4*>(c)[v];
-    const T* pu = reinterpret_cast<const T*>(&ru);
-    const T* pc = reinterpret_cast<const T*>(&rc);
-    uint4 ro;
-    T* po = reinterpret_cast<T*>(&ro);
-    const float s = ROWSCALE ? scales[(v * V) / feat] : scale;
-#pragma unroll
-    for (int k = 0; k < V; ++k) po[k] = from_f32<T>(eq1(to_f32(pu[k]), to_f32(pc[k]), s));
-    reinterpret_cast<uint4*>(out)[v] = ro;
+// W elements of T: one 16-byte vector (W = 16 / sizeof(T), moved as one
+// uint4) or one element.
+template <typename T, int W>
+struct Pack {
+  static_assert(W == 1 || W * sizeof(T) == 16, "an access is 16 bytes or one element");
+  using Raw = std::conditional_t<W == 1, T, uint4>;
+  Raw raw;
+  __device__ __forceinline__ float get(int k) const {
+    if constexpr (W == 1) return to_f32(raw);
+    else return to_f32(reinterpret_cast<const T*>(&raw)[k]);
   }
-  for (long long i = nvec * V + tid; i < n; i += stride) {
-    const float s = ROWSCALE ? scales[i / feat] : scale;
-    out[i] = from_f32<T>(eq1(to_f32(u[i]), to_f32(c[i]), s));
+  __device__ __forceinline__ void set(int k, float v) {
+    if constexpr (W == 1) raw = from_f32<T>(v);
+    else reinterpret_cast<T*>(&raw)[k] = from_f32<T>(v);
+  }
+};
+
+// q = a / d for a < 2^31 as (a * m) >> sh, with m and sh from magic_for(d).
+struct Divider {
+  unsigned long long m;
+  int sh;
+};
+
+Divider magic_for(unsigned long long d) {
+  int s = 0;
+  while ((1ull << s) < d) ++s;
+  return {((1ull << (31 + s)) + d - 1) / d, 31 + s};
+}
+
+// B1 and B3: the block b's threads take accesses b * T * kVecs + v * T + t,
+// v < kVecs. Every block but the last holds whole accesses only (the plan
+// guarantees it), so only the last one checks bounds; the one partial vector
+// of a vector path whose n is not a multiple of W is finished element by
+// element there. ROWSCALE reads the access's row's scale; on the vector path
+// the wrapper guarantees feat % W == 0, so no vector straddles two rows.
+// I is the index type: uint32 unless the launch has 2^31 accesses or more.
+template <typename T, bool ROWSCALE, int W, typename I>
+__global__ void __launch_bounds__(kMaxCombineThreads)
+combine_kernel(const T* __restrict__ u, const T* __restrict__ c, T* __restrict__ out,
+               const float* __restrict__ scales, float scale, long long n, I full,
+               I feat_acc, Divider rows) {
+  using P = Pack<T, W>;
+  using R = typename P::Raw;
+  const R* pu = reinterpret_cast<const R*>(u);
+  const R* pc = reinterpret_cast<const R*>(c);
+  R* po = reinterpret_cast<R*>(out);
+  const I first = (I)blockIdx.x * (I)(blockDim.x * kVecs) + threadIdx.x;
+  const bool last = blockIdx.x == gridDim.x - 1;
+  P ru[kVecs], rc[kVecs];
+  float s[kVecs];
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const I a = first + (I)(v * blockDim.x);
+    if (!last || a < full) {
+      ru[v].raw = pu[a];
+      rc[v].raw = pc[a];
+      if constexpr (ROWSCALE) {
+        if constexpr (sizeof(I) == 4)
+          s[v] = scales[(unsigned)(((unsigned long long)a * rows.m) >> rows.sh)];
+        else
+          s[v] = scales[a / feat_acc];
+      } else {
+        s[v] = scale;
+      }
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < kVecs; ++v) {
+    const I a = first + (I)(v * blockDim.x);
+    if (!last || a < full) {
+      P o;
+#pragma unroll
+      for (int k = 0; k < W; ++k) o.set(k, eq1(ru[v].get(k), rc[v].get(k), s[v]));
+      po[a] = o.raw;
+    } else if constexpr (W > 1 && !ROWSCALE) {
+      // the partial vector past the last whole one, element by element
+      if (a == full) {
+        for (long long i = (long long)full * W; i < n; ++i)
+          out[i] = from_f32<T>(eq1(to_f32(u[i]), to_f32(c[i]), scale));
+      }
+    }
   }
 }
 
@@ -130,34 +204,64 @@ __global__ void apg_kernel(const T* __restrict__ u, const T* __restrict__ c,
   }
 }
 
-int grid_for(long long work) {
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+template <typename T, bool ROWSCALE, int W, typename I>
+void run_combine(const void* u, const void* c, void* out, const float* scales, float scale,
+                 long long n, long long full, long long feat_acc, int threads, unsigned grid,
+                 cudaStream_t st) {
+  combine_kernel<T, ROWSCALE, W, I><<<grid, threads, 0, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(c), static_cast<T*>(out), scales, scale, n,
+      (I)full, (I)feat_acc, magic_for((unsigned long long)feat_acc));
+}
+
+template <typename T, bool ROWSCALE>
+void run_dtype(const void* u, const void* c, void* out, const float* scales, float scale,
+               long long n, long long full, long long feat_acc, int width, bool wide,
+               int threads, unsigned grid, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  if (width == V)
+    run_combine<T, ROWSCALE, V, unsigned>(u, c, out, scales, scale, n, full, feat_acc, threads,
+                                          grid, st);
+  else if (wide)
+    run_combine<T, ROWSCALE, 1, unsigned long long>(u, c, out, scales, scale, n, full, feat_acc,
+                                                    threads, grid, st);
+  else
+    run_combine<T, ROWSCALE, 1, unsigned>(u, c, out, scales, scale, n, full, feat_acc, threads,
+                                          grid, st);
+}
+
+// Checks the plan (kernels/cfg_combine.py::combine_plan) and launches: width
+// elements an access (16 bytes, or 1: the scalar path), threads a block,
+// vecs accesses a thread, blocks. Every block but the last must hold whole
+// accesses only, and the blocks must cover them all.
 template <bool ROWSCALE>
 int launch_combine(const void* u, const void* c, void* out, const void* scales, float scale,
-                   long long n, long long feat, int dtype, void* stream) {
+                   long long n, long long feat, int dtype, int width, int threads, int vecs,
+                   long long blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return (int)cudaGetLastError();
   const int V = dtype == 0 ? 4 : 8;
-  const bool vec = aligned16(u) && aligned16(c) && aligned16(out) && (!ROWSCALE || feat % V == 0);
-  const long long work = vec ? n / V + n % V : n;
-  const int grid = grid_for(work);
+  if ((dtype != 0 && dtype != 1) || (width != 1 && width != V)) return (int)cudaErrorInvalidValue;
+  const long long per = (long long)threads * vecs;
+  const long long full = n / width;
+  const long long accesses = (n + width - 1) / width;
+  const bool wide = accesses >= (1LL << 31);
+  const bool ok =
+      (width == 1 || (aligned16(u) && aligned16(c) && aligned16(out) && !wide)) &&
+      (threads == 64 || threads == kMaxCombineThreads) && vecs == kVecs && blocks >= 1 &&
+      blocks <= 0x7fffffffLL &&
+      blocks * per >= accesses && (blocks - 1) * per <= full &&
+      (!ROWSCALE || (feat > 0 && n % feat == 0 && feat % width == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const long long feat_acc = ROWSCALE ? feat / width : 1;
   const float* sc = static_cast<const float*>(scales);
-  if (dtype == 0) {
-    combine_kernel<float, ROWSCALE><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(u), static_cast<const float*>(c), static_cast<float*>(out),
-        sc, scale, n, feat, vec);
-  } else if (dtype == 1) {
-    combine_kernel<__nv_bfloat16, ROWSCALE><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(c),
-        static_cast<__nv_bfloat16*>(out), sc, scale, n, feat, vec);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    run_dtype<float, ROWSCALE>(u, c, out, sc, scale, n, full, feat_acc, width, wide, threads,
+                               (unsigned)blocks, st);
+  else
+    run_dtype<__nv_bfloat16, ROWSCALE>(u, c, out, sc, scale, n, full, feat_acc, width, wide,
+                                       threads, (unsigned)blocks, st);
   return (int)cudaGetLastError();
 }
 
@@ -165,16 +269,20 @@ int launch_combine(const void* u, const void* c, void* out, const void* scales, 
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (u, c and out share it).
+// dtype: 0 = float32, 1 = bfloat16 (u, c and out share it). width, threads,
+// vecs and blocks: the launch plan.
 int cfg_combine(const void* u, const void* c, void* out, long long n, float scale, int dtype,
-                void* stream) {
-  return launch_combine<false>(u, c, out, nullptr, scale, n, n > 0 ? n : 1, dtype, stream);
+                int width, int threads, int vecs, long long blocks, void* stream) {
+  return launch_combine<false>(u, c, out, nullptr, scale, n, 0, dtype, width, threads, vecs,
+                               blocks, stream);
 }
 
 // scales: float32, one per row of feat elements.
 int cfg_combine_rowscale(const void* u, const void* c, void* out, const void* scales,
-                         long long rows, long long feat, int dtype, void* stream) {
-  return launch_combine<true>(u, c, out, scales, 0.0f, rows * feat, feat, dtype, stream);
+                         long long rows, long long feat, int dtype, int width, int threads,
+                         int vecs, long long blocks, void* stream) {
+  return launch_combine<true>(u, c, out, scales, 0.0f, rows * feat, feat, dtype, width, threads,
+                              vecs, blocks, stream);
 }
 
 // diff: float32 (rows, feat) replacing c - u, or null. scales: float32

@@ -28,16 +28,18 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P, _LL, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_int
 # C entry points and their argument types; pointers and the stream are c_void_p.
 SIGNATURES = {
-    "cfg_combine": [_P, _P, _P, _LL, _F, _I, _P],
-    "cfg_combine_rowscale": [_P, _P, _P, _P, _LL, _LL, _I, _P],
+    "cfg_combine": [_P, _P, _P, _LL, _F, _I, _I, _I, _I, _LL, _P],
+    "cfg_combine_rowscale": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _LL, _P],
     "apg_combine": [_P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F, _I, _P],
-    "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _P],
+    "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     "decode_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
     "paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
 }
 # dtype codes the C entry points take
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements in one 16-byte access
+NUM_SMS = 132                                 # an H100 SXM's streaming multiprocessors
 
 _lib = None
 

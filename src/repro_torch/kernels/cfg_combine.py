@@ -11,12 +11,16 @@ plain PyTorch version of each beside it.
                            ``apg_combine_ref`` does).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; there is no fallback. All three
-are memory-bound; the source note in ``cfg_combine.cu`` says how the
-kernels deal with that. ``LAUNCHES`` counts kernel launches by name.
+tensors it launches the kernel or raises; there is no fallback. At the main
+paths' shapes B1 and B3 are bound by launch latency; ``combine_plan`` is
+their launch plan and the source note in ``cfg_combine.cu`` says why.
+``LAUNCHES`` counts kernel launches by name.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +28,32 @@ from repro_torch.kernels import build
 
 EPS = 1e-12   # guards zero-norm rows; rows with u == c stay exact
 LAUNCHES = {"cfg_combine": 0, "cfg_combine_rowscale": 0, "apg_combine": 0}
+VECS = 2               # accesses a thread (kVecs in csrc/cfg_combine.cu)
+
+
+class CombinePlan(NamedTuple):
+    """``width`` elements an access (one 16-byte vector, or 1: the scalar
+    path), ``threads`` a block, ``vecs`` accesses a thread, ``blocks``."""
+    width: int
+    threads: int
+    vecs: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=512)
+def combine_plan(n: int, feat: int | None, dtype: torch.dtype,
+                 aligned: bool = True) -> CombinePlan:
+    """B1 (``feat`` None) or B3 (rows of ``feat``) over n elements: 16-byte
+    accesses if the pointers are ``aligned`` and, for B3, a row is whole
+    vectors; ``VECS`` accesses a thread; blocks of 64 threads while that
+    takes no more blocks than ``build.NUM_SMS``, else of 128, so that a
+    launch of up to half a million accesses is one wave over every SM it
+    needs."""
+    V = build.VEC[dtype]
+    width = V if aligned and (feat is None or feat % V == 0) else 1
+    acc = -(-n // width)
+    threads = 64 if -(-acc // (64 * VECS)) <= build.NUM_SMS else 128
+    return CombinePlan(width, threads, VECS, -(-acc // (threads * VECS)))
 
 
 def reset_launches() -> None:
@@ -70,6 +100,10 @@ def _check_pair(u, c):
                          f"{tuple(c.shape)} {c.dtype}")
 
 
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _rows(c) -> tuple[int, int]:
     """(rows, features): the leading axis is the batch (one row for 1-D)."""
     if c.ndim <= 1:
@@ -88,10 +122,13 @@ def cfg_combine(eps_uncond, eps_cond, scale: float):
         return cfg_combine_plain(eps_uncond, eps_cond, scale)
     build.check_inputs(eps_uncond, eps_cond)
     out = torch.empty_like(eps_cond)
+    n = eps_cond.numel()
+    if n == 0:
+        return out
+    plan = combine_plan(n, None, eps_cond.dtype, _aligned(eps_uncond, eps_cond, out))
     lib = build.load()
-    code = lib.cfg_combine(eps_uncond.data_ptr(), eps_cond.data_ptr(), out.data_ptr(),
-                           eps_cond.numel(), scale, build.DTYPES[eps_cond.dtype],
-                           build.stream(eps_cond))
+    code = lib.cfg_combine(eps_uncond.data_ptr(), eps_cond.data_ptr(), out.data_ptr(), n,
+                           scale, build.DTYPES[eps_cond.dtype], *plan, build.stream(eps_cond))
     build.check(lib, "cfg_combine", code)
     LAUNCHES["cfg_combine"] += 1
     return out
@@ -110,10 +147,14 @@ def cfg_combine_rowscale(eps_uncond, eps_cond, scales):
     if scales.dtype != torch.float32 or not scales.is_contiguous():
         raise TypeError("scales must be contiguous float32")
     out = torch.empty_like(eps_cond)
+    if out.numel() == 0:
+        return out
+    plan = combine_plan(rows * feat, feat, eps_cond.dtype, _aligned(eps_uncond, eps_cond, out))
     lib = build.load()
     code = lib.cfg_combine_rowscale(eps_uncond.data_ptr(), eps_cond.data_ptr(),
                                     out.data_ptr(), scales.data_ptr(), rows, feat,
-                                    build.DTYPES[eps_cond.dtype], build.stream(eps_cond))
+                                    build.DTYPES[eps_cond.dtype], *plan,
+                                    build.stream(eps_cond))
     build.check(lib, "cfg_combine_rowscale", code)
     LAUNCHES["cfg_combine_rowscale"] += 1
     return out

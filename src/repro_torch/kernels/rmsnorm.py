@@ -4,12 +4,15 @@ PyTorch version beside it (replaces
 
 Per row of the last axis, ``x * rsqrt(mean(x^2) + eps) * scale`` in float32,
 returned in x's dtype. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises. The kernel is memory-bound; the source note
-in ``rmsnorm.cu`` says what its design does about that. ``LAUNCHES`` counts
-kernel launches.
+launches the kernel or raises. At the decoders' shapes a launch is bound by
+latency, not bytes; ``rmsnorm_plan`` is its launch plan and the source note
+in ``rmsnorm.cu`` says why. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +20,43 @@ from repro_torch.kernels import build
 
 LAUNCHES = {"rmsnorm": 0}
 MAX_DIM = 8192
+MAX_VECS = 4           # 16-byte vectors of x a thread holds (the register cap)
+MAX_BLOCK = 256        # threads a block of sub-warp rows
+
+
+class RmsPlan(NamedTuple):
+    """``route`` "few_rows" (one block a row) or "many_rows" (a warp, several
+    warps or a sub-warp a row, several rows a block); ``threads`` a row,
+    ``vecs`` 16-byte vectors of x a thread, ``rows_per_block``, ``blocks``."""
+    route: str
+    threads: int
+    vecs: int
+    rows_per_block: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=512)
+def rmsnorm_plan(rows: int, dim: int, dtype: torch.dtype) -> RmsPlan:
+    """Fewer rows than ``build.NUM_SMS`` with dim > 256: one block a row,
+    dim / 8 threads of 8 elements each. Otherwise many rows: with dim > 256, one
+    block a row again but of 16 elements a thread (2 vectors of bf16, 4 of
+    float32), in whole warps; with dim <= 256, a power-of-two sub-warp a row
+    (8 elements a thread) and several rows a block, in whole warps."""
+    if dim % 8 or not 8 <= dim <= MAX_DIM:
+        raise ValueError(f"kernel takes a last axis that is a multiple of 8 up to "
+                         f"{MAX_DIM}, got {dim}")
+    base = 8 // build.VEC[dtype]           # vectors of 8 elements: 1 bf16, 2 float32
+    per = dim // 8                         # threads at 8 elements a thread
+    if per > 32:
+        if rows < build.NUM_SMS:
+            return RmsPlan("few_rows", -(-per // 32) * 32, base, 1, rows)
+        threads = -(-per // 64) * 32       # 16 elements a thread
+        return RmsPlan("many_rows", threads, 2 * base, 1, rows)
+    threads = 1 << (per - 1).bit_length()
+    group = 32 // threads                  # rows that make a whole warp
+    rpb = min(MAX_BLOCK // threads, max(1, rows // build.NUM_SMS))
+    rpb = max(group, rpb // group * group)
+    return RmsPlan("many_rows", threads, base, rpb, -(-rows // rpb))
 
 
 def reset_launches() -> None:
@@ -40,16 +80,17 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if not build.on_cuda(x, scale):
         return rmsnorm_plain(x, scale, eps)
     build.check_inputs(x, scale)
-    if D % 8 or not 8 <= D <= MAX_DIM:
-        raise ValueError(f"kernel takes a last axis that is a multiple of 8 up to "
-                         f"{MAX_DIM}, got {D}")
     if x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError("kernel takes 16-byte aligned x and scale")
+    rows = x.numel() // D
+    plan = rmsnorm_plan(rows, D, x.dtype)
     out = torch.empty_like(x)
+    if rows == 0:
+        return out
     lib = build.load()
-    code = lib.rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // D, D,
-                       float(eps), build.DTYPES[x.dtype], build.DTYPES[scale.dtype],
-                       build.stream(x))
+    code = lib.rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, float(eps),
+                       build.DTYPES[x.dtype], build.DTYPES[scale.dtype], plan.threads,
+                       plan.vecs, plan.rows_per_block, build.stream(x))
     build.check(lib, "rmsnorm", code)
     LAUNCHES["rmsnorm"] += 1
     return out
