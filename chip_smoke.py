@@ -9,8 +9,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    off for matmuls and convolutions (the reference is full float32) and
    bf16 matmuls' reduced-precision reductions off;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a and
-   logs the B1/B3, B4, B5 and B6 kernels' registers, shared memory and
-   spills (a B1/B3 or B6 instantiation that spills fails);
+   logs the B1/B3, B4, B5, B6 and B7/B10 kernels' registers, shared memory
+   and spills (a B1/B3, B6 or B7/B10 instantiation that spills fails);
 3. kernels vs plain: each guidance-combine kernel against its plain
    PyTorch version at the main path's shapes (B, 64, 64, 4), B in {1, 2, 8},
    float32 and bfloat16, and its time beside its bytes-moved bound;
@@ -53,8 +53,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    pages of 16, a pool of 640 pages, tables of 40), positions spread over
    the tables, a quarter of the rows at phase 0, out-of-range table
    entries, with and without a window, and at the other dense decoders'
-   head groups (every ``block_k`` giving the same bits: the kernel has no
+   head groups (every ``block_k`` giving the same bits: the kernels have no
    sub-page tile); each timed beside its bytes bound and its plain version;
+   then the split kernel (B7, B10 with a bf16 q) in turns against the
+   one-block-a-row kernel (B9, B8) on the same function and keys;
 12. serve parity: the same arrival trace through ``ContinuousEngine`` on
    llama3.2-1b at full width, 2 layers, on the CPU (plain versions) and the
    GPU (kernels), both step modes and both pool dtypes, and the apg and
@@ -65,7 +67,12 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    arriving two a tick, ragged bf16 at f in {0, 0.2, 0.5} and at f = 0.2
    ragged int8, signature bf16 and signature int8, each after a warm-up,
    with exact launch counts of the paged kernels and RMSNorm's launches by
-   rows; then a steady tick under ``torch.profiler``, with RMSNorm's share.
+   rows; then a steady tick under ``torch.profiler``, with RMSNorm's and
+   the paged kernel's shares.
+
+``python3 chip_smoke.py --decode-steps [SRC]`` and ``--serve-steps [SRC]``
+time and profile the decode steps, or a steady serve tick, of the
+``repro_torch`` under SRC alone (two trees compare in turns in one call).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -234,10 +241,10 @@ def _ptxas_report(text: str) -> list:
 
 
 # the kernels whose resources phase 2 reports, by the name nvcc mangles into
-# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B6) must not spill
+# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B6, B7/B10) must not spill
 REPORTED_KERNELS = ("flash_wgmma_kernel", "decode_mma_kernel", "decode_kernel",
-                    "combine_kernel", "rmsnorm_kernel")
-NO_SPILL_KERNELS = ("combine_kernel", "rmsnorm_kernel")
+                    "combine_kernel", "rmsnorm_kernel", "paged_split_kernel")
+NO_SPILL_KERNELS = ("combine_kernel", "rmsnorm_kernel", "paged_split_kernel")
 
 
 def _template_args(mangled: str) -> str:
@@ -280,7 +287,7 @@ def phase_build():
     if not text:
         log("[build] the library was built before: no register report")
     if spilled:
-        fail(f"B1/B3/B6 instantiations spill registers: {spilled}")
+        fail(f"B1/B3/B6/B7-B10 instantiations spill registers: {spilled}")
 
 
 def phase_kernels():
@@ -1418,7 +1425,7 @@ def phase_paged_kernels():
             q, kv, bt, pos, phase = _paged_case(gen, dtype, int8)
             names = [n for n in PAGED if n.endswith("int8") == int8]
             for name in names:
-                for window in (None, 64):
+                for window in (None, 64, 200):
                     tag = f"{str(dtype)[6:]} window={window}"
                     out = _paged_call(KP, name, q, kv, bt, pos, phase, window=window)()
                     ref = _paged_plain(KP, name, q, kv, bt, pos, phase, window=window)()
@@ -1436,9 +1443,12 @@ def phase_paged_kernels():
                                           block_k=bk)()
                         if not torch.equal(got, out):
                             fail(f"{name} {tag}: block_k={bk} differs from whole pages")
+            plans = [tuple(KP.paged_split_plan(SERVE_NB, SERVE_PS, w, 4, 64, int8)[1:])
+                     for w in (None, 64, 200)]
             log(f"[paged] {', '.join(names)} {str(dtype)[6:]} q: R={SERVE_R} H=32 K=8 hd=64 "
                 f"pages {SERVE_PAGES}x{SERVE_PS}, tables of {SERVE_NB} with out-of-range "
-                f"entries, window None/64: within tolerance; phase-0 rows exact zeros; "
+                f"entries, window None/64/200 (split plans {plans} as (cluster, tiles a "
+                f"block, stages, smem bytes)): within tolerance; phase-0 rows exact zeros; "
                 f"block_k {KP.block_k_candidates(SERVE_PS)} bit-identical")
     # the other dense decoders' head groups take other instantiations
     for H, K, hd in ((40, 8, 128), (32, 4, 128), (32, 8, 120)):
@@ -1471,6 +1481,43 @@ def phase_paged_kernels():
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                               bound_by=b_by, max_abs_err=errs[name])
     return rows
+
+
+def phase_paged_alternation() -> dict:
+    """The split kernel against the one-block-a-row kernel on the same
+    function, keys and inputs at the serve shape, in turns (split, old, old,
+    split, three times over): B7 with every row at phase 1 against B9, and
+    B10 against B8 with every row at phase 1 (bf16 q, so B7 and B10 take
+    the split kernel, B8 and B9 the other). Both are held to the plain
+    version first. -> {label: (split median us, old median us)}."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as KP
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for int8, split, old in ((False, "ragged_paged_decode_attention", "paged_decode_attention"),
+                             (True, "paged_decode_attention_int8",
+                              "ragged_paged_decode_attention_int8")):
+        q, kv, bt, pos, _ = _paged_case(gen, torch.bfloat16, int8)
+        live = torch.ones_like(pos)
+        fns = {who: _paged_call(KP, name, q, kv, bt, pos, live)
+               for who, name in (("s", split), ("o", old))}
+        ref = _paged_plain(KP, split, q, kv, bt, pos, live)()
+        for who, name in (("s", split), ("o", old)):
+            _err_ok(name, "in-turns inputs, every row live", fns[who](), ref,
+                    per_row=ATTN_BF16_STEPS * BF16_STEP)
+        ts = {"s": [], "o": []}
+        for _ in range(3):
+            for who in ("s", "o", "o", "s"):
+                ts[who].append(time_ms(fns[who])[0] * 1e3)
+        (sm, ss, s0, s1), (om, os_, o0, o1) = _median_spread(ts["s"]), _median_spread(ts["o"])
+        label = f"{split} vs {old}"
+        log(f"[palt] {label} (R={SERVE_R}, every row live, pos 0..{SERVE_NB * SERVE_PS - 1}, "
+            f"{'int8' if int8 else 'bf16'} pages, bf16 q): split kernel median {sm:.3f} us "
+            f"(min-max {s0:.3f}-{s1:.3f}), one-block-a-row kernel median {om:.3f} us "
+            f"({o0:.3f}-{o1:.3f}); split/old {sm / om:.3f}, larger spread {max(ss, os_):.3f} us")
+        out[label] = (sm, om)
+    return out
 
 
 def _serve_requests(cfg, n: int, lens, new: int, seed: int):
@@ -1668,12 +1715,13 @@ def phase_serve_main():
     return model, totals, rows
 
 
-def phase_serve_profile(model) -> None:
-    """Where a steady serve tick's time goes (ragged, bf16, f = 0.2, ticks
-    20-49, eight requests in flight and no admissions): the wall and its
-    phases from the engine's tick timer over ticks 20-39, then the kernels'
-    device time over ticks 40-49 under ``torch.profiler``, and the busy
-    share, device time over wall."""
+def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16") -> None:
+    """Where a steady serve tick's time goes (f = 0.2, ticks 20-49, eight
+    requests in flight and no admissions; the ragged bf16 step by default):
+    the wall and its phases from the engine's tick timer over ticks 20-39,
+    then the kernels' device time over ticks 40-49 under ``torch.profiler``,
+    and the busy share, device time over wall; B6's share and the paged
+    kernel's, by template."""
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
     from repro_torch.serve import ContinuousEngine
@@ -1681,7 +1729,8 @@ def phase_serve_profile(model) -> None:
 
     eng = ContinuousEngine(model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8,
                            pass_budget=16, prompt_len=512, max_new=SERVE_NEW, stop_on_eos=False,
-                           prefills_per_tick=2, seed=0, selective_fraction=0.2)
+                           prefills_per_tick=2, seed=0, selective_fraction=0.2,
+                           step_mode=step_mode, kv_dtype=kv_dtype)
     reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
     arrivals = [i // 2 for i in range(16)]
     i = 0
@@ -1708,7 +1757,7 @@ def phase_serve_profile(model) -> None:
             by_name[e.name()] = (t_ + e.end_ns() - e.start_ns(), k + 1)
             n += 1
     total = sum(t_ for t_, _ in by_name.values())
-    log(f"[sprofile] steady ragged tick (bf16, f=0.2, 8 requests in flight): wall "
+    log(f"[sprofile] steady {step_mode} tick ({kv_dtype}, f=0.2, 8 requests in flight): wall "
         f"{wall * 1e3:.3f} ms, of which " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in seg.items()))
     if not total:
         log("[sprofile] device time not measured: the profiler saw no device time")
@@ -1719,9 +1768,15 @@ def phase_serve_profile(model) -> None:
     for rank, (name, (t_, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]):
         log(f"[sprofile] {rank + 1}. {t_ / total:.3f} of kernel time, {k / 10:.0f}x per tick "
             f"{name[:80]}")
-    t_, k = _profile_share(by_name, "rmsnorm_kernel")
-    log(f"[sprofile] B6 rmsnorm: {t_ / total:.4f} of a tick's kernel time, {k / 10:.0f} launches "
-        f"a tick, {t_ / max(k, 1) / 1e3:.2f} us each (profiled)")
+    paged = {"ragged": {"bf16": "B7", "int8": "B8"},
+             "signature": {"bf16": "B9", "int8": "B10"}}[step_mode][kv_dtype]
+    for label, key in (("B6 rmsnorm", "rmsnorm_kernel"),
+                       (f"{paged} on the split kernel", "paged_split_kernel"),
+                       (f"{paged} on the one-block-a-row kernel", "paged_kernel")):
+        t_, k = _profile_share(by_name, key)
+        if k:
+            log(f"[sprofile] {label}: {t_ / total:.4f} of a tick's kernel time, {k / 10:.0f} "
+                f"launches a tick, {t_ / max(k, 1) / 1e3:.2f} us each (profiled)")
 
 
 def main() -> None:
@@ -1754,6 +1809,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     rows.update(phase_paged_kernels())
+    phase_paged_alternation()
     phase_serve_parity()
     model, serve_launches, _ = phase_serve_main()
     phase_serve_profile(model)
@@ -1815,8 +1871,33 @@ def decode_steps_main(src: str) -> None:
     phase_decode_profile(model, toks)
 
 
+def serve_steps_main(src: str) -> None:
+    """``python3 chip_smoke.py --serve-steps [SRC]``: a steady serve tick
+    (``[sprofile]``) on llama3.2-1b at full width and depth, for the ragged
+    bf16 step (B7) and the signature int8 step (B10), on the ``repro_torch``
+    package under SRC (this checkout's ``src`` by default). Two trees
+    compare on one card when one call runs this for each in turns (parent,
+    change, change, parent)."""
+    sys.path.insert(0, os.path.abspath(src))
+    phase_device()
+    import torch
+
+    import repro_torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
+    from repro_torch.models.transformer import Transformer
+
+    log(f"[steps] {os.path.dirname(repro_torch.__file__)}")
+    model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16)
+    for step_mode, kv_dtype in (("ragged", "bf16"), ("signature", "int8")):
+        phase_serve_profile(model, step_mode, kv_dtype)
+
+
 if __name__ == "__main__":
+    default_src = os.path.join(ROOT, "src")
     if sys.argv[1:2] == ["--decode-steps"]:
-        decode_steps_main(sys.argv[2] if len(sys.argv) > 2 else os.path.join(ROOT, "src"))
+        decode_steps_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
+    elif sys.argv[1:2] == ["--serve-steps"]:
+        serve_steps_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
     else:
         main()

@@ -56,6 +56,8 @@
 
 #include <cstdint>
 
+#include "mma_sync.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -347,50 +349,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// ---- bfloat16: mma.sync tensor cores ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices from shared memory, lane i giving a row address of
-// matrix i / 8; reg j holds (row lane/4, cols 2(lane%4), +1) of matrix j,
-// or with .trans (rows 2(lane%4), +1, col lane/4)
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d (16 x 8, fp32) += a (16 x 16, bf16) . b (16 x 8, bf16)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+// ---- bfloat16: mma.sync tensor cores (helpers in mma_sync.cuh) -------------
 
 // bfloat16. MT: 16-row m tiles of the group's heads (rep <= 16 * MT); D:
 // the padded head dim's bound (hdp <= D). Each warp takes 16 keys of every
@@ -642,31 +601,6 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-// Launches ``kernel`` on a (cluster, blocks_y) grid of kThreads-thread
-// blocks in clusters of ``cluster`` along x.
-template <typename... Params, typename... Args>
-int cluster_launch(void (*kernel)(Params...), size_t smem, int cluster, int blocks_y,
-                   cudaStream_t st, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, blocks_y, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 template <int HPW, int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
                int B, int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
@@ -675,8 +609,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, const int
   const int rep = H / K;
   const size_t smem = 2 * 2 * (size_t)TK * row_stride(hd, 4) +
                       sizeof(float) * ((size_t)2 * rep * hd + (size_t)rep * TK + 2 * rep);
-  return cluster_launch(decode_kernel<float, HPW, DPL>, smem, cluster, B * K, st,
-                        static_cast<const float*>(q), static_cast<const float*>(k),
+  return cluster_launch(decode_kernel<float, HPW, DPL>, dim3(cluster, B * K), kThreads, smem,
+                        st, static_cast<const float*>(q), static_cast<const float*>(k),
                         static_cast<const float*>(v), static_cast<float*>(out), slot_pos, S, K,
                         hd, rep, pos, lo, first_key, ntiles, per_cta, scale);
 }
@@ -690,9 +624,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, const in
   const size_t rs = row_stride((hd + 15) / 16 * 16, 2);
   const size_t tiles_and_q = NS * 2 * TK * rs + 16 * MT * rs;
   const size_t merge = sizeof(float) * (kWarps + 1) * rep * ((size_t)hd + 2);
-  return cluster_launch(decode_mma_kernel<MT, D, NS>, tiles_and_q > merge ? tiles_and_q : merge,
-                        cluster, B * K, st, static_cast<const __nv_bfloat16*>(q),
-                        static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+  return cluster_launch(decode_mma_kernel<MT, D, NS>, dim3(cluster, B * K), kThreads,
+                        tiles_and_q > merge ? tiles_and_q : merge, st,
+                        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+                        static_cast<const __nv_bfloat16*>(v),
                         static_cast<__nv_bfloat16*>(out), slot_pos, S, K, hd, rep, pos, lo,
                         first_key, ntiles, per_cta, scale * kLog2e);
 }

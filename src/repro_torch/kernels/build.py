@@ -34,7 +34,7 @@ SIGNATURES = {
     "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     "decode_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],
-    "paged_decode_attention": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+    "paged_decode_attention": [_P] * 9 + [_I] * 13 + [_F, _I, _I, _P],
 }
 # dtype codes the C entry points take
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
