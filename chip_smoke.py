@@ -9,8 +9,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    off for matmuls and convolutions (the reference is full float32) and
    bf16 matmuls' reduced-precision reductions off;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a and
-   logs the B1/B3, B4, B5, B6 and B7/B10 kernels' registers, shared memory
-   and spills (a B1/B3, B6 or B7/B10 instantiation that spills fails);
+   logs the B1/B3, B4, B5, B6 and B7-B10 kernels' registers, shared memory
+   and spills (a B1/B3, B6 or B7-B10 instantiation that spills fails, and
+   so does a build that holds a ``paged_kernel``: B7-B10 run one template);
 3. kernels vs plain: each guidance-combine kernel against its plain
    PyTorch version at the main path's shapes (B, 64, 64, 4), B in {1, 2, 8},
    float32 and bfloat16, and its time beside its bytes-moved bound;
@@ -55,8 +56,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    entries, with and without a window, and at the other dense decoders'
    head groups (every ``block_k`` giving the same bits: the kernels have no
    sub-page tile); each timed beside its bytes bound and its plain version;
-   then the split kernel (B7, B10 with a bf16 q) in turns against the
-   one-block-a-row kernel (B9, B8) on the same function and keys;
+   then B9 against B7, and B8 against B10, with every row at phase 1: the
+   same kernel on the same inputs, bit for bit;
 12. serve parity: the same arrival trace through ``ContinuousEngine`` on
    llama3.2-1b at full width, 2 layers, on the CPU (plain versions) and the
    GPU (kernels), both step modes and both pool dtypes, and the apg and
@@ -70,9 +71,11 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    rows; then a steady tick under ``torch.profiler``, with RMSNorm's and
    the paged kernel's shares.
 
-``python3 chip_smoke.py --decode-steps [SRC]`` and ``--serve-steps [SRC]``
-time and profile the decode steps, or a steady serve tick, of the
-``repro_torch`` under SRC alone (two trees compare in turns in one call).
+``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``
+and ``--paged-kernels [SRC]`` time and profile the decode steps, a steady
+serve tick of each (step mode, pool dtype) pair, or the four paged kernels
+at the serve shape, of the ``repro_torch`` under SRC alone (two trees
+compare in turns in one call).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -241,7 +244,7 @@ def _ptxas_report(text: str) -> list:
 
 
 # the kernels whose resources phase 2 reports, by the name nvcc mangles into
-# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B6, B7/B10) must not spill
+# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B6, B7-B10) must not spill
 REPORTED_KERNELS = ("flash_wgmma_kernel", "decode_mma_kernel", "decode_kernel",
                     "combine_kernel", "rmsnorm_kernel", "paged_split_kernel")
 NO_SPILL_KERNELS = ("combine_kernel", "rmsnorm_kernel", "paged_split_kernel")
@@ -275,8 +278,10 @@ def phase_build():
     for line in text.splitlines():
         if "error" in line.lower() or "Performance Loss" in line:
             log(f"[build] {line.strip()}")
-    spilled = []
+    spilled, stray = [], []
     for name, regs, smem, st, ld in _ptxas_report(text):
+        if re.search(r"\d+paged_kernelI", name):   # the paged file's one-block-a-row kernel
+            stray.append(name)
         m = re.search("(" + "|".join(REPORTED_KERNELS) + r")I(\w*?)E(Ev|v)", name)
         if m:
             log(f"[build] {m.group(1)}<{_template_args(m.group(2))}>: {regs} registers, {smem} "
@@ -288,6 +293,8 @@ def phase_build():
         log("[build] the library was built before: no register report")
     if spilled:
         fail(f"B1/B3/B6/B7-B10 instantiations spill registers: {spilled}")
+    if stray:
+        fail(f"the build holds the one-block-a-row paged_kernel: {stray}")
 
 
 def phase_kernels():
@@ -1443,12 +1450,12 @@ def phase_paged_kernels():
                                           block_k=bk)()
                         if not torch.equal(got, out):
                             fail(f"{name} {tag}: block_k={bk} differs from whole pages")
-            plans = [tuple(KP.paged_split_plan(SERVE_NB, SERVE_PS, w, 4, 64, int8)[1:])
+            plans = [tuple(KP.paged_split_plan(SERVE_NB, SERVE_PS, w, 4, 64, int8, dtype))
                      for w in (None, 64, 200)]
             log(f"[paged] {', '.join(names)} {str(dtype)[6:]} q: R={SERVE_R} H=32 K=8 hd=64 "
                 f"pages {SERVE_PAGES}x{SERVE_PS}, tables of {SERVE_NB} with out-of-range "
-                f"entries, window None/64/200 (split plans {plans} as (cluster, tiles a "
-                f"block, stages, smem bytes)): within tolerance; phase-0 rows exact zeros; "
+                f"entries, window None/64/200 (split plans {plans} as (tile, cluster, tiles "
+                f"a block, stages, smem bytes)): within tolerance; phase-0 rows exact zeros; "
                 f"block_k {KP.block_k_candidates(SERVE_PS)} bit-identical")
     # the other dense decoders' head groups take other instantiations
     for H, K, hd in ((40, 8, 128), (32, 4, 128), (32, 8, 120)):
@@ -1483,41 +1490,30 @@ def phase_paged_kernels():
     return rows
 
 
-def phase_paged_alternation() -> dict:
-    """The split kernel against the one-block-a-row kernel on the same
-    function, keys and inputs at the serve shape, in turns (split, old, old,
-    split, three times over): B7 with every row at phase 1 against B9, and
-    B10 against B8 with every row at phase 1 (bf16 q, so B7 and B10 take
-    the split kernel, B8 and B9 the other). Both are held to the plain
-    version first. -> {label: (split median us, old median us)}."""
+def phase_paged_identity() -> None:
+    """B9 is B7 without a phase and B8 is B10 with one: with every row at
+    phase 1, the same kernel on the same inputs must give the same bits,
+    for a bf16 and a float32 q, after each pair is held to the plain
+    version."""
     import torch
     from repro_torch.kernels import paged_decode_attention as KP
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    out = {}
-    for int8, split, old in ((False, "ragged_paged_decode_attention", "paged_decode_attention"),
-                             (True, "paged_decode_attention_int8",
-                              "ragged_paged_decode_attention_int8")):
-        q, kv, bt, pos, _ = _paged_case(gen, torch.bfloat16, int8)
-        live = torch.ones_like(pos)
-        fns = {who: _paged_call(KP, name, q, kv, bt, pos, live)
-               for who, name in (("s", split), ("o", old))}
-        ref = _paged_plain(KP, split, q, kv, bt, pos, live)()
-        for who, name in (("s", split), ("o", old)):
-            _err_ok(name, "in-turns inputs, every row live", fns[who](), ref,
-                    per_row=ATTN_BF16_STEPS * BF16_STEP)
-        ts = {"s": [], "o": []}
-        for _ in range(3):
-            for who in ("s", "o", "o", "s"):
-                ts[who].append(time_ms(fns[who])[0] * 1e3)
-        (sm, ss, s0, s1), (om, os_, o0, o1) = _median_spread(ts["s"]), _median_spread(ts["o"])
-        label = f"{split} vs {old}"
-        log(f"[palt] {label} (R={SERVE_R}, every row live, pos 0..{SERVE_NB * SERVE_PS - 1}, "
-            f"{'int8' if int8 else 'bf16'} pages, bf16 q): split kernel median {sm:.3f} us "
-            f"(min-max {s0:.3f}-{s1:.3f}), one-block-a-row kernel median {om:.3f} us "
-            f"({o0:.3f}-{o1:.3f}); split/old {sm / om:.3f}, larger spread {max(ss, os_):.3f} us")
-        out[label] = (sm, om)
-    return out
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = ATTN_BF16_STEPS * BF16_STEP if dtype == torch.bfloat16 else 1e-5
+        for int8, a, b in ((False, "paged_decode_attention", "ragged_paged_decode_attention"),
+                           (True, "ragged_paged_decode_attention_int8",
+                            "paged_decode_attention_int8")):
+            q, kv, bt, pos, _ = _paged_case(gen, dtype, int8)
+            live = torch.ones_like(pos)
+            outs = [_paged_call(KP, n, q, kv, bt, pos, live)() for n in (a, b)]
+            ref = _paged_plain(KP, a, q, kv, bt, pos, live)()
+            for n, out in zip((a, b), outs):
+                _err_ok(n, f"{str(dtype)[6:]} q, every row live", out, ref, per_row=tol)
+            if not torch.equal(outs[0], outs[1]):
+                fail(f"{a} and {b} differ with every row at phase 1 ({str(dtype)[6:]} q)")
+            log(f"[pident] {a} equals {b} bit for bit (R={SERVE_R}, every row at phase 1, "
+                f"{'int8' if int8 else str(dtype)[6:]} pages, {str(dtype)[6:]} q)")
 
 
 def _serve_requests(cfg, n: int, lens, new: int, seed: int):
@@ -1721,7 +1717,7 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
     the wall and its phases from the engine's tick timer over ticks 20-39,
     then the kernels' device time over ticks 40-49 under ``torch.profiler``,
     and the busy share, device time over wall; B6's share and the paged
-    kernel's, by template."""
+    kernel's."""
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
     from repro_torch.serve import ContinuousEngine
@@ -1771,8 +1767,7 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
     paged = {"ragged": {"bf16": "B7", "int8": "B8"},
              "signature": {"bf16": "B9", "int8": "B10"}}[step_mode][kv_dtype]
     for label, key in (("B6 rmsnorm", "rmsnorm_kernel"),
-                       (f"{paged} on the split kernel", "paged_split_kernel"),
-                       (f"{paged} on the one-block-a-row kernel", "paged_kernel")):
+                       (f"{paged} {_paged_kernel_of(step_mode, kv_dtype)}", "paged_")):
         t_, k = _profile_share(by_name, key)
         if k:
             log(f"[sprofile] {label}: {t_ / total:.4f} of a tick's kernel time, {k / 10:.0f} "
@@ -1809,7 +1804,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     rows.update(phase_paged_kernels())
-    phase_paged_alternation()
+    phase_paged_identity()
     phase_serve_parity()
     model, serve_launches, _ = phase_serve_main()
     phase_serve_profile(model)
@@ -1873,8 +1868,9 @@ def decode_steps_main(src: str) -> None:
 
 def serve_steps_main(src: str) -> None:
     """``python3 chip_smoke.py --serve-steps [SRC]``: a steady serve tick
-    (``[sprofile]``) on llama3.2-1b at full width and depth, for the ragged
-    bf16 step (B7) and the signature int8 step (B10), on the ``repro_torch``
+    (``[sprofile]``) on llama3.2-1b at full width and depth, for each
+    (step mode, pool dtype) pair: ragged bf16 (B7), ragged int8 (B8),
+    signature bf16 (B9) and signature int8 (B10), on the ``repro_torch``
     package under SRC (this checkout's ``src`` by default). Two trees
     compare on one card when one call runs this for each in turns (parent,
     change, change, parent)."""
@@ -1889,8 +1885,47 @@ def serve_steps_main(src: str) -> None:
     log(f"[steps] {os.path.dirname(repro_torch.__file__)}")
     model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                              dtype=torch.bfloat16)
-    for step_mode, kv_dtype in (("ragged", "bf16"), ("signature", "int8")):
-        phase_serve_profile(model, step_mode, kv_dtype)
+    for step_mode in ("ragged", "signature"):
+        for kv_dtype in ("bf16", "int8"):
+            phase_serve_profile(model, step_mode, kv_dtype)
+
+
+def paged_kernels_main(src: str) -> None:
+    """``python3 chip_smoke.py --paged-kernels [SRC]``: the four paged
+    kernels at the serve shape with a bf16 q, each held to its plain version
+    and then event-timed as ``[paged]`` times them, three times, and B9 and
+    B10 at the signature step's 1, 2, 4 and 8 rows, for the
+    ``repro_torch`` package under SRC (this checkout's ``src`` by default).
+    Two trees compare on one card when one call runs this for each in turns
+    (parent, change, change, parent)."""
+    sys.path.insert(0, os.path.abspath(src))
+    phase_device()
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import paged_decode_attention as KP
+
+    where = os.path.dirname(repro_torch.__file__)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for int8 in (False, True):
+        q, kv, bt, pos, phase = _paged_case(gen, torch.bfloat16, int8)
+        for name in [n for n in PAGED if n.endswith("int8") == int8]:
+            kern = _paged_call(KP, name, q, kv, bt, pos, phase)
+            _err_ok(name, "timed inputs", kern(), _paged_plain(KP, name, q, kv, bt, pos, phase)(),
+                    per_row=ATTN_BF16_STEPS * BF16_STEP)
+            ts = [time_ms(kern)[0] * 1e3 for _ in range(3)]
+            log(f"[pkern] {where}: {name} (R={SERVE_R}, pos 0..{SERVE_NB * SERVE_PS - 1}, "
+                f"{'int8' if int8 else 'bf16'} pages, bf16 q) device us "
+                f"{', '.join(f'{t:.3f}' for t in ts)}")
+        # the signature step's few-row launches (a FULL or COND group of 1-8
+        # rows), rows spread over the positions up to the longest
+        name = "paged_decode_attention" + ("_int8" if int8 else "")
+        for R in (1, 2, 4, 8):
+            rows = torch.arange(R, device=q.device) * (SERVE_R // R) + SERVE_R // R - 1
+            kern = _paged_call(KP, name, q[rows].contiguous(), kv, bt[rows].contiguous(),
+                               pos[rows].contiguous(), None)
+            log(f"[pkern] {where}: {name} at R={R} (positions {pos[rows].tolist()}) device "
+                f"us {time_ms(kern)[0] * 1e3:.3f}")
 
 
 if __name__ == "__main__":
@@ -1899,5 +1934,7 @@ if __name__ == "__main__":
         decode_steps_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
     elif sys.argv[1:2] == ["--serve-steps"]:
         serve_steps_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
+    elif sys.argv[1:2] == ["--paged-kernels"]:
+        paged_kernels_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
     else:
         main()

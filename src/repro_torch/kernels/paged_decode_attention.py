@@ -17,10 +17,11 @@ past a row's span). Int8 pools hold int8 values with float32 scales
 (P, page_size, K, 1) per (position, kv head). The ragged forms take
 ``phase`` (R,): rows at phase 0 are padding and come out as exact zeros.
 ``block_k`` is checked as the reference checks it (it must divide
-``page_size``) but picks nothing: the CUDA kernels have no sub-page tile.
-With a bf16 q, B7 and B10 split each row's keys over a cluster of blocks
-in 64-key tiles (``paged_split_plan``, several pages a tile); the other
-forms walk them in 32-key warp groups, whatever ``block_k``.
+``page_size``) but picks nothing: the CUDA kernel has no sub-page tile.
+All four launch one kernel, which splits each row's keys over a cluster
+of blocks in tiles of 64 keys with a bf16 q (tensor-core products) or 32
+with a float32 q (CUDA-core products), several pages a tile
+(``paged_split_plan``), whatever ``block_k``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The plain version mirrors the reference's default paged path
@@ -29,7 +30,7 @@ raises. The plain version mirrors the reference's default paged path
 in float32, weights cast to q's dtype, int8 pages dequantized to q's dtype.
 The kernels compute as the Pallas kernels do: float32 scores and
 accumulators, p rounded to the pages' dtype before the PV product for
-bf16/float32 pages, float32 throughout for int8 pages (the split kernel's
+bf16/float32 pages, float32 throughout for int8 pages (with a bf16 q the
 tensor-core PV takes the float32 p * v_scale as a bf16 pair hi + lo, within
 2^-16 of it). ``LAUNCHES`` counts kernel launches by name.
 """
@@ -50,7 +51,7 @@ LAUNCHES = {"ragged_paged_decode_attention": 0, "ragged_paged_decode_attention_i
             "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 MAX_HEAD_DIM = 128  # kMaxHeadDim in csrc/paged_decode_attention.cu
 MAX_GROUP = 8      # query heads per kv head; kMaxRep there
-TILE = 64          # keys per tile of the split kernel; kTileKeys there
+TILE = {torch.bfloat16: 64, torch.float32: 32}   # keys per tile, by q's dtype; split_tile
 MAX_CLUSTER = 8    # blocks per (kv head, row) cluster, the portable most; kMaxCluster
 MAX_STAGES = 3     # tiles of a block in flight at once; kMaxStages
 SPLIT_WARPS = 4    # warps per block of the split kernel; kSplitWarps
@@ -109,27 +110,31 @@ class PagedPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def paged_split_plan(nb: int, page_size: int, window: int | None, rep: int, hd: int,
-                     int8: bool = False) -> PagedPlan:
-    """The split kernel's plan, from shapes alone (never from ``pos``, which
-    lives on the device): the keys a row can reach, ``nb * page_size`` and
-    at most ``window``, in ``TILE``-key tiles over at most ``MAX_CLUSTER``
-    blocks, as many as an even split needs; each block finds its own range
-    from its row's position on the device. The shared memory mirrors
-    ``split_smem_bytes`` in ``csrc/paged_decode_attention.cu``: the ring of
-    stages (K and V rows of hd padded to 64 or 128, bf16 at 16 bytes past
-    a multiple of 128, int8 at 8 past a multiple of 16 with float32 scales)
-    and for int8 the warps' bf16 scratch, or the merge's (m, l, acc) if
+                     int8: bool = False, dtype: torch.dtype = torch.bfloat16) -> PagedPlan:
+    """The kernel's plan for q of ``dtype``, from shapes alone (never from
+    ``pos``, which lives on the device): the keys a row can reach, ``nb *
+    page_size`` and at most ``window``, in ``TILE[dtype]``-key tiles over at
+    most ``MAX_CLUSTER`` blocks, as many as an even split needs; each block
+    finds its own range from its row's position on the device. The shared
+    memory mirrors ``split_smem_bytes`` in ``csrc/paged_decode_attention.cu``:
+    the ring of stages (K and V rows of hd padded to 64 or 128, bf16 and
+    float32 at 16 bytes past a multiple of 128, int8 at 8 past a multiple of
+    16 with float32 scales), then q in float32 (float32 q) or the warps'
+    bf16 scratch (int8 pages, bf16 q), or the merge's (m, l, acc) if
     larger."""
+    tile, f32 = TILE[dtype], dtype == torch.float32
     reach = nb * page_size if window is None else min(nb * page_size, window)
-    tiles = -(-reach // TILE)
+    tiles = -(-reach // tile)
     per = -(-tiles // MAX_CLUSTER)
     stages = min(per, MAX_STAGES)
     dims = 64 if hd <= 64 else 128     # hd padded with zeros
-    rs = 2 * dims + 16
-    stage = 2 * TILE * (dims + 8 + 4) if int8 else 2 * TILE * rs
-    loop = stages * stage + (SPLIT_WARPS * 32 * rs if int8 else 0)
+    esize = 1 if int8 else 4 if f32 else 2
+    row = esize * dims + (8 if int8 else 16)
+    stage = 2 * tile * (row + (4 if int8 else 0))
+    extra = 4 * rep * hd if f32 else SPLIT_WARPS * 32 * (2 * dims + 16) if int8 else 0
+    loop = stages * stage + extra
     merge = 4 * (SPLIT_WARPS + 1) * rep * (hd + 2)
-    return PagedPlan(TILE, -(-tiles // per), per, stages, max(loop, merge))
+    return PagedPlan(tile, -(-tiles // per), per, stages, max(loop, merge))
 
 
 def _check(q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scales, window):
@@ -188,7 +193,7 @@ def _launch(name, q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scal
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("kernel takes 16-byte aligned q and pages")
     nb = block_table.shape[1]
-    plan = paged_split_plan(nb, ps, window, H // K, hd, int8)
+    plan = paged_split_plan(nb, ps, window, H // K, hd, int8, q.dtype)
     out = torch.empty_like(q)
     lib = build.load()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -248,8 +253,8 @@ def autotune_block_k(candidates) -> int:
     """The ``block_k`` to run at: the first candidate (whole pages, from
     ``block_k_candidates``). The reference times its Pallas kernels at each
     candidate; here every candidate launches the same kernel with the same
-    tiles (64 keys a tile for the split kernel, several pages; 32-key warp
-    groups for the other), so there is nothing to time."""
+    tiles (64 keys with a bf16 q, 32 with a float32 q, several pages a
+    tile), so there is nothing to time."""
     if not candidates:
         raise ValueError("no block_k candidates")
     return candidates[0]

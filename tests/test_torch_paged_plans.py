@@ -1,10 +1,11 @@
-"""The launch plan of the split-K paged decode kernel (B7, and B10 with a
-bf16 q) and the numeric rules it rests on, on the CPU: the blocks' key
-ranges as the kernel computes them on the device (mirrored here from
-``csrc/paged_decode_attention.cu``), its shared memory, a float32
-emulation of its split-then-merge against the plain version and the
-reference's oracle, and the exact int8 -> bf16 widening and bf16 hi + lo
-split its int8 path takes. No kernel launches.
+"""The launch plan of the split-K paged decode kernel (B7-B10, with a bf16
+q in 64-key tiles and a float32 q in 32-key tiles) and the numeric rules it
+rests on, on the CPU: the blocks' key ranges as the kernel computes them on
+the device (mirrored here from ``csrc/paged_decode_attention.cu``), its
+shared memory, a float32 emulation of its split-then-merge at either tile
+against the plain version and the reference's oracles, and the exact int8
+-> bf16 widening and bf16 hi + lo split its bf16-q int8 path takes. No
+kernel launches.
 
 Tolerances. The float32 emulation within 1e-6 of each row's max|out| of
 the plain version run in float64 (the plain version's own float32 run is
@@ -29,7 +30,9 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import paged_decode_attention as KP
 
 SMEM_LIMIT = 232_448      # bytes of shared memory a block may take on an H100
-WARPS = 4                 # warps a block; 16 keys of each tile a warp
+WARPS = 4                 # warps a block
+BF16, F32 = torch.bfloat16, torch.float32
+DTYPES = pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
 
 
 def block_tiles(plan, pos, window, nb, ps, rank):
@@ -48,14 +51,16 @@ def block_keys(plan, pos, window, nb, ps, rank):
     return [k for k in range(lo + t0 * plan.tile, lo + t1 * plan.tile) if k <= hi]
 
 
+@DTYPES
 @settings(max_examples=300, deadline=None)
 @given(nb=st.integers(1, 300), ps=st.sampled_from([1, 2, 4, 8, 16, 32, 64]),
        window=st.one_of(st.none(), st.integers(1, 5000)), data=st.data())
-def test_blocks_cover_each_valid_key_once(nb, ps, window, data):
+def test_blocks_cover_each_valid_key_once(dtype, nb, ps, window, data):
     """For every position up to two past the table's span, the cluster's
     blocks take each key of [lo, min(pos, nb*ps - 1)] exactly once and no
-    key outside it; no block takes more than ``per_block`` tiles."""
-    plan = KP.paged_split_plan(nb, ps, window, 4, 64)
+    key outside it; no block takes more than ``per_block`` tiles. At either
+    q dtype's tile."""
+    plan = KP.paged_split_plan(nb, ps, window, 4, 64, dtype=dtype)
     pos = data.draw(st.integers(0, nb * ps + 1))
     lo = max(0, pos - window + 1) if window else 0
     hi = min(pos, nb * ps - 1)
@@ -67,17 +72,19 @@ def test_blocks_cover_each_valid_key_once(nb, ps, window, data):
     assert taken == list(range(lo, hi + 1))
 
 
+@DTYPES
 @settings(max_examples=300, deadline=None)
 @given(nb=st.integers(1, 5000), ps=st.sampled_from([1, 2, 4, 8, 16, 32, 64]),
        window=st.one_of(st.none(), st.integers(1, 100_000)), rep=st.integers(1, 8),
        hd=st.integers(1, 16).map(lambda n: 8 * n), int8=st.booleans())
-def test_plan_invariants_the_launch_checks(nb, ps, window, rep, hd, int8):
-    """At most 8 blocks, none idle at the longest row, and the ring's depth:
-    what ``dispatch_split`` refuses a plan for breaking."""
-    plan = KP.paged_split_plan(nb, ps, window, rep, hd, int8)
+def test_plan_invariants_the_launch_checks(dtype, nb, ps, window, rep, hd, int8):
+    """The tile of q's dtype, at most 8 blocks, none idle at the longest
+    row, and the ring's depth: what ``dispatch_split`` refuses a plan for
+    breaking."""
+    plan = KP.paged_split_plan(nb, ps, window, rep, hd, int8, dtype)
     reach = nb * ps if window is None else min(nb * ps, window)
-    tiles = -(-reach // KP.TILE)
-    assert plan.tile == KP.TILE == 64
+    tiles = -(-reach // plan.tile)
+    assert plan.tile == KP.TILE[dtype] == (64 if dtype == BF16 else 32)
     assert 1 <= plan.cluster <= KP.MAX_CLUSTER == 8 and plan.per_block >= 1
     assert (plan.cluster - 1) * plan.per_block < tiles <= plan.cluster * plan.per_block
     assert plan.stages == min(plan.per_block, KP.MAX_STAGES)
@@ -88,32 +95,42 @@ def test_plan_depends_on_shapes_only():
     """The plan never sees a position: its arguments are shapes, and the
     same shapes give the same plan (positions live on the device)."""
     assert list(inspect.signature(KP.paged_split_plan).parameters) == [
-        "nb", "page_size", "window", "rep", "hd", "int8"]
+        "nb", "page_size", "window", "rep", "hd", "int8", "dtype"]
     a = KP.paged_split_plan(40, 16, None, 4, 64)
     assert a == KP.paged_split_plan(40, 16, None, 4, 64)
     assert (a.cluster, a.per_block, a.stages) == (5, 2, 2)     # the serve shape
     assert KP.paged_split_plan(40, 16, 64, 4, 64).cluster == 1
+    f = KP.paged_split_plan(40, 16, None, 4, 64, dtype=F32)   # 20 tiles of 32 keys
+    assert (f.tile, f.cluster, f.per_block, f.stages) == (32, 7, 3, 3)
+    assert KP.paged_split_plan(40, 16, 64, 4, 64, dtype=F32).cluster == 2
 
 
-def _smem(int8, hd, rep, stages):
-    """Shared memory laid out by hand: K and V rows of hd padded to 64 or
-    128, bf16 at 2D + 16 bytes, int8 at D + 8 with two float32 scales a
-    key; int8 adds the warps' 32 bf16 rows; the merge reuses it all."""
+def _smem(int8, dtype, hd, rep, stages):
+    """Shared memory laid out by hand: 64-key tiles for a bf16 q, 32 for a
+    float32 q; K and V rows of hd padded to 64 or 128, bf16 at 2D + 16
+    bytes, float32 at 4D + 16, int8 at D + 8 with two float32 scales a key;
+    a bf16 q over int8 pages adds the warps' 32 bf16 rows, a float32 q its
+    rep x hd values; the merge reuses it all."""
     D = 64 if hd <= 64 else 128
-    stage = 2 * 64 * ((D + 8) + 4) if int8 else 2 * 64 * (2 * D + 16)
-    loop = stages * stage + (WARPS * 32 * (2 * D + 16) if int8 else 0)
+    if dtype == F32:
+        stage = 2 * 32 * ((D + 8) + 4) if int8 else 2 * 32 * (4 * D + 16)
+        loop = stages * stage + 4 * rep * hd
+    else:
+        stage = 2 * 64 * ((D + 8) + 4) if int8 else 2 * 64 * (2 * D + 16)
+        loop = stages * stage + (WARPS * 32 * (2 * D + 16) if int8 else 0)
     return max(loop, 4 * (WARPS + 1) * rep * (hd + 2))
 
 
+@DTYPES
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("arch", sorted(ARCHS))
-def test_shared_memory_fits_every_dense_config(arch, int8):
+def test_shared_memory_fits_every_dense_config(arch, int8, dtype):
     cfg = ARCHS[arch]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     for nb in (1, 8, 40, 256, 4096):
         for window in (None, 64, cfg.sliding_window):
-            plan = KP.paged_split_plan(nb, 16, window, H // K, hd, int8)
-            assert plan.smem_bytes == _smem(int8, hd, H // K, plan.stages) <= SMEM_LIMIT
+            plan = KP.paged_split_plan(nb, 16, window, H // K, hd, int8, dtype)
+            assert plan.smem_bytes == _smem(int8, dtype, hd, H // K, plan.stages) <= SMEM_LIMIT
 
 
 # -- the split-then-merge, emulated ---------------------------------------------------
@@ -127,15 +144,19 @@ def _merge(states):
     return m, l, acc
 
 
-def emulate(q, k, v, bt, pos, phase=None, window=None, ks=None, vs=None):
-    """The split kernel's arithmetic in float32: per (row, kv head), the
-    plan's blocks take their tiles, each of a block's four warps 16 keys of
-    a tile with its own online softmax; the warps merge in the block, the
-    blocks in the cluster; out = acc / max(l, 1e-20)."""
+def emulate(q, k, v, bt, pos, phase=None, window=None, ks=None, vs=None, dtype=BF16):
+    """The split kernel's arithmetic in float32, at the tile of a q of
+    ``dtype``: per (row, kv head), the plan's blocks take their tiles. With
+    a bf16 q each of a block's four warps takes 16 keys of a 64-key tile
+    with its own online softmax, and the warps merge in the block; with a
+    float32 q the block takes each 32-key tile whole into one online
+    softmax a head. The blocks merge in the cluster; out = acc / max(l,
+    1e-20)."""
     R, H, hd = q.shape
     P, ps, K = k.shape[:3]
     rep, nb = H // K, bt.shape[1]
-    plan = KP.paged_split_plan(nb, ps, window, rep, hd, ks is not None)
+    plan = KP.paged_split_plan(nb, ps, window, rep, hd, ks is not None, dtype)
+    width = plan.tile if dtype == F32 else plan.tile // WARPS   # keys of one softmax stream
     out = torch.zeros(R, H, hd)
     empty = (torch.full((rep,), -1e30), torch.zeros(rep), torch.zeros(rep, hd))
     for r in range(R):
@@ -146,11 +167,11 @@ def emulate(q, k, v, bt, pos, phase=None, window=None, ks=None, vs=None):
             blocks = []
             for rank in range(plan.cluster):
                 t0, t1, lo, hi = block_tiles(plan, int(pos[r]), window, nb, ps, rank)
-                warps = [empty] * WARPS
+                warps = [empty] * (plan.tile // width)
                 for t in range(t0, t1):
-                    for w in range(WARPS):
-                        keys = [kp for kp in range(lo + t * 64 + 16 * w, lo + t * 64 + 16 * w + 16)
-                                if kp <= hi]
+                    for w in range(len(warps)):
+                        first = lo + t * plan.tile + width * w
+                        keys = [kp for kp in range(first, first + width) if kp <= hi]
                         if not keys:
                             continue
                         page = bt[r, [kp // ps for kp in keys]].long().clamp(0, P - 1)
@@ -198,15 +219,18 @@ def _rows_close(out, want, rel=1e-6):
         ((out - want).abs() / yard.clamp_min(1e-30)).max()
 
 
+@DTYPES
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("window", [None, 50, 200])
 @pytest.mark.parametrize("nb,ps,rep,hd", [(40, 16, 4, 16), (13, 8, 8, 24), (3, 4, 1, 8)])
-def test_emulated_split_matches_the_plain_version(nb, ps, rep, hd, window, int8):
+def test_emulated_split_matches_the_plain_version(nb, ps, rep, hd, window, int8, dtype):
     """Float32: the blocks' partial softmaxes, merged, give the plain
-    version row by row; phase-0 rows are exact zeros."""
+    version (run in float64) row by row at either tile, within 1e-6 of each
+    row's max|out|; phase-0 rows are exact zeros."""
     c = _case(nb + ps + rep, R=4, nb=nb, ps=ps, K=2, rep=rep, hd=hd, int8=int8)
     scales = dict(ks=c["ks"], vs=c["vs"]) if int8 else {}
-    out = emulate(c["q"], c["k"], c["v"], c["bt"], c["pos"], c["phase"], window, **scales)
+    out = emulate(c["q"], c["k"], c["v"], c["bt"], c["pos"], c["phase"], window, **scales,
+                  dtype=dtype)
     if int8:
         pages = dict(k_scales=c["ks"].double(), v_scales=c["vs"].double())
         k, v = c["k"], c["v"]
@@ -229,16 +253,51 @@ def test_rows_without_a_valid_key_are_zeros():
     assert bool(out[2].abs().sum() > 0)
 
 
+def _jnp(c, *names):
+    return [jnp.asarray(c[n].numpy()) for n in names]
+
+
+@DTYPES
 @pytest.mark.parametrize("window", [None, 37])
-def test_emulated_split_matches_the_reference_oracle(window):
+def test_emulated_split_matches_the_reference_oracle(window, dtype):
     """Float32 ragged rows against ``ref.ref_ragged_paged_decode_attention``
-    (the JAX package's oracle) on the same numpy inputs."""
+    (the JAX package's oracle) on the same numpy inputs, within 1e-6 of each
+    row's max|out|."""
     c = _case(11, R=5, nb=12, ps=8, K=2, rep=4, hd=16)
-    out = emulate(c["q"], c["k"], c["v"], c["bt"], c["pos"], c["phase"], window)
+    out = emulate(c["q"], c["k"], c["v"], c["bt"], c["pos"], c["phase"], window, dtype=dtype)
     want = torch.from_numpy(np.array(ref.ref_ragged_paged_decode_attention(
-        *(jnp.asarray(c[n].numpy()) for n in ("q", "k", "v", "bt", "pos", "phase")),
-        window=window)))
+        *_jnp(c, "q", "k", "v", "bt", "pos", "phase"), window=window)))
     _rows_close(out, want)
+
+
+@DTYPES
+@pytest.mark.parametrize("window", [None, 37])
+def test_emulated_split_without_phase_matches_the_reference_oracle(window, dtype):
+    """The per-row-pos form (no phase: every row live) against
+    ``ref.ref_paged_decode_attention`` on the same numpy inputs, within 1e-6
+    of each row's max|out|."""
+    c = _case(12, R=5, nb=12, ps=8, K=2, rep=4, hd=16)
+    out = emulate(c["q"], c["k"], c["v"], c["bt"], c["pos"], None, window, dtype=dtype)
+    want = torch.from_numpy(np.array(ref.ref_paged_decode_attention(
+        *_jnp(c, "q", "k", "v", "bt", "pos"), window=window)))
+    _rows_close(out, want)
+
+
+@DTYPES
+@pytest.mark.parametrize("window", [None, 37])
+def test_emulated_split_int8_with_phase_matches_the_reference_oracle(window, dtype):
+    """Int8 pages with a phase (the ragged int8 form) against
+    ``ref.ref_ragged_paged_decode_attention_int8``, whose float32 form the
+    kernel keeps, on the same numpy inputs, within 1e-6 of each row's
+    max|out|; phase-0 rows exact zeros."""
+    c = _case(13, R=5, nb=12, ps=8, K=2, rep=4, hd=16, int8=True)
+    out = emulate(c["q"], c["k"], c["v"], c["bt"], c["pos"], c["phase"], window,
+                  ks=c["ks"], vs=c["vs"], dtype=dtype)
+    want = torch.from_numpy(np.array(ref.ref_ragged_paged_decode_attention_int8(
+        *_jnp(c, "q", "k", "ks", "v", "vs", "bt", "pos", "phase"), window=window)))
+    dead = c["phase"] == 0
+    assert torch.equal(out[dead], torch.zeros_like(out[dead]))
+    _rows_close(out[~dead], want[~dead])
 
 
 # -- the int8 path's numeric rules ---------------------------------------------------
