@@ -9,9 +9,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    off for matmuls and convolutions (the reference is full float32) and
    bf16 matmuls' reduced-precision reductions off;
 2. build: compiles ``src/repro_torch/csrc/*.cu`` with nvcc for sm_90a and
-   logs the B1/B3, B4, B5, B6 and B7-B10 kernels' registers, shared memory
-   and spills (a B1/B3, B6 or B7-B10 instantiation that spills fails, and
-   so does a build that holds a ``paged_kernel``: B7-B10 run one template);
+   logs the B1/B3, B2, B4, B5, B6 and B7-B10 kernels' registers, shared
+   memory and spills (a B1/B3, B2, B6 or B7-B10 instantiation that spills
+   fails, and so does a build that holds a ``paged_kernel`` or an
+   ``apg_kernel``: B7-B10 run one template, B2 its cluster template);
 3. kernels vs plain: each guidance-combine kernel against its plain
    PyTorch version at the main path's shapes (B, 64, 64, 4), B in {1, 2, 8},
    float32 and bfloat16, and its time beside its bytes-moved bound;
@@ -30,7 +31,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    4096 and in its ring form (attention held row by row, and shown to
    reject planted causal faults), RMSNorm timed at 4, 16, 256 and 2048 rows
    of 2048, and the three guidance-combine kernels on (4, 128256) float32
-   logits, each timed beside its bound and a library call; then the
+   logits, each timed beside its bound and a library call, and B2 on the
+   serve engine's (16, 128256) with per-row scales and padding rows and on
+   the (1, 151936) and (1, 256000) logits (its re-read route); then the
    latency-bound kernels: RMSNorm over rows {1 .. 4097} x dims {64 .. 8192}
    x the four x/scale dtype pairs (its route logged), Eq. 1 and its per-row
    form bit-exact on ragged lengths and unaligned views, and B1, B3 and B6
@@ -71,11 +74,13 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    rows; then a steady tick under ``torch.profiler``, with RMSNorm's and
    the paged kernel's shares.
 
-``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``
-and ``--paged-kernels [SRC]`` time and profile the decode steps, a steady
-serve tick of each (step mode, pool dtype) pair, or the four paged kernels
-at the serve shape, of the ``repro_torch`` under SRC alone (two trees
-compare in turns in one call).
+``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
+``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
+decode steps (the cfg and the APG FULL step), a steady serve tick of each
+(step mode, pool dtype) pair, the four paged kernels at the serve shape, or
+B2 at its four timed shapes, of the ``repro_torch`` under SRC alone (two
+trees compare in turns in one call); ``--apg-plans`` times B2 under other
+launch plans than its own.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -154,6 +159,18 @@ def time_ms(fn, iters: int = 100) -> tuple[float, float]:
 def bound_ms(nbytes: int, flops: int, peak: float = H100_FP32_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def apg_within(out, ref) -> tuple[bool, float]:
+    """B2's tolerance: float32 within 1e-5 + 1e-5 |ref| of each value (the
+    row sums are taken in another order), bfloat16 within one bf16 step
+    (2^-7 |ref| + 1e-5); every value finite. -> (ok, max abs error)."""
+    import torch
+    torch.cuda.synchronize()
+    rtol, atol = (1e-5, 1e-5) if ref.dtype == torch.float32 else (2 ** -7, 1e-5)
+    err = (out.float() - ref.float()).abs()
+    ok = bool(torch.isfinite(out).all()) and not bool((err > atol + rtol * ref.float().abs()).any())
+    return ok, err.max().item()
 
 
 def kernel_modules():
@@ -244,10 +261,15 @@ def _ptxas_report(text: str) -> list:
 
 
 # the kernels whose resources phase 2 reports, by the name nvcc mangles into
-# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B6, B7-B10) must not spill
+# each instantiation; those of NO_SPILL_KERNELS (B1/B3, B2, B6, B7-B10) must
+# not spill
 REPORTED_KERNELS = ("flash_wgmma_kernel", "decode_mma_kernel", "decode_kernel",
-                    "combine_kernel", "rmsnorm_kernel", "paged_split_kernel")
-NO_SPILL_KERNELS = ("combine_kernel", "rmsnorm_kernel", "paged_split_kernel")
+                    "combine_kernel", "apg_cluster_kernel", "rmsnorm_kernel",
+                    "paged_split_kernel")
+NO_SPILL_KERNELS = ("combine_kernel", "apg_cluster_kernel", "rmsnorm_kernel",
+                    "paged_split_kernel")
+# the one-block-a-row kernels the templates replaced
+RETIRED_KERNELS = ("paged_kernel", "apg_kernel")
 
 
 def _template_args(mangled: str) -> str:
@@ -257,7 +279,7 @@ def _template_args(mangled: str) -> str:
     words = {"f": "float", "j": "uint32", "y": "uint64", "13__nv_bfloat16": "bf16",
              "Lb0E": "false", "Lb1E": "true"}
     out, last_type = [], ""
-    for m in re.finditer(r"13__nv_bfloat16|S\d*_|Lb[01]E|Li(\d+)E|[fjy]|.+?", mangled):
+    for m in re.finditer(r"13__nv_bfloat16|S\d*_|Lb[01]E|Li(\d+)E?|[fjy]|.+?", mangled):
         if m.group(0)[0] == "S":               # a substitution: the type named before
             out.append(last_type)
             continue
@@ -280,7 +302,7 @@ def phase_build():
             log(f"[build] {line.strip()}")
     spilled, stray = [], []
     for name, regs, smem, st, ld in _ptxas_report(text):
-        if re.search(r"\d+paged_kernelI", name):   # the paged file's one-block-a-row kernel
+        if re.search(r"\d+(" + "|".join(RETIRED_KERNELS) + ")I", name):
             stray.append(name)
         m = re.search("(" + "|".join(REPORTED_KERNELS) + r")I(\w*?)E(Ev|v)", name)
         if m:
@@ -292,9 +314,9 @@ def phase_build():
     if not text:
         log("[build] the library was built before: no register report")
     if spilled:
-        fail(f"B1/B3/B6/B7-B10 instantiations spill registers: {spilled}")
+        fail(f"B1/B3/B2/B6/B7-B10 instantiations spill registers: {spilled}")
     if stray:
-        fail(f"the build holds the one-block-a-row paged_kernel: {stray}")
+        fail(f"the build holds a retired one-block-a-row kernel: {stray}")
 
 
 def phase_kernels():
@@ -331,9 +353,7 @@ def phase_kernels():
             errs["cfg_combine_rowscale"] = max(errs["cfg_combine_rowscale"], err)
             if not torch.equal(out, ref):
                 fail(f"cfg_combine_rowscale {tag}: not bit-exact, max err {err}")
-            # B2: float32 within 1e-5 + 1e-5|ref| (the row sums are taken in
-            # another order); bfloat16 within one bf16 step of the reference
-            rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-5)
+            # B2: within ``apg_within``'s tolerance
             uq = u.clone()
             uq[0] = c[0]                                   # a u == c row
             diff = torch.randn(shape, generator=gen, device=dev)
@@ -343,17 +363,14 @@ def phase_kernels():
                         out = K.apg_combine(uq, c, 7.5, eta=eta, threshold=thr, diff=d)
                         ref = K.apg_combine_plain(uq, c, 7.5, eta=eta, threshold=thr,
                                                   diff=d)
-                        torch.cuda.synchronize()
-                        err = (out.float() - ref.float()).abs()
-                        if not bool(torch.isfinite(out).all()) or bool(
-                                (err > atol + rtol * ref.float().abs()).any()):
+                        ok, err = apg_within(out, ref)
+                        if not ok:
                             fail(f"apg_combine {tag} eta={eta} thr={thr} "
-                                 f"diff={d is not None}: max err {err.max().item()}")
+                                 f"diff={d is not None}: max err {err}")
                         if d is None and not torch.equal(out[0], c[0]):
                             fail(f"apg_combine {tag}: a u == c row must return c")
                         if dtype == torch.float32:
-                            errs["apg_combine"] = max(errs["apg_combine"],
-                                                      err.max().item())
+                            errs["apg_combine"] = max(errs["apg_combine"], err)
             log(f"[kernels] {tag}: cfg_combine bit-exact, cfg_combine_rowscale "
                 f"bit-exact, apg_combine within tolerance, u==c rows exact")
 
@@ -787,21 +804,51 @@ def phase_attn_kernels():
     if not torch.equal(out, ref):
         fail(f"cfg_combine_rowscale (4, {V}) f32, scales {ls.tolist()}: not bit-exact, max "
              f"err {(out - ref).abs().max().item():.3g}")
-    e, _ = _err_ok("apg_combine", f"(4, {V}) f32",
-                   KC.apg_combine(lu, lc, DECODE_SCALE, eta=0.3),
-                   KC.apg_combine_plain(lu, lc, DECODE_SCALE, eta=0.3), rel_to_max=1e-5)
-    # the per-row form the serve engine combines with; a self-paired row
-    # (u == c) returns c
+    # B2 within phase 3's tolerance (``apg_within``): the decode logits
+    # with one scale, and the per-row form the serve engine combines with,
+    # where a self-paired row (u == c) returns c
+    apg_errs = []
+
+    def apg_ok(tag, out, ref):
+        ok, e = apg_within(out, ref)
+        if not ok:
+            fail(f"apg_combine {tag}: max abs err {e:.3g}")
+        apg_errs.append(e)
+
+    apg_ok(f"(4, {V}) f32", KC.apg_combine(lu, lc, DECODE_SCALE, eta=0.3),
+           KC.apg_combine_plain(lu, lc, DECODE_SCALE, eta=0.3))
     lu2 = lu.clone()
     lu2[0] = lc[0]
     out = KC.apg_combine(lu2, lc, ls, eta=0.3, threshold=2.0)
-    e2, _ = _err_ok("apg_combine", f"(4, {V}) f32 per-row scales {ls.tolist()}", out,
-                    KC.apg_combine_plain(lu2, lc, ls, eta=0.3, threshold=2.0), rel_to_max=1e-5)
+    apg_ok(f"(4, {V}) f32 per-row scales {ls.tolist()}", out,
+           KC.apg_combine_plain(lu2, lc, ls, eta=0.3, threshold=2.0))
     if not torch.equal(out[0], lc[0]):
         fail("apg_combine per-row: a u == c row must return c")
+    # the serve engine's R = 16 combine: per-row scales, a self-paired row
+    # and three padding rows of zeros
+    R = SERVE_R
+    su, sc16 = rnd(R, V), rnd(R, V)
+    su[0] = sc16[0]
+    su[-3:], sc16[-3:] = 0.0, 0.0
+    ss = torch.linspace(1.0, 7.5, R, device=dev)
+    for eta, thr in ((0.0, 0.0), (0.3, 2.0)):
+        out = KC.apg_combine(su, sc16, ss, eta=eta, threshold=thr)
+        apg_ok(f"({R}, {V}) f32 per-row scales eta={eta} thr={thr}", out,
+               KC.apg_combine_plain(su, sc16, ss, eta=eta, threshold=thr))
+        if not torch.equal(out[0], sc16[0]) or not bool((out[-3:] == 0).all()):
+            fail(f"apg_combine ({R}, {V}): the u == c row must return c, padding rows 0")
+    # qwen3-14b's and recurrentgemma-9b's vocabularies: the re-read route
+    for Vl in (151936, 256000):
+        plan = KC.apg_plan(1, Vl, f32, False)
+        lu1, lc1, ld1 = rnd(1, Vl), rnd(1, Vl), rnd(1, Vl)
+        for d in (None, ld1):
+            apg_ok(f"(1, {Vl}) f32 diff={d is not None} ({plan.route})",
+                   KC.apg_combine(lu1, lc1, DECODE_SCALE, eta=0.3, threshold=1.0, diff=d),
+                   KC.apg_combine_plain(lu1, lc1, DECODE_SCALE, eta=0.3, threshold=1.0, diff=d))
     log(f"[attn] cfg_combine and cfg_combine_rowscale (4, {V}) f32 bit-exact; apg_combine "
-        f"within 1e-5 of max|out| (max abs err {e:.3g}), with per-row scales too "
-        f"({e2:.3g}), u == c rows exact")
+        f"within 1e-5 + 1e-5|ref| (max abs err {max(apg_errs):.3g}) at (4, {V}) with one scale "
+        f"and per-row scales, ({R}, {V}) with per-row scales and padding rows, (1, 151936) and "
+        f"(1, 256000) (route {KC.apg_plan(1, 256000, f32, False).route}); u == c rows exact")
     n = B * V
     row("cfg_combine", f"(4, {V}) f32", lambda: KC.cfg_combine(lu, lc, DECODE_SCALE),
         lambda: KC.cfg_combine_plain(lu, lc, DECODE_SCALE),
@@ -816,6 +863,10 @@ def phase_attn_kernels():
         lambda: KC.apg_combine(lu, lc, ls, eta=0.3),
         lambda: KC.apg_combine_plain(lu, lc, ls, eta=0.3), None, 12 * n + 4 * B, 16 * n,
         H100_FP32_FLOPS)
+    row("apg_combine", f"({R}, {V}) f32, per-row scales",
+        lambda: KC.apg_combine(su, sc16, ss, eta=0.3),
+        lambda: KC.apg_combine_plain(su, sc16, ss, eta=0.3), None, 12 * R * V + 4 * R,
+        16 * R * V, H100_FP32_FLOPS)
     return rows
 
 
@@ -1142,10 +1193,11 @@ def _decode_model():
     return model, toks
 
 
-def _decode_steps(model, toks, pos: int):
+def _decode_steps(model, toks, pos: int, combine_fn=None):
     """-> (FULL step, COND step) at ``pos`` as callables, on caches of
     capacity ``DECODE_S + DECODE_NEW`` prefilled from ``toks`` and the null
-    prompt. Call under ``torch.no_grad()``."""
+    prompt; the FULL step combines with ``combine_fn(l_u, l_c)`` if given,
+    else Eq. 1. Call under ``torch.no_grad()``."""
     from repro_torch.core import ar_decode as AR
 
     cap = DECODE_S + DECODE_NEW
@@ -1154,8 +1206,16 @@ def _decode_steps(model, toks, pos: int):
     cc = model.prepare_decode_caches(cc, seq_len=DECODE_S, capacity=cap)
     cu = model.prepare_decode_caches(cu, seq_len=DECODE_S, capacity=cap)
     tok = toks[:, -1]
-    return (lambda: AR.decode_step_full(model, tok, cc, cu, pos, DECODE_SCALE),
+    return (lambda: AR.decode_step_full(model, tok, cc, cu, pos, DECODE_SCALE,
+                                        combine_fn=combine_fn),
             lambda: AR.decode_step_cond(model, tok, cc, pos))
+
+
+def _apg_fn():
+    """``guided_decode``'s APG combine (``combine="apg"``, eta 0.3) as the
+    FULL step's ``combine_fn``: one B2 launch a step."""
+    from repro_torch.core.guidance import apg_combine
+    return lambda l_u, l_c: apg_combine(l_u, l_c, DECODE_SCALE, eta=0.3)
 
 
 def phase_decode_main():
@@ -1300,15 +1360,16 @@ def _profile_share(by_name: dict, key: str) -> tuple[int, int]:
     return sum(t for t, _ in hits), sum(k for _, k in hits)
 
 
-def phase_decode_profile(model, toks) -> None:
+def phase_decode_profile(model, toks, combine_fn=None, what: str = "FULL") -> None:
     """The kernels that take a FULL decode step's device time under
-    ``torch.profiler``: summed device time by kernel, its share of the
-    step's kernel time, and launches per step."""
+    ``torch.profiler`` (combining with ``combine_fn`` if given, ``what``
+    naming it): summed device time by kernel, its share of the step's
+    kernel time, and launches per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
-        step, _ = _decode_steps(model, toks, DECODE_S)
+        step, _ = _decode_steps(model, toks, DECODE_S, combine_fn)
         step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1324,14 +1385,16 @@ def phase_decode_profile(model, toks) -> None:
     if not total:
         log("[dprofile] not measured: the profiler saw no device time")
         return
-    log(f"[dprofile] one FULL step at pos {DECODE_S}: {n} kernel launches, {total / 1e6:.3f} ms "
-        f"of kernel time (profiled)")
+    log(f"[dprofile] one {what} step at pos {DECODE_S}: {n} kernel launches, "
+        f"{total / 1e6:.3f} ms of kernel time (profiled)")
     for rank, (name, (t, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]):
         log(f"[dprofile] {rank + 1}. {t / total:.3f} of kernel time, {k}x {name[:90]}")
-    for label, key in (("B6 rmsnorm", "rmsnorm_kernel"), ("B1 cfg_combine", "combine_kernel")):
+    for label, key in (("B6 rmsnorm", "rmsnorm_kernel"), ("B1 cfg_combine", "combine_kernel"),
+                       ("B2 apg_combine", "apg_")):
         t, k = _profile_share(by_name, key)
-        log(f"[dprofile] {label}: {t / total:.4f} of the step's kernel time, {k} launches, "
-            f"{t / max(k, 1) / 1e3:.2f} us each (profiled)")
+        if k:
+            log(f"[dprofile] {what}: {label}: {t / total:.4f} of the step's kernel time, {k} "
+                f"launches, {t / max(k, 1) / 1e3:.2f} us each (profiled)")
 
 # -- the paged serve path (llama3.2-1b) ------------------------------------------
 
@@ -1800,6 +1863,7 @@ def main() -> None:
     model, toks, ar_launches, ar_rows = phase_decode_main()
     phase_decode_breakdown(model, toks, ar_rows)
     phase_decode_profile(model, toks)
+    phase_decode_profile(model, toks, _apg_fn(), "APG FULL")
     del model
     torch.cuda.empty_cache()
 
@@ -1845,12 +1909,13 @@ def main() -> None:
 
 
 def decode_steps_main(src: str) -> None:
-    """``python3 chip_smoke.py --decode-steps [SRC]``: the FULL and COND
-    decode steps' device time (three CUDA-graph replays each, at the
-    position ``[dbreak]`` uses) and a FULL step under ``torch.profiler``
-    (``[dprofile]``), for the ``repro_torch`` package under SRC (this
-    checkout's ``src`` by default). Two trees compare on one card when one
-    call runs this for each in turns (parent, change, change, parent)."""
+    """``python3 chip_smoke.py --decode-steps [SRC]``: the FULL, COND and
+    APG FULL (``combine="apg"``) decode steps' device time (three CUDA-graph
+    replays each, at the position ``[dbreak]`` uses) and a FULL and an APG
+    FULL step under ``torch.profiler`` (``[dprofile]``), for the
+    ``repro_torch`` package under SRC (this checkout's ``src`` by default).
+    Two trees compare on one card when one call runs this for each in turns
+    (parent, change, change, parent)."""
     sys.path.insert(0, os.path.abspath(src))
     phase_device()
     import torch
@@ -1859,11 +1924,15 @@ def decode_steps_main(src: str) -> None:
     model, toks = _decode_model()
     with torch.no_grad():
         full, cond = _decode_steps(model, toks, DECODE_S + DECODE_NEW // 2)
+        full_apg, _ = _decode_steps(model, toks, DECODE_S + DECODE_NEW // 2, _apg_fn())
         f = [_graph_ms(full) for _ in range(3)]
         c = [_graph_ms(cond) for _ in range(3)]
+        a = [_graph_ms(full_apg) for _ in range(3)]
     log(f"[steps] {os.path.dirname(repro_torch.__file__)}: FULL step device ms "
-        f"{', '.join(f'{t:.3f}' for t in f)}; COND {', '.join(f'{t:.3f}' for t in c)}")
+        f"{', '.join(f'{t:.3f}' for t in f)}; COND {', '.join(f'{t:.3f}' for t in c)}; "
+        f"APG FULL {', '.join(f'{t:.3f}' for t in a)}")
     phase_decode_profile(model, toks)
+    phase_decode_profile(model, toks, _apg_fn(), "APG FULL")
 
 
 def serve_steps_main(src: str) -> None:
@@ -1928,6 +1997,106 @@ def paged_kernels_main(src: str) -> None:
                 f"us {time_ms(kern)[0] * 1e3:.3f}")
 
 
+def apg_kernels_main(src: str) -> None:
+    """``python3 chip_smoke.py --apg-kernels [SRC]``: B2 at its four timed
+    shapes, float32, eta 0.3, threshold 1.0: the SD latent (1, 64, 64, 4)
+    with one scale, the decode logits (4, 128256) with one scale and with
+    per-row scales, and the serve engine's (16, 128256) with per-row
+    scales; each held to its plain version (``apg_within``) and then
+    event-timed three times, beside its bytes bound, for the ``repro_torch``
+    package under SRC (this checkout's ``src`` by default). Two trees
+    compare on one card when one call runs this for each in turns (parent,
+    change, change, parent)."""
+    sys.path.insert(0, os.path.abspath(src))
+    phase_device()
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import cfg_combine as KC
+
+    where = os.path.dirname(repro_torch.__file__)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    for shape, per_row in (((1, *LATENT), False), ((DECODE_B, 128256), False),
+                           ((DECODE_B, 128256), True), ((SERVE_R, 128256), True)):
+        u = torch.randn(shape, generator=gen, device="cuda")
+        c = torch.randn(shape, generator=gen, device="cuda")
+        scale = torch.linspace(1.0, 7.5, shape[0], device="cuda") if per_row else 7.5
+        kern = lambda: KC.apg_combine(u, c, scale, eta=0.3, threshold=1.0)  # noqa: E731
+        ok, e = apg_within(kern(), KC.apg_combine_plain(u, c, scale, eta=0.3, threshold=1.0))
+        if not ok:
+            fail(f"apg_combine {shape}: max abs err {e:.3g}")
+        ts = [time_ms(kern)[0] * 1e3 for _ in range(3)]
+        n = u.numel()
+        b_ms, b_by = bound_ms(12 * n + (4 * shape[0] if per_row else 0), 16 * n)
+        log(f"[apgkern] {where}: apg_combine {shape} f32 "
+            f"{'per-row scales' if per_row else 'one scale'} device us "
+            f"{', '.join(f'{t:.3f}' for t in ts)}; bound {b_ms * 1e3:.3f} us ({b_by}); max abs "
+            f"err {e:.3g}")
+
+
+def apg_plans_main() -> None:
+    """``python3 chip_smoke.py --apg-plans``: B2 under launch plans other
+    than ``apg_plan``'s, through the C entry point (which checks each plan),
+    float32, eta 0.3, each held to the plain version and event-timed three
+    times in turns with the plan's own: at the SD latent (clusters of 1-8,
+    threads x held accesses), at the decode logits (clusters of 2-8), at 8,
+    15 and 16 rows of 128256 in clusters of 8 and 4 (one-block-an-SM
+    clusters of 8 past one wave at 16 rows), and on the longer
+    vocabularies' re-read route (4 or 8 accesses held). The numbers behind
+    ``apg_plan``'s choices."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    phase_device()
+    import statistics
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cfg_combine as KC
+
+    lib = build.load()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    sweeps = {(1, 16384): [(8, 128, 4), (8, 64, 8), (4, 256, 4), (4, 128, 8), (2, 512, 4),
+                           (2, 256, 8), (1, 512, 8)],
+              (4, 128256): [(8, 512, 8), (4, 512, 8), (2, 512, 8)],
+              (8, 128256): [(8, 512, 8), (4, 512, 8)],
+              (15, 128256): [(8, 512, 8), (4, 512, 8)],
+              (16, 128256): [(4, 512, 8), (8, 512, 8), (8, 512, 4), (2, 512, 8)],
+              (1, 151936): [(8, 512, 8), (8, 512, 4)],
+              (1, 256000): [(8, 512, 8), (8, 512, 4)]}
+    for (rows, feat), plans in sweeps.items():
+        u = torch.randn(rows, feat, generator=gen, device="cuda")
+        c = torch.randn(rows, feat, generator=gen, device="cuda")
+        s = torch.full((rows,), 3.0, device="cuda")
+        ref = KC.apg_combine_plain(u, c, s, eta=0.3)
+        out = torch.empty_like(c)
+        own = KC.apg_plan(rows, feat, torch.float32, False)
+        fns = {}
+        for cl, th, held in plans:
+            sl = -(-(feat // 4) // cl)
+            plan = KC.ApgPlan(4, cl, th, held, "on_chip" if th * held >= sl else "reread",
+                              4 * (3 * (th // 32) + 3 * KC.APG_MAX_CLUSTER))
+
+            def fn(plan=plan):
+                code = lib.apg_combine(u.data_ptr(), c.data_ptr(), None, s.data_ptr(),
+                                       out.data_ptr(), rows, feat, 0.0, 0.3, 0.0, 0,
+                                       plan.width, plan.cluster, plan.threads, plan.held,
+                                       int(plan.route == "reread"), plan.smem, build.stream(c))
+                build.check(lib, "apg_combine", code)
+            fn()
+            ok, e = apg_within(out, ref)
+            if not ok:
+                fail(f"apg_combine ({rows}, {feat}) under {tuple(plan)}: max abs err {e:.3g}")
+            fns[plan] = fn
+        ts = {plan: [] for plan in fns}
+        for _ in range(3):
+            for plan, fn in fns.items():
+                ts[plan].append(time_ms(fn)[0] * 1e3)
+        for plan, t in ts.items():
+            log(f"[apgplan] ({rows}, {feat}) f32 per-row scales: cluster {plan.cluster}, "
+                f"{plan.threads} threads x {plan.held} held, {plan.route}"
+                f"{' (apg_plan)' if plan == own else ''}: device us median "
+                f"{statistics.median(t):.3f} ({', '.join(f'{x:.3f}' for x in t)})")
+
+
 if __name__ == "__main__":
     default_src = os.path.join(ROOT, "src")
     if sys.argv[1:2] == ["--decode-steps"]:
@@ -1936,5 +2105,9 @@ if __name__ == "__main__":
         serve_steps_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
     elif sys.argv[1:2] == ["--paged-kernels"]:
         paged_kernels_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
+    elif sys.argv[1:2] == ["--apg-kernels"]:
+        apg_kernels_main(sys.argv[2] if len(sys.argv) > 2 else default_src)
+    elif sys.argv[1:2] == ["--apg-plans"]:
+        apg_plans_main()
     else:
         main()

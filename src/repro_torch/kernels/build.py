@@ -30,7 +30,7 @@ _P, _LL, _F, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_i
 SIGNATURES = {
     "cfg_combine": [_P, _P, _P, _LL, _F, _I, _I, _I, _I, _LL, _P],
     "cfg_combine_rowscale": [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _LL, _P],
-    "apg_combine": [_P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F, _I, _P],
+    "apg_combine": [_P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F] + [_I] * 7 + [_P],
     "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     "decode_attention": [_P] * 5 + [_I] * 11 + [_F, _I, _P],

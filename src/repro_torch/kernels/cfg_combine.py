@@ -13,8 +13,9 @@ plain PyTorch version of each beside it.
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; there is no fallback. At the main
 paths' shapes B1 and B3 are bound by launch latency; ``combine_plan`` is
-their launch plan and the source note in ``cfg_combine.cu`` says why.
-``LAUNCHES`` counts kernel launches by name.
+their launch plan and the source note in ``cfg_combine.cu`` says why. B2
+is one cluster launch that holds each row on chip; ``apg_plan`` is its
+launch plan. ``LAUNCHES`` counts kernel launches by name.
 """
 
 from __future__ import annotations
@@ -54,6 +55,70 @@ def combine_plan(n: int, feat: int | None, dtype: torch.dtype,
     acc = -(-n // width)
     threads = 64 if -(-acc // (64 * VECS)) <= build.NUM_SMS else 128
     return CombinePlan(width, threads, VECS, -(-acc // (threads * VECS)))
+
+
+APG_MAX_CLUSTER = 8     # blocks a row: the portable cluster size (kApgMaxCluster)
+APG_MAX_THREADS = 512   # threads a block (kApgMaxThreads)
+APG_HELD = (4, 8)       # accesses a thread may hold in registers (the template's H)
+APG_MIN_SLICE = 256     # accesses that earn a row another block of its cluster
+APG_WAVE_BLOCKS = 120   # blocks of 512 threads at 128 registers (one an SM) that an H100
+                        # runs at once in clusters of 8: 15 clusters
+APG_MAX_GRID = 65535    # rows over grid y, and over z
+
+
+class ApgPlan(NamedTuple):
+    """``width`` elements an access (one 16-byte vector, or 1), ``cluster``
+    blocks a row, each a contiguous slice of the row's accesses, ``threads``
+    a block, ``held`` accesses a thread keeps in registers, ``route``
+    "on_chip" (the slice is held whole) or "reread" (the accesses past the
+    held ones are read again from L2 for the outputs), ``smem`` bytes of
+    dynamic shared memory (the warps' sums, then the cluster's blocks')."""
+    width: int
+    cluster: int
+    threads: int
+    held: int
+    route: str
+    smem: int
+
+
+def apg_max_held(dtype: torch.dtype, width: int) -> int:
+    """8 accesses, or 4 bfloat16 vectors (the same 32 elements: the compiler
+    holds them as float32, and at 8 they spilled; ``apg_max_held`` in
+    ``cfg_combine.cu``)."""
+    return 4 if dtype == torch.bfloat16 and width > 1 else 8
+
+
+@functools.lru_cache(maxsize=512)
+def apg_plan(rows: int, feat: int, dtype: torch.dtype, has_diff: bool,
+             aligned: bool = True) -> ApgPlan:
+    """B2 over ``rows`` rows of ``feat`` elements: 16-byte accesses if the
+    pointers are ``aligned`` and a row is whole vectors; a cluster of one
+    block a ``APG_MIN_SLICE`` accesses, at most ``APG_MAX_CLUSTER``, and a
+    power of two that keeps the launch's blocks within one wave
+    (``APG_WAVE_BLOCKS``); each thread holds 4 accesses where
+    ``APG_MAX_THREADS`` threads of 4 take the slice, else the most it may,
+    and the rest of the slice takes the re-read route. ``has_diff`` does not change the plan. Raises
+    ValueError for a shape the kernel does not take. ``chip_smoke.py
+    --apg-plans`` times the other choices on the card."""
+    if rows < 1 or feat < 1:
+        raise ValueError(f"APG over {rows} rows of {feat}: nothing to combine")
+    V = build.VEC[dtype]
+    width = V if aligned and feat % V == 0 else 1
+    acc = feat // width
+    wave = 1 << (max(1, APG_WAVE_BLOCKS // rows).bit_length() - 1)
+    cluster = min(APG_MAX_CLUSTER, -(-acc // APG_MIN_SLICE), wave)
+    slice_ = -(-acc // cluster)
+    if slice_ >= 1 << 31:
+        raise ValueError(f"APG rows of {feat} elements: a block's slice needs 64-bit indices")
+    if -(-rows // min(rows, APG_MAX_GRID)) > APG_MAX_GRID:
+        raise ValueError(f"APG over {rows} rows: more than the grid's y and z hold")
+    held = 4 if 4 * APG_MAX_THREADS >= slice_ else apg_max_held(dtype, width)
+    per_thread = -(-slice_ // held)
+    threads = min(APG_MAX_THREADS, -(-per_thread // 32) * 32)
+    route = "on_chip" if threads * held >= slice_ else "reread"
+    # three float32 sums a warp, then three a block of the cluster
+    return ApgPlan(width, cluster, threads, held, route,
+                   4 * (3 * (threads // 32) + 3 * APG_MAX_CLUSTER))
 
 
 def reset_launches() -> None:
@@ -184,13 +249,18 @@ def apg_combine(eps_uncond, eps_cond, scale, *, eta: float = 0.0,
     if per_row and (scale.dtype != torch.float32 or not scale.is_contiguous()):
         raise TypeError("scales must be contiguous float32")
     out = torch.empty_like(eps_cond)
+    if out.numel() == 0:
+        return out
+    aligned = _aligned(eps_uncond, eps_cond, out, *([] if diff is None else [diff]))
+    plan = apg_plan(rows, feat, eps_cond.dtype, diff is not None, aligned)
     lib = build.load()
     code = lib.apg_combine(eps_uncond.data_ptr(), eps_cond.data_ptr(),
                            None if diff is None else diff.data_ptr(),
                            scale.data_ptr() if per_row else None, out.data_ptr(),
                            rows, feat, 0.0 if per_row else float(scale) - 1.0, float(eta),
-                           float(threshold), build.DTYPES[eps_cond.dtype],
-                           build.stream(eps_cond))
+                           float(threshold), build.DTYPES[eps_cond.dtype], plan.width,
+                           plan.cluster, plan.threads, plan.held, int(plan.route == "reread"),
+                           plan.smem, build.stream(eps_cond))
     build.check(lib, "apg_combine", code)
     LAUNCHES["apg_combine"] += 1
     return out

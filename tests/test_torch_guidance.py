@@ -133,6 +133,30 @@ def test_apg_zero_rows_stay_finite_and_bf16_dtype_kept():
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=2 ** -7, atol=1e-5)
 
 
+def test_apg_per_row_scales_at_the_logits_match_pallas():
+    """The serve engine's form at guided_decode's logits, (4, 128256)
+    float32, one scale a row, a self-paired row and an all-zero padding row:
+    the reference's Pallas kernel in interpret mode, one row at a time with
+    that row's scale (it takes one scale a call), and its oracle with the
+    (4, 1) scale column, against the port's plain version on the same
+    inputs."""
+    u, c = _inputs((4, 128256), 18)
+    u[1] = c[1]                                   # a self-paired row
+    u[3] = c[3] = 0.0                             # a padding row
+    scales = np.array([3.0, 7.5, 1.0, 3.0], np.float32)
+    out = _f32(tg.apg_combine(to_tensor(u), to_tensor(c), to_tensor(scales), eta=0.3,
+                              threshold=2.0))
+    ref = np.concatenate([_f32(jk.apg_combine_pallas(
+        jnp.asarray(u[r:r + 1]), jnp.asarray(c[r:r + 1]), float(scales[r]), eta=0.3,
+        threshold=2.0, interpret=True)) for r in range(4)])
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out, _f32(jk.apg_combine_ref(
+        jnp.asarray(u), jnp.asarray(c), jnp.asarray(scales)[:, None], eta=0.3,
+        threshold=2.0)), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(out[1], c[1])
+    assert np.isfinite(out).all() and (out[3] == 0).all()
+
+
 def test_split_merge_match_reference():
     c = np.arange(24, dtype=np.float32).reshape(4, 6)
     u = -c

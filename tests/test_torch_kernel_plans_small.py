@@ -1,16 +1,21 @@
-"""The launch plans of the RMSNorm kernel (B6, ``rmsnorm_plan``) and of the
-Eq. 1 combines (B1/B3, ``combine_plan``), as the pure functions the
-wrappers call. Each plan is walked here in Python with the kernel's own
-index arithmetic (``csrc/rmsnorm.cu`` and ``csrc/cfg_combine.cu``): every
-element, or every row's every vector, is reached exactly once. No kernel
-launches: these are plain Python and numpy."""
+"""The launch plans of the RMSNorm kernel (B6, ``rmsnorm_plan``), of the
+Eq. 1 combines (B1/B3, ``combine_plan``) and of APG (B2, ``apg_plan``), as
+the pure functions the wrappers call. Each plan is walked here in Python
+with the kernel's own index arithmetic (``csrc/rmsnorm.cu`` and
+``csrc/cfg_combine.cu``): every element, or every row's every vector, is
+reached exactly once. B2's split-then-merge arithmetic is emulated in
+float32 and held against the plain version and the reference's oracles
+(1e-5 + 1e-5 |ref|: the sums are taken in another order; u == c rows bit
+for bit). No kernel launches: these are plain Python and numpy."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from repro.kernels import cfg_combine as JC
 from repro_torch.configs.registry import ARCHS
 from repro_torch.kernels import build
 from repro_torch.kernels import cfg_combine as KC
@@ -175,3 +180,171 @@ def test_combine_plan_at_the_main_paths_shapes(shape, threads, blocks):
         plan = KC.combine_plan(n, feat, torch.float32)
         assert plan == KC.CombinePlan(4, threads, 2, blocks)
         assert plan.blocks <= build.NUM_SMS * (2048 // plan.threads)
+
+
+# -- B2: APG ----------------------------------------------------------------------
+
+SMEM_MAX = 232_448          # shared memory a block may opt into on an H100
+
+
+def _slice(plan, feat):
+    """Accesses a block of a row takes (the last block of a row the rest):
+    ``slice`` in ``apg_combine`` of ``csrc/cfg_combine.cu``."""
+    return -(-(feat // plan.width) // plan.cluster)
+
+
+def _walk_apg(plan, feat):
+    """Element counts of one row under the kernel's index arithmetic: block
+    rank r takes accesses [r * slice, min(acc, (r + 1) * slice)) of the row;
+    thread t holds accesses v * threads + t (v < held) of its slice and, on
+    the re-read route, takes held * threads + t + i * threads below the
+    slice's end. Checks that no block is empty and every block's elements
+    lie in its row."""
+    acc, sl = feat // plan.width, _slice(plan, feat)
+    counts = np.zeros(feat, dtype=np.int64)
+    t = np.arange(plan.threads)
+    for r in range(plan.cluster):
+        n = min(sl, acc - r * sl)
+        assert n >= 1
+        held = (np.arange(plan.held)[:, None] * plan.threads + t).ravel()
+        rounds = max(0, -(-(n - plan.held * plan.threads) // plan.threads))
+        rest = (plan.held * plan.threads + t + np.arange(rounds)[:, None] * plan.threads).ravel()
+        assert (rest < n).any() == (plan.route == "reread")
+        j = np.concatenate([held[held < n], rest[rest < n]])
+        e = ((r * sl + j)[:, None] * plan.width + np.arange(plan.width)).ravel()
+        assert e.min() >= 0 and e.max() < feat
+        np.add.at(counts, e, 1)
+    return counts
+
+
+def _apg_ok(plan, feat, dtype, has_diff, aligned):
+    """The invariants ``apg_combine`` in ``csrc/cfg_combine.cu`` checks."""
+    V = build.VEC[dtype]
+    assert plan.width == (V if aligned and feat % V == 0 else 1)
+    assert 1 <= plan.cluster <= KC.APG_MAX_CLUSTER <= 8
+    assert (plan.cluster - 1) * _slice(plan, feat) < feat // plan.width
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= KC.APG_MAX_THREADS
+    assert plan.held in KC.APG_HELD
+    assert plan.held <= KC.apg_max_held(dtype, plan.width)
+    assert plan.route == ("reread" if plan.threads * plan.held < _slice(plan, feat)
+                          else "on_chip")
+    assert plan.smem == 4 * (3 * (plan.threads // 32) + 3 * 8) <= SMEM_MAX
+
+
+@settings(max_examples=300, deadline=None)
+@given(rows=st.integers(1, 200), feat=st.integers(1, 300_000), dtype=st.sampled_from(DTYPES),
+       has_diff=st.booleans(), aligned=st.booleans())
+def test_apg_plan_walk_reaches_every_element_of_every_row_once(rows, feat, dtype, has_diff,
+                                                                aligned):
+    plan = KC.apg_plan(rows, feat, dtype, has_diff, aligned)
+    _apg_ok(plan, feat, dtype, has_diff, aligned)
+    assert (_walk_apg(plan, feat) == 1).all()
+    # the launch stays one wave of one-block-an-SM clusters; diff changes nothing
+    assert plan.cluster == 1 or rows * plan.cluster <= KC.APG_WAVE_BLOCKS
+    assert plan == KC.apg_plan(rows, feat, dtype, not has_diff, aligned)
+
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 65535, 65536, 70000, 65535 * 3 + 1])
+def test_apg_grid_takes_each_row_once(rows):
+    """Rows lie over grid y (at most 65535) and z, row = z * ry + y; the
+    clusters past the last row exit at entry."""
+    ry = min(rows, KC.APG_MAX_GRID)
+    rz = -(-rows // ry)
+    assert rz <= KC.APG_MAX_GRID
+    row = (np.arange(rz)[:, None] * ry + np.arange(ry)).ravel()
+    assert np.array_equal(np.sort(row[row < rows]), np.arange(rows))
+    KC.apg_plan(rows, 64, torch.float32, False)
+
+
+@pytest.mark.parametrize("rows,feat,cluster,threads,held,route", [
+    (1, 64 * 64 * 4, 8, 128, 4, "on_chip"),   # the SD latent
+    (8, 64 * 64 * 4, 8, 128, 4, "on_chip"),
+    (4, 128256, 8, 512, 8, "on_chip"),        # guided_decode's logits
+    (16, 128256, 4, 512, 8, "reread"),        # the serve engine's R = 16 combine
+    (1, 151936, 8, 512, 8, "reread"),         # qwen3-14b's vocab
+    (1, 256000, 8, 512, 8, "reread")])        # recurrentgemma-9b's vocab
+def test_apg_plan_at_the_main_paths_shapes(rows, feat, cluster, threads, held, route):
+    """Float32, 16-byte accesses; the decode logits' rows held whole in
+    registers by clusters of 8, the longer vocabularies past 131072
+    elements re-read, and 16 rows in clusters of 4 (one wave) re-read."""
+    for has_diff in (False, True):
+        plan = KC.apg_plan(rows, feat, torch.float32, has_diff)
+        assert plan == KC.ApgPlan(4, cluster, threads, held, route,
+                                  4 * (3 * threads // 32 + 24))
+        _apg_ok(plan, feat, torch.float32, has_diff, True)
+        assert (_walk_apg(plan, feat) == 1).all()
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_apg_plan_takes_every_dense_configs_logits(arch, dtype):
+    vocab = ARCHS[arch].vocab_size
+    for rows in (1, 4, 16):
+        for has_diff in (False, True):
+            plan = KC.apg_plan(rows, vocab, dtype, has_diff)
+            _apg_ok(plan, vocab, dtype, has_diff, True)
+
+
+@pytest.mark.parametrize("rows,feat", [(0, 64), (4, 0), (KC.APG_MAX_GRID ** 2 + 1, 4),
+                                       (1, 4 * 8 << 31)])
+def test_apg_plan_refuses_what_the_kernel_does_not_take(rows, feat):
+    with pytest.raises(ValueError):
+        KC.apg_plan(rows, feat, torch.float32, False)
+
+
+def _apg_emulate(u, c, scale, eta, threshold, diff, plan):
+    """B2's arithmetic in float32 numpy: each block's partial |d|^2, |c|^2
+    and d.c over its slice, summed over the cluster in rank order, and
+    out = c + a d + b c with a = (s - 1) k, b = (s - 1) (eta - 1) p / |c|."""
+    f = np.float32
+    rows, feat = c.shape
+    d = (c - u) if diff is None else diff
+    scales = np.broadcast_to(np.asarray(scale, np.float32), (rows,))
+    span = _slice(plan, feat) * plan.width
+    out = np.empty_like(c)
+    for r in range(rows):
+        dd = cc = dc = f(0)
+        for b in range(plan.cluster):
+            sl = slice(b * span, (b + 1) * span)
+            dd += np.sum(d[r, sl] * d[r, sl], dtype=f)
+            cc += np.sum(c[r, sl] * c[r, sl], dtype=f)
+            dc += np.sum(d[r, sl] * c[r, sl], dtype=f)
+        k = min(f(1), f(threshold) / max(np.sqrt(dd), f(KC.EPS))) if threshold > 0 else f(1)
+        cn = max(np.sqrt(cc), f(KC.EPS))
+        p = f(k * dc / cn)
+        s1 = f(scales[r] - f(1))
+        a, b_ = f(s1 * k), f(s1 * (f(f(eta) - f(1)) * f(p / cn)))
+        out[r] = a * d[r] + (b_ * c[r] + c[r])
+    return out
+
+
+@pytest.mark.parametrize("shape,per_row,eta,threshold,with_diff", [
+    ((4, 128256), True, 0.3, 2.0, False), ((4, 128256), False, 0.0, 0.0, False),
+    ((1, 64 * 64 * 4), False, 0.3, 1.0, True), ((1, 256000), False, 0.3, 0.0, False),
+    ((3, 1001), True, 1.0, 50.0, True)])
+def test_apg_split_then_merge_matches_plain_and_reference(shape, per_row, eta, threshold,
+                                                          with_diff):
+    rng = np.random.default_rng(sum(shape))
+    u = rng.standard_normal(shape).astype(np.float32)
+    c = rng.standard_normal(shape).astype(np.float32)
+    u[0] = c[0]                                           # a self-paired row
+    if shape[0] > 2:
+        u[-1] = c[-1] = 0.0                               # a padding row
+    diff = rng.standard_normal(shape).astype(np.float32) if with_diff else None
+    scale = (np.linspace(1.5, 7.5, shape[0]).astype(np.float32) if per_row
+             else np.float32(7.5))
+    plan = KC.apg_plan(shape[0], shape[1], torch.float32, with_diff)
+    got = _apg_emulate(u, c, scale, eta, threshold, diff, plan)
+    t = torch.from_numpy
+    plain = KC.apg_combine_plain(t(u), t(c), t(scale) if per_row else float(scale), eta=eta,
+                                 threshold=threshold,
+                                 diff=None if diff is None else t(diff)).numpy()
+    ref = np.asarray(JC.apg_combine_ref(jnp.asarray(u), jnp.asarray(c),
+                                        jnp.asarray(scale)[:, None] if per_row else float(scale),
+                                        eta=eta, threshold=threshold,
+                                        diff=None if diff is None else jnp.asarray(diff)))
+    for want in (plain, ref):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert np.isfinite(got).all()
+    if diff is None:
+        np.testing.assert_array_equal(got[0], c[0])
