@@ -72,7 +72,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    ragged int8, signature bf16 and signature int8, each after a warm-up,
    with exact launch counts of the paged kernels and RMSNorm's launches by
    rows; then a steady tick under ``torch.profiler``, with RMSNorm's and
-   the paged kernel's shares.
+   the paged kernel's shares;
+14. training kernels vs plain: B6 (bf16 x at 2048 and 16 rows of 2048,
+   float32 x at 2048 x 2048, float32 scale) and B4 (bf16, B 4, S 512:
+   llama3.2-1b's heads causal and non-causal, h2o-danube-3-4b's with a
+   window of 128) under autograd, their outputs and gradients against
+   ``torch.autograd.grad`` of the plain versions, a planted fault (B4's
+   backward with its mask dropped) rejected, each timed forward, backward
+   and both beside its bound, the plain version and ``F.rms_norm`` or SDPA
+   under autograd; a backward the port does not cover raises;
+15. training parity: the reduced SD pipeline trained 20 AdamW steps on the
+   CPU (plain versions) and the GPU from the same weights, batches, draws
+   and embeddings (losses and parameters compared), and ``lm_loss`` with
+   every gradient on llama3.2-1b at full width, 2 layers, float32
+   parameters, CPU against GPU, with and without remat (B4/B6 launches
+   exact, a gradient on every parameter);
+16. the paper's claims on a pipeline trained on the card:
+   ``train_pipeline`` (400 steps), saved and reloaded through the port's
+   checkpoint io into ``build/`` (latents equal bit for bit), 40/36 UNet
+   passes with 20/16 B1 launches, and ``tests/test_system.py``'s 20%
+   threshold and Fig. 1 window inequalities, the distances on one
+   ``[claims]`` line;
+17. full-width training steps: ``sd-unet-prod`` at batch 4 and
+   llama3.2-1b at 16 layers, B 4, S 512, float32 parameters, through
+   ``launch/train.py``'s step with and without remat; ms a step, peak
+   memory, a finite loss, and B4's and B6's exact launches a step
+   (``[tmain]``); then one step of each under ``torch.profiler``, with the
+   shares of B4's and B6's kernels and backwards (``[tprofile]``).
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -1837,6 +1863,493 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
                 f"launches a tick, {t_ / max(k, 1) / 1e3:.2f} us each (profiled)")
 
 
+# -- training ----------------------------------------------------------------------
+
+
+TRAIN_LM_B, TRAIN_LM_S = 4, 512      # llama3.2-1b training batch and sequence
+TRAIN_SD_B = 4                       # sd-unet-prod training batch
+
+
+def _fwd_bwd(fn, inputs, dout):
+    """-> (forward output, gradients of ``inputs``) of ``fn(*inputs)`` under
+    autograd, for the output gradient ``dout``."""
+    import torch
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, dout)
+
+
+def _backward_only(fn, inputs, dout):
+    """-> a callable that runs the backward of one retained graph of
+    ``fn(*inputs)``: the backward alone, for timing."""
+    import torch
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def _attn_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs a row of heads attends at positions arange(S)."""
+    if causal:
+        return sum(min(i + 1, window or S) for i in range(S))
+    return sum(S - max(0, i - window + 1) for i in range(S)) if window else S * S
+
+
+def phase_train_kernels() -> None:
+    """B6 and B4 under autograd on the card: their kernels' forwards with the
+    closed-form backwards of ``FlashAttentionFn`` and ``RmsNormFn`` against
+    ``torch.autograd.grad`` of their plain versions, at the training shapes;
+    each timed forward, backward and both, beside its bound and the library
+    call under autograd; a dropped mask planted in B4's backward must fail
+    the check; a call whose backward the port does not cover raises."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import rmsnorm as KR
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(14)
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def timed(tag, fwd, bwd, both, plain, lib, nbytes, flops, peak):
+        f_ms, b_ms, fb_ms = time_ms(fwd, 20)[0], time_ms(bwd, 20)[0], time_ms(both, 20)[0]
+        p_ms = time_ms(plain, 20)[0]
+        l_ms = time_ms(lib, 20)[0] if lib is not None else None
+        bd = [bound_ms(n, f, peak) for n, f in zip(nbytes, flops)]
+        log(f"[tkern] {tag}: device us forward {f_ms * 1e3:.2f} (bound {bd[0][0] * 1e3:.3f}, "
+            f"{bd[0][1]}), backward {b_ms * 1e3:.2f} (bound {bd[1][0] * 1e3:.3f}, {bd[1][1]}), "
+            f"forward+backward {fb_ms * 1e3:.2f} (bound {(bd[0][0] + bd[1][0]) * 1e3:.3f}); "
+            f"plain forward+backward {p_ms * 1e3:.2f}; library forward+backward "
+            f"{'-' if l_ms is None else f'{l_ms * 1e3:.2f}'}")
+
+    # RMSNorm: forward as phase 7 (bf16 x within two bf16 steps of each value,
+    # float32 within 1e-5 of max|out|); dx within two bf16 steps of max|dx|
+    # for bf16 x (both sides round a float32 dx once), 1e-5 for float32;
+    # dscale (float32, summed over the rows in another order) within 1e-5
+    for rows, D, xdt in ((2048, 2048, bf16), (16, 2048, bf16), (2048, 2048, f32)):
+        x, sc, dy = rnd(rows, D, dtype=xdt) * 3, 1 + 0.1 * rnd(D), rnd(rows, D, dtype=xdt)
+        tag = f"rmsnorm rows={rows} D={D} x {str(xdt)[6:]} scale float32"
+        fn = lambda a, b: KR.rmsnorm(a, b, 1e-5)  # noqa: E731
+        plain = lambda a, b: KR.rmsnorm_plain(a, b, 1e-5)  # noqa: E731
+        before = KR.LAUNCHES["rmsnorm"]
+        out, (dx, dsc) = _fwd_bwd(fn, (x, sc), dy)
+        if out.grad_fn is None or KR.LAUNCHES["rmsnorm"] != before + 1:
+            fail(f"{tag}: the kernel did not run under autograd with a grad_fn")
+        ref, (rdx, rdsc) = _fwd_bwd(plain, (x, sc), dy)
+        if xdt == bf16:
+            e = (_err_ok("rmsnorm", tag + " out", out, ref, elementwise=2 * BF16_STEP),
+                 _err_ok("rmsnorm", tag + " dx", dx, rdx, rel_to_max=2 * BF16_STEP))
+        else:
+            e = (_err_ok("rmsnorm", tag + " out", out, ref, rel_to_max=1e-5),
+                 _err_ok("rmsnorm", tag + " dx", dx, rdx, rel_to_max=1e-5))
+        e += (_err_ok("rmsnorm", tag + " dscale", dsc, rdsc, rel_to_max=1e-5),)
+        log(f"[tkern] {tag}: out, dx, dscale within tolerance; largest error over the "
+            f"yardstick {', '.join(f'{r:.3g}' for _, r in e)}")
+        n, xb = rows * D, x.element_size()
+        lib = lambda a, b: F.rms_norm(a, (D,), b, 1e-5)  # noqa: E731
+        timed(tag, lambda: KR.rmsnorm(x, sc, 1e-5), _backward_only(fn, (x, sc), dy),
+              lambda: _fwd_bwd(fn, (x, sc), dy), lambda: _fwd_bwd(plain, (x, sc), dy),
+              lambda: _fwd_bwd(lib, (x, sc), dy),
+              (2 * n * xb + 4 * D, 3 * n * xb + 8 * D + 4 * rows), (4 * n, 8 * n),
+              H100_FP32_FLOPS)
+
+    # Flash attention, bf16: out per row as phase 7; dq, dk, dv within
+    # ATTN_BF16_STEPS bf16 steps of each one's max|ref|: the plain version's
+    # autograd runs its products in bf16, the backward here in float32
+    llama, danube = (32, 8, 64), (32, 8, 120)
+    for (H, K, hd), causal, window in ((llama, True, None), (danube, True, 128),
+                                       (llama, False, None)):
+        B, S = TRAIN_LM_B, TRAIN_LM_S
+        q, k, v = rnd(B, S, H, hd, dtype=bf16), rnd(B, S, K, hd, dtype=bf16), \
+            rnd(B, S, K, hd, dtype=bf16)
+        dout = rnd(B, S, H, hd, dtype=bf16)
+        tag = f"flash_attention B={B} S={S} H={H} K={K} hd={hd} bf16 causal={causal} " \
+              f"window={window}"
+        fn = lambda a, b, c: KF.flash_attention(a, b, c, causal=causal, window=window)  # noqa
+        plain = lambda a, b, c: KF.flash_attention_plain(a, b, c, causal=causal,  # noqa: E731
+                                                         window=window)
+        before = KF.LAUNCHES["flash_attention"]
+        out, grads = _fwd_bwd(fn, (q, k, v), dout)
+        if out.grad_fn is None or KF.LAUNCHES["flash_attention"] != before + 1:
+            fail(f"{tag}: the kernel did not run under autograd with a grad_fn")
+        ref, rgrads = _fwd_bwd(plain, (q, k, v), dout)
+        tol = ATTN_BF16_STEPS * BF16_STEP
+        e = [_err_ok("flash_attention", tag + " out", out, ref, per_row=tol)]
+        e += [_err_ok("flash_attention", f"{tag} d{n}", g, r, rel_to_max=tol)
+              for n, g, r in zip("qkv", grads, rgrads)]
+        # the planted fault: the backward with its mask dropped
+        dropped = KF.flash_attention_backward(q, k, v, out.detach(), dout, causal=False,
+                                              window=None) if causal else None
+        if dropped is not None:
+            caught = [not _within(g, r, rel_to_max=tol)[0] for g, r in zip(dropped, rgrads)]
+            if not caught[0]:
+                fail(f"{tag}: a backward without its mask passed the dq check")
+            log(f"[tkern] {tag}: the backward with its mask dropped fails the check "
+                f"(dq, dk, dv caught: {caught})")
+        log(f"[tkern] {tag}: out per row, dq, dk, dv within {ATTN_BF16_STEPS} bf16 steps; "
+            f"largest error over the yardstick in bf16 steps "
+            f"{', '.join(f'{r / BF16_STEP:.2f}' for _, r in e)}")
+        pairs = _attn_pairs(S, causal, window)
+        io_b = 2 * B * S * (2 * H + 2 * K) * hd
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
+                a, b, c, is_causal=causal, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+            lib = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
+                a, b, c, attn_mask=mask, enable_gqa=True)
+        dout_t = dout.transpose(1, 2)
+        timed(tag, lambda: KF.flash_attention(q, k, v, causal=causal, window=window),
+              _backward_only(fn, (q, k, v), dout), lambda: _fwd_bwd(fn, (q, k, v), dout),
+              lambda: _fwd_bwd(plain, (q, k, v), dout),
+              lambda: _fwd_bwd(lib, (qt, kt, vt), dout_t),
+              (io_b, io_b + 2 * 2 * B * S * H * hd), (4 * B * H * hd * pairs,
+                                                      10 * B * H * hd * pairs), H100_BF16_FLOPS)
+    # a backward the port does not cover raises before the kernel runs
+    q = rnd(1, 8192, 32, 64, dtype=bf16).requires_grad_(True)
+    kv = rnd(1, 8192, 8, 64, dtype=bf16)
+    before = KF.LAUNCHES["flash_attention"]
+    try:
+        KF.flash_attention(q, kv, kv)
+        fail("flash_attention S=8192 H=32 under autograd returned instead of raising")
+    except ValueError as exc:
+        if KF.LAUNCHES["flash_attention"] != before:
+            fail("flash_attention launched before refusing a backward it cannot take")
+        log(f"[tkern] flash_attention S=8192 H=32 under autograd raises: {exc}")
+    with torch.no_grad():
+        KF.flash_attention(q, kv, kv)      # without grad the same call runs
+    torch.cuda.synchronize()
+
+
+def _same_embeddings(emb):
+    """A context in which every ``SDPipeline`` encodes to the given (prompt
+    embeddings, null embedding), moved to its device: the bf16 text encoder
+    rounds differently on the CPU and the GPU (phase 4), and training parity
+    compares the steps, not the encoder."""
+    import contextlib
+
+    from repro_torch.core.pipeline import SDPipeline
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = SDPipeline.encode_prompts, SDPipeline.null_embedding
+        SDPipeline.encode_prompts = lambda self, prompts: emb[0].to(self.device)
+        SDPipeline.null_embedding = lambda self, batch: emb[1].to(self.device)
+        try:
+            yield
+        finally:
+            SDPipeline.encode_prompts, SDPipeline.null_embedding = saved
+    return ctx()
+
+
+def phase_train_parity() -> None:
+    """The reduced SD pipeline trained 20 AdamW steps on the CPU (plain
+    versions) and the GPU (cuDNN, cuBLAS) from the same initial weights,
+    batches, CPU-generator draws and prompt embeddings; then ``lm_loss`` and
+    every gradient on llama3.2-1b at full width, 2 layers, float32
+    parameters, on the CPU (plain versions) and the GPU (B4 and B6 under
+    autograd), with and without remat."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import UNetConfig
+    from repro_torch.configs.llama3_2_1b import CONFIG
+    from repro_torch.core.pipeline import SDPipeline
+    from repro_torch.data.synthetic import CLASS_PROMPTS
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import diffusion as TD
+    from repro_torch.train import losses as TL
+
+    cfg, steps = UNetConfig().reduced(), 20
+    # train_pipeline's default initial weights come from a CPU generator on
+    # both devices; the embeddings are those of its CPU text encoder
+    init = SDPipeline.init(cfg, 0, device="cpu")
+    with _same_embeddings((init.encode_prompts(CLASS_PROMPTS), init.null_embedding(1))):
+        gpu, gpu_losses = TD.train_pipeline(cfg, steps, device="cuda")
+        cpu, cpu_losses = TD.train_pipeline(cfg, steps, device="cpu")
+    # float32 on both: convolution and matmul algorithms sum in other orders,
+    # and AdamW's m/sqrt(v) amplifies that where a gradient is small (10
+    # steps of XLA against torch on the CPU differ by 5e-5 of a tensor's max)
+    lerr = ((gpu_losses - cpu_losses).abs() / cpu_losses.abs()).max().item()
+    perr = max(((b.cpu() - a).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(cpu.unet.state_dict().values(), gpu.unet.state_dict().values()))
+    if not (lerr <= 1e-4 and perr <= 2e-3):
+        fail(f"training parity: loss rel err {lerr:.3g} (tol 1e-4), parameters err over "
+             f"max {perr:.3g} (tol 2e-3)")
+    log(f"[tparity] reduced SD, {steps} AdamW steps CPU vs GPU: losses {cpu_losses[0]:.4f} -> "
+        f"{cpu_losses[-1]:.4f}, largest loss rel err {lerr:.3g} (tol 1e-4), largest "
+        f"parameter err over its tensor's max {perr:.3g} (tol 2e-3)")
+
+    lcfg = dataclasses.replace(CONFIG, num_layers=2)
+    cpu_m = Transformer.init(lcfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu_m = Transformer.from_state_dict(lcfg, {k: t.cuda() for k, t in
+                                               cpu_m.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, lcfg.vocab_size,
+                                                               (2, 33))).long()
+    cpu_m.requires_grad_(True)
+    gpu_m.requires_grad_(True)
+    loss_c, _ = TL.lm_loss(cpu_m, toks, remat=False)
+    gc = torch.autograd.grad(loss_c, list(cpu_m.parameters()))
+    names = [n for n, _ in cpu_m.named_parameters()]
+    for remat in (False, True):
+        reset_launches()
+        loss_g, _ = TL.lm_loss(gpu_m, toks.cuda(), remat=remat)
+        gg = torch.autograd.grad(loss_g, list(gpu_m.parameters()), allow_unused=True)
+        counts = launch_counts()
+        missing = [n for n, g in zip(names, gg) if g is None or not bool(g.abs().sum() > 0)]
+        if missing:
+            fail(f"lm_loss on the GPU (remat={remat}): no gradient for {missing}")
+        want = (lcfg.num_layers * (2 if remat else 1), (2 * lcfg.num_layers) *
+                (2 if remat else 1) + 1)
+        got = (counts["flash_attention"], counts["rmsnorm"])
+        if got != want:
+            fail(f"lm_loss remat={remat}: B4, B6 launches {got}, want {want}")
+        # bf16 activations on both sides, rounded in other places: the loss
+        # within 2e-3, each gradient within 8 bf16 steps of its max
+        # (the CPU tests against the reference measured 4.8)
+        lrel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        gerr = {n: ((b.cpu() - a).abs().max() / a.abs().max()).item()
+                for n, a, b in zip(names, gc, gg)}
+        worst_n = max(gerr, key=gerr.get)
+        if lrel > 2e-3 or gerr[worst_n] > 8 * BF16_STEP:
+            fail(f"lm_loss remat={remat}: loss rel err {lrel:.3g}, gradient {worst_n} err over "
+                 f"max {gerr[worst_n]:.3g} ({gerr[worst_n] / BF16_STEP:.2f} bf16 steps)")
+        log(f"[tparity] lm_loss llama3.2-1b x2 layers B=2 S=33 float32 params remat={remat}: "
+            f"loss CPU {loss_c.item():.5f} GPU {loss_g.item():.5f} (rel {lrel:.3g}, tol 2e-3); "
+            f"every one of {len(names)} parameters has a gradient; largest gradient err "
+            f"{gerr[worst_n] / BF16_STEP:.2f} bf16 steps of its max ({worst_n}; tol 8); "
+            f"B4 x{got[0]}, B6 x{got[1]}")
+    del cpu_m, gpu_m
+
+
+CLAIMS_CKPT = os.path.join(ROOT, "build", "claims_pipeline")
+
+
+def phase_claims() -> dict:
+    """The paper's claims on a pipeline trained on the card:
+    ``train_pipeline`` (400 steps), saved and reloaded through the port's
+    checkpoint io (the same latents bit for bit), the 40/36 pass accounting
+    counted around the UNet with B1's launches, and ``test_system.py``'s
+    threshold and window inequalities. -> B1's launches in the counted
+    generates."""
+    import torch
+    from repro_torch.configs.base import UNetConfig
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.kernels import cfg_combine as KC
+    from repro_torch.train import diffusion as TD
+
+    cfg = UNetConfig().reduced()
+    t0 = time.perf_counter()
+    pipe, losses = TD.train_pipeline(cfg, 400, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if not bool(torch.isfinite(losses).all()) or \
+            not losses[-50:].mean() < 0.5 * losses[:10].mean():
+        fail(f"train_pipeline: losses {losses[:3].tolist()} ... {losses[-3:].tolist()}")
+    log(f"[claims] train_pipeline 400 steps on the GPU in {dt:.2f} s ({dt / 400 * 1e3:.2f} ms "
+        f"a step); loss mean of the first 10 {losses[:10].mean():.4f}, of the last 50 "
+        f"{losses[-50:].mean():.4f}")
+    TD.save_pipeline(CLAIMS_CKPT, pipe, step=400)
+    loaded = TD.load_pipeline(CLAIMS_CKPT, cfg, device="cuda")
+    plan = GuidancePlan.suffix(20, 0.2, 5.0)
+    a = pipe.generate(["a red disc"], plan, seed=11)
+    b = loaded.generate(["a red disc"], plan, seed=11)
+    if not torch.equal(a, b):
+        fail(f"the reloaded pipeline's latents differ: {(a - b).abs().max().item():.3g}")
+    log(f"[claims] saved to {os.path.relpath(CLAIMS_CKPT, ROOT)} and reloaded: latents equal "
+        f"bit for bit")
+
+    unet, rows = loaded.unet, []
+
+    class Counted(torch.nn.Module):
+        def forward(self, x, t, text):
+            rows.append(x.shape[0])
+            return unet(x, t, text)
+
+    loaded.unet, b1 = Counted(), 0
+    for p, passes, full in ((GuidancePlan.full(20, 5.0), 40, 20), (plan, 36, 16)):
+        rows.clear()
+        KC.reset_launches()
+        loaded.generate(["a red disc"], p, seed=11)
+        torch.cuda.synchronize()
+        if (sum(rows), KC.LAUNCHES["cfg_combine"]) != (passes, full):
+            fail(f"pass accounting: {sum(rows)} passes, {KC.LAUNCHES['cfg_combine']} B1 "
+                 f"launches; want {passes} and {full}")
+        b1 += full
+    loaded.unet = unet
+    log("[claims] pass accounting: 40 UNet passes and 20 B1 launches at full guidance, 36 "
+        "and 16 with a 20% COND suffix")
+
+    KC.reset_launches()
+    c = TD.claim_distances(loaded)
+    torch.cuda.synchronize()
+    b1 += KC.LAUNCHES["cfg_combine"]
+    w = c["windows"]
+    log(f"[claims] d20 {c['d20']:.6g} d80 {c['d80']:.6g} scale {c['scale']:.6g} windows "
+        f"{' '.join(f'{x:.6g}' for x in w)}")
+    import numpy as np
+    checks = {"d20 < d80": c["d20"] < c["d80"], "d20 < 0.25 scale": c["d20"] < 0.25 * c["scale"],
+              "late windows below early": np.mean(w[2:]) < np.mean(w[:2]),
+              "window 0 the worst": int(np.argmax(w)) == 0}
+    if not all(checks.values()):
+        fail(f"the paper's claims on the card-trained pipeline: {checks}")
+    log(f"[claims] all hold: {', '.join(checks)}")
+    return {"cfg_combine": b1}
+
+
+def _timed_steps(step, batches, warmup: int = 1, iters: int = 3):
+    """-> (ms per step, peak GB, last loss, launches per timed step): one
+    ``step(batch) -> loss`` per batch, timed by the host clock between
+    synchronisations."""
+    import torch
+    for _ in range(warmup):
+        step(next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = step(next(batches))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    per = {k: v / iters for k, v in launch_counts().items() if v}
+    return ms, torch.cuda.max_memory_allocated() / 1e9, float(loss), per
+
+
+def _train_profile(what: str, one_step, batch) -> None:
+    """One training step under ``torch.profiler``: its kernel time against
+    its wall, the kernels that lead it, and the shares of B4's and B6's
+    kernels and of their backwards in torch ops (the device time under the
+    autograd nodes ``FlashAttentionFnBackward`` and ``RmsNormFnBackward``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one_step(batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t, k = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t + e.end_ns() - e.start_ns(), k + 1)
+    total = sum(t for t, _ in by_name.values())
+    if not total:
+        log(f"[tprofile] {what}: not measured: the profiler saw no device time")
+        return
+    log(f"[tprofile] {what}: {sum(k for _, k in by_name.values())} kernel launches, "
+        f"{total / 1e6:.3f} ms of kernel time in {wall_ms:.1f} ms of wall (profiled)")
+    for rank, (name, (t, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]):
+        log(f"[tprofile] {what}: {rank + 1}. {t / total:.3f} of kernel time, {k}x {name[:80]}")
+    shares = [(label, *_profile_share(by_name, key)) for label, key in
+              (("B4 forward kernel", "flash_wgmma_kernel"), ("B6 kernel", "rmsnorm_kernel"))]
+    for label, node in (("B4 backward (torch ops)", "FlashAttentionFnBackward"),
+                        ("B6 backward (torch ops)", "RmsNormFnBackward")):
+        evs = [e for e in prof.key_averages()
+               if node in e.key and "evaluate_function" in e.key]
+        shares.append((label, sum(getattr(e, "device_time_total", 0) for e in evs) * 1e3,
+                       sum(e.count for e in evs)))
+    for label, t, k in shares:
+        if k:
+            log(f"[tprofile] {what}: {label}: {t / total:.4f} of the step's kernel time, "
+                f"{k} calls, {t / k / 1e3:.2f} us each (profiled)")
+
+
+def phase_train_main() -> dict:
+    """Full-width training steps: ``sd-unet-prod`` at batch 4 (64x64x4
+    latents, 77x768 text, float32) and llama3.2-1b at 16 layers, B 4, S 512,
+    float32 parameters, through ``launch/train.py``'s step with and without
+    remat; 1 warm-up and 3 timed AdamW steps each, then one profiled
+    (``[tprofile]``). -> launches of the timed LM steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as lcfg
+    from repro_torch.configs.sd_unet import PRODUCTION
+    from repro_torch.core.pipeline import SDPipeline
+    from repro_torch.core.schedules import NoiseSchedule
+    from repro_torch.data.synthetic import shapes_dataset
+    from repro_torch.launch import train as LT
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import diffusion as TD
+    from repro_torch.train import losses as TL
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    pipe = SDPipeline.init(PRODUCTION, 0, device="cuda", sched=NoiseSchedule.sd_default(1000))
+    params = dict(pipe.unet.requires_grad_(True).named_parameters())
+    state = {"opt": init_opt_state(params)}
+    sd_step = make_train_step(TD.diffusion_loss_fn(pipe),
+                              AdamWConfig(lr=2e-3, warmup_steps=10, total_steps=4,
+                                          weight_decay=0.0))
+    data = shapes_dataset(np.random.default_rng(0), TRAIN_SD_B, PRODUCTION.latent_size)
+    gen = torch.Generator().manual_seed(1)
+
+    def sd_batches():
+        while True:
+            lat, cls = next(data)
+            t, eps, drop = TL.diffusion_draws(gen, TRAIN_SD_B, lat.shape, pipe.sched.T)
+            yield tuple(x.cuda() for x in (torch.from_numpy(lat), torch.from_numpy(cls).long(),
+                                           t, eps, drop))
+
+    def sd_one(batch):
+        _, state["opt"], m = sd_step(params, state["opt"], batch, None)
+        return m["loss"]
+
+    sd_data = sd_batches()
+    ms, peak, loss, _ = _timed_steps(sd_one, sd_data)
+    _train_profile("sd-unet-prod step", sd_one, next(sd_data))
+    if not np.isfinite(loss):
+        fail(f"sd-unet-prod training: loss {loss}")
+    log(f"[tmain] sd-unet-prod batch {TRAIN_SD_B} (64x64x4 latents, 77x768 text, float32, "
+        f"{sum(p.numel() for p in params.values())} UNet params): {ms:.1f} ms a step (1 "
+        f"warm-up, 3 timed), peak {peak:.2f} GB, loss {loss:.4f}")
+    pipe.unet.requires_grad_(False)
+    del pipe, params, state
+    torch.cuda.empty_cache()
+
+    model = Transformer.init(lcfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda").requires_grad_(True)
+    lparams = dict(model.named_parameters())
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=200)
+    lm_launches = {}
+    for remat in (False, True):
+        lstate = {"opt": init_opt_state(lparams)}
+        step = LT.lm_step(model, opt_cfg, remat=remat)
+        batches = LT.token_batches(np.random.default_rng(0), lcfg.vocab_size, TRAIN_LM_B,
+                                   TRAIN_LM_S, "cuda")
+
+        def lm_one(batch, step=step, lstate=lstate):
+            _, lstate["opt"], m = step(lparams, lstate["opt"], batch, None)
+            return m["loss"]
+
+        ms, peak, loss, per = _timed_steps(lm_one, batches)
+        _train_profile(f"llama3.2-1b step remat={remat}", lm_one, next(batches))
+        L = lcfg.num_layers
+        want = {"flash_attention": L * (2 if remat else 1),
+                "rmsnorm": (2 * L) * (2 if remat else 1) + 1}
+        got = {k: per.get(k, 0) for k in want}
+        if got != want or not np.isfinite(loss):
+            fail(f"llama3.2-1b training remat={remat}: launches a step {got}, want {want}; "
+                 f"loss {loss}")
+        for k in want:
+            lm_launches[k] = lm_launches.get(k, 0) + 3 * want[k]
+        log(f"[tmain] llama3.2-1b x{L} layers B={TRAIN_LM_B} S={TRAIN_LM_S} float32 params "
+            f"remat={remat}: {ms:.1f} ms a step (1 warm-up, 3 timed), peak {peak:.2f} GB, "
+            f"loss {loss:.4f}; a step launches B4 x{got['flash_attention']:.0f} and B6 "
+            f"x{got['rmsnorm']:.0f} (forward{' + remat recompute' if remat else ''})")
+        del lstate
+    del model, lparams
+    torch.cuda.empty_cache()
+    return lm_launches
+
+
 def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     smi = phase_device()
@@ -1872,6 +2385,13 @@ def main() -> None:
     phase_serve_parity()
     model, serve_launches, _ = phase_serve_main()
     phase_serve_profile(model)
+    del model
+    torch.cuda.empty_cache()
+
+    phase_train_kernels()
+    phase_train_parity()
+    claims_launches = phase_claims()
+    train_launches = phase_train_main()
 
     cu = "src/repro_torch/csrc/"
     kernels = {
@@ -1894,13 +2414,15 @@ def main() -> None:
     for name, (src, replaces) in kernels.items():
         sd, ar = sd_launches.get(name, 0), ar_launches.get(name, 0)
         sv = serve_launches.get(name, 0)
-        if sd + ar + sv == 0:
+        cl, tr = claims_launches.get(name, 0), train_launches.get(name, 0)
+        if sd + ar + sv + cl + tr == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
-            f"{sv} in the serve runs'")
+            f"{sv} in the serve runs', {cl} in the claims' generates on the trained pipeline, "
+            f"{tr} in the timed LM training steps")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar + sv, **r))
+                        launches=sd + ar + sv + cl + tr, **r))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,19 +6,24 @@ array, and returns ``{"unet": state_dict, "text": state_dict}`` for
 ``repro_torch.core.pipeline.SDPipeline.from_state``.
 ``from_jax_model_params(tree)`` takes a decoder's ``init_model`` tree the
 same way and returns the state dict of
-``repro_torch.models.transformer.Transformer``. Dtypes are kept.
+``repro_torch.models.transformer.Transformer``. ``to_jax_params(unet,
+text)`` is the inverse of ``from_jax_params``: the two modules' parameters
+as numpy arrays in the reference's tree and layout, for its
+``SDPipeline.params`` or a checkpoint it can read. Dtypes are kept.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def to_tensor(a: np.ndarray) -> torch.Tensor:
     """numpy -> torch, bfloat16 (ml_dtypes) included through a uint16 view,
-    since ``torch.from_numpy`` rejects it. Always a copy."""
-    a = np.ascontiguousarray(a)
+    since ``torch.from_numpy`` rejects it. Always a copy; a 0-d array stays
+    0-d (``ascontiguousarray`` alone makes it 1-d)."""
+    a = np.ascontiguousarray(a).reshape(np.shape(a))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     return torch.from_numpy(a.copy())
@@ -88,3 +93,40 @@ def model_items(tree):
 
 def from_jax_model_params(tree) -> dict:
     return {k: to_tensor(a) for k, a in model_items(tree)}
+
+
+def module_tree(module: nn.Module):
+    """The nested dict/list of numpy arrays that ``layers.tree_module`` built
+    ``module`` from (``None`` entries kept)."""
+    if isinstance(module, nn.ModuleList):
+        return [None if m is None else module_tree(m) for m in module]
+    out = {name: p.detach().cpu().numpy() for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = module_tree(child)
+    return out
+
+
+def _to_hwio(tree):
+    if isinstance(tree, dict):
+        return {k: _to_hwio(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [None if v is None else _to_hwio(v) for v in tree]
+    return np.transpose(tree, (2, 3, 1, 0)) if tree.ndim == 4 else tree
+
+
+def to_jax_params(unet: nn.Module, text: nn.Module) -> dict:
+    """-> ``{"unet": tree, "text": tree}`` of numpy arrays as the reference
+    holds them: conv weights HWIO, the encoder's layers stacked into one
+    scanned segment of one ``attn`` block."""
+    t = module_tree(text)
+    layers = t.pop("layers")
+    stack = lambda *leaves: np.stack(leaves)  # noqa: E731
+    t["segments"] = [[_tree_map(stack, *layers)]]
+    return {"unet": _to_hwio(module_tree(unet)), "text": t}
+
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)

@@ -9,6 +9,13 @@ kernel or raises: bfloat16 the warpgroup tensor-core kernel, float32 the
 CUDA-core one (the dtype is the one rule). Unlike the TPU kernel, S need not
 divide by a tile: the kernels mask their tails. ``flash_tile_plan`` is the
 bfloat16 kernel's launch plan. ``LAUNCHES`` counts kernel launches.
+
+Under autograd (grad enabled and q, k or v requiring grad) a CUDA call
+runs the same kernel inside ``FlashAttentionFn``, whose backward
+``flash_attention_backward`` recomputes the probabilities in float32 torch
+ops, one batch row at a time: the reference has no backward kernel (its
+training differentiates the jnp form). A call whose backward would exceed
+``MAX_BACKWARD_SCORES`` scores a batch row raises before it runs.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ MAX_HEAD_DIM = 256
 MAX_GROUP = 32     # query heads per kv head that one kernel block holds
 ROWS = 64          # query rows per block: one consumer warpgroup's wgmma tile
 PAD = 64           # hd is padded to a multiple of this in shared memory (128-byte rows)
+MAX_BACKWARD_SCORES = 2 ** 30   # H x S x S float32 scores the backward holds a batch row
 
 
 class FlashPlan(NamedTuple):
@@ -65,17 +73,69 @@ def grouped_attention_plain(q, k, v, valid=None):
     return torch.einsum("bkrqs,bskh->bqkrh", w, v).reshape(B, Q, H, hd)
 
 
+def _prefill_mask(S: int, causal: bool, window: int | None, device):
+    """(S, S) bool, True where query row i attends key j, or None (all)."""
+    if not causal and window is None:
+        return None
+    pos = torch.arange(S, device=device)
+    mask = pos[None, :] <= pos[:, None] if causal else torch.ones(
+        S, S, dtype=torch.bool, device=device)
+    if window is not None:
+        mask = mask & (pos[None, :] > pos[:, None] - window)
+    return mask
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int | None = None):
     """Mirrors ``repro/kernels/ref.py::ref_flash_attention``."""
-    mask = None
-    if causal or window is not None:
-        S = q.shape[1]
-        pos = torch.arange(S, device=q.device)
-        mask = pos[None, :] <= pos[:, None] if causal else torch.ones(
-            S, S, dtype=torch.bool, device=q.device)
-        if window is not None:
-            mask = mask & (pos[None, :] > pos[:, None] - window)
-    return grouped_attention_plain(q, k, v, mask)
+    return grouped_attention_plain(q, k, v, _prefill_mask(q.shape[1], causal, window, q.device))
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             window: int | None = None):
+    """The gradients of ``flash_attention`` at (q, k, v) given its ``out``
+    and the output gradient ``dout``, in float32, one batch row at a time:
+    P = softmax(mask(q k^T / sqrt(hd))) recomputed, dV = P^T dO,
+    dS = P * (dO V^T - rowsum(dO * O)), dQ = dS K / sqrt(hd),
+    dK = dS^T Q / sqrt(hd); dK and dV summed over each kv head's group.
+    -> (dq, dk, dv) in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    rep, scale = H // K, 1.0 / math.sqrt(hd)
+    mask = _prefill_mask(S, causal, window, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for b in range(B):
+        qb = q[b].float().reshape(S, K, rep, hd)
+        kb, vb = k[b].float(), v[b].float()
+        dob = dout[b].float().reshape(S, K, rep, hd)
+        s = torch.einsum("qkrh,skh->krqs", qb, kb) * scale
+        if mask is not None:
+            s = torch.where(mask, s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dv[b] = torch.einsum("krqs,qkrh->skh", p, dob)
+        dp = torch.einsum("qkrh,skh->krqs", dob, vb)
+        rows = (dob * out[b].float().reshape(S, K, rep, hd)).sum(-1)
+        ds = p * (dp - rows.permute(1, 2, 0)[..., None])
+        dq[b] = (torch.einsum("krqs,skh->qkrh", ds, kb) * scale).reshape(S, H, hd)
+        dk[b] = torch.einsum("krqs,qkrh->skh", ds, qb) * scale
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward with ``flash_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def _check_shapes(q, k, v):
@@ -91,12 +151,23 @@ def _check_shapes(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """q (B,S,H,hd); k, v (B,S,K,hd) -> (B,S,H,hd). The kernel takes
     contiguous float32 or bfloat16, hd a multiple of 8 up to
-    ``MAX_HEAD_DIM`` and H/K up to ``MAX_GROUP``."""
+    ``MAX_HEAD_DIM`` and H/K up to ``MAX_GROUP``; under autograd it carries
+    the gradient through ``FlashAttentionFn``."""
     _check_shapes(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window {window} < 1")
     if not build.on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        S, H = q.shape[1], q.shape[2]
+        if H * S * S > MAX_BACKWARD_SCORES:
+            raise ValueError(f"the backward holds H x S x S = {H * S * S} float32 scores a "
+                             f"batch row, over its {MAX_BACKWARD_SCORES}; run without grad")
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal: bool, window: int | None):
     build.check_inputs(q, k, v)
     B, S, H, hd = q.shape
     K = k.shape[2]

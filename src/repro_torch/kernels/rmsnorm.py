@@ -7,6 +7,11 @@ returned in x's dtype. A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. At the decoders' shapes a launch is bound by
 latency, not bytes; ``rmsnorm_plan`` is its launch plan and the source note
 in ``rmsnorm.cu`` says why. ``LAUNCHES`` counts kernel launches.
+
+Under autograd (grad enabled and x or scale requiring grad) a CUDA call
+runs the same kernel inside ``RmsNormFn``, whose backward is the closed
+form ``rmsnorm_backward`` in float32 torch ops: the reference has no
+backward kernel (its training differentiates the jnp form).
 """
 
 from __future__ import annotations
@@ -70,15 +75,55 @@ def rmsnorm_plain(x, scale, eps: float = 1e-6):
     return (y * scale.float()).to(x.dtype)
 
 
+def rmsnorm_backward(x, scale, rstd, dy):
+    """The gradients of ``rmsnorm`` from the saved per-row ``rstd`` =
+    rsqrt(mean(x^2) + eps) (float32, (..., 1)), in float32: dscale =
+    sum over rows of dy * xhat, dx = rstd * (g - xhat * mean(g * xhat))
+    with xhat = x * rstd and g = dy * scale. -> (dx in x's dtype, dscale in
+    scale's dtype)."""
+    xhat = x.float() * rstd
+    dyf = dy.float()
+    g = dyf * scale.float()
+    dx = rstd * (g - xhat * (g * xhat).mean(-1, keepdim=True))
+    dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class RmsNormFn(torch.autograd.Function):
+    """The kernel's forward with ``rmsnorm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        out = _launch(x, scale, eps)
+        rstd = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rstd = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, rstd, dy)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None)
+
+
 def rmsnorm(x, scale, eps: float = 1e-6):
     """x (..., D), scale (D,) -> (..., D) in x's dtype. The kernel takes
     contiguous float32 or bfloat16 x and scale, 16-byte aligned, with D a
-    multiple of 8 up to ``MAX_DIM``."""
+    multiple of 8 up to ``MAX_DIM``; under autograd it carries the gradient
+    through ``RmsNormFn``."""
     D = x.shape[-1]
     if tuple(scale.shape) != (D,):
         raise ValueError(f"scale {tuple(scale.shape)} for rows of {D}")
     if not build.on_cuda(x, scale):
         return rmsnorm_plain(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RmsNormFn.apply(x, scale, eps)
+    return _launch(x, scale, eps)
+
+
+def _launch(x, scale, eps: float):
+    D = x.shape[-1]
     build.check_inputs(x, scale)
     if x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError("kernel takes 16-byte aligned x and scale")

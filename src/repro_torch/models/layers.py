@@ -137,7 +137,10 @@ class Maker:
 def tree_module(tree) -> nn.Module:
     """A module whose children mirror a nested dict/list of tensors: dicts
     become modules, lists ``ModuleList`` (``None`` entries kept), tensors
-    frozen parameters. State-dict keys are the tree's paths joined by '.'."""
+    parameters. They are created with ``requires_grad=False``, so sampling
+    and decoding build no autograd graph; a trainer turns them on with
+    ``module.requires_grad_(True)``. State-dict keys are the tree's paths
+    joined by '.'."""
     if isinstance(tree, list):
         return nn.ModuleList([None if t is None else tree_module(t) for t in tree])
     return adopt_tree(nn.Module(), tree)

@@ -20,6 +20,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
@@ -214,15 +215,22 @@ class Transformer(nn.Module):
             return h @ self.embed.table.to(h.dtype).T
         return h @ self.lm_head.to(h.dtype)
 
-    def forward(self, tokens, *, want_caches: bool = False, long_ctx: bool = False):
+    def forward(self, tokens, *, want_caches: bool = False, long_ctx: bool = False,
+                remat: bool = False):
         """Prefill at positions ``arange(S)``. -> (hidden, caches or None);
-        caches are one {k, v} (B,S,K,hd) per layer."""
+        caches are one {k, v} (B,S,K,hd) per layer. With ``remat`` each
+        layer runs under ``torch.utils.checkpoint`` (the reference's
+        ``remat``): its activations are recomputed in the backward."""
         x = self.embed_tokens(tokens)
         rope = self._rope(torch.arange(x.shape[1], device=x.device)[None])
         caches = []
         for kind, layer in zip(self.cfg.blocks, self.layers):
-            x, cache = block_forward(layer, self.cfg, x, rope,
-                                     window=self._window(kind, long_ctx))
+            window = self._window(kind, long_ctx)
+            if remat:
+                x, cache = checkpoint(block_forward, layer, self.cfg, x, rope, window=window,
+                                      use_reentrant=False)
+            else:
+                x, cache = block_forward(layer, self.cfg, x, rope, window=window)
             caches.append(cache)
         return x, (caches if want_caches else None)
 

@@ -172,7 +172,9 @@ def init_unet(cfg, mk):
 
 class UNet(nn.Module):
     """The denoiser: ``(x (B,h,w,Cin) NHWC, t (B,), text (B,L,D)) -> eps``
-    NHWC. Parameters are frozen (the port samples; it does not train)."""
+    NHWC. Parameters are created frozen; ``repro_torch.train.diffusion``
+    trains them after ``requires_grad_(True)``, and the samplers run under
+    ``torch.no_grad()``."""
 
     def __init__(self, cfg, tree: dict):
         super().__init__()
