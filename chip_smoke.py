@@ -27,9 +27,14 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 7. attention and norm kernels vs plain: the flash-prefill, flash-decode and
    RMSNorm kernels against their plain versions at every dense decoder's
    head dim and group (hd 64/120/128, H/K 4/5/8), the prefill at S 77 to
-   2048 and a serve bucket (B 2, S 128), the decode at capacities 768 and
-   4096 and in its ring form (attention held row by row, and shown to
-   reject planted causal faults), RMSNorm timed at 4, 16, 256 and 2048 rows
+   2048 and a serve bucket (B 2, S 128), the decode with its position a
+   device tensor at capacity 768 (pos 0, TK - 1, TK, 384, 767; TK the
+   dtype's tile) and 4096 (pos 0, 511, 4095), with and without a window,
+   and in its ring form, and one decode launch captured in a CUDA graph and
+   replayed at three positions by rewriting its position tensor (attention
+   held row by row, and shown to reject planted causal faults; the decode
+   timed at capacity 768, pos 512 and 767, and 4096, pos 511 and 4095),
+   RMSNorm timed at 4, 16, 256 and 2048 rows
    of 2048, and the three guidance-combine kernels on (4, 128256) float32
    logits, each timed beside its bound and a library call, and B2 on the
    serve engine's (16, 128256) with per-row scales and padding rows and on
@@ -40,18 +45,27 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    timed in turns against ``torch.lerp`` and ``F.rms_norm`` (median and
    min-max of six each);
 8. decode parity: ``guided_decode`` on llama3.2-1b at full width, 2 layers,
-   on the CPU (plain versions) and the GPU (kernels), teacher-forced logits
-   and margin-guarded tokens, for each combine mode;
+   on the CPU (plain versions) and the GPU (kernels, the steps as CUDA
+   graphs: the default on CUDA), teacher-forced logits and margin-guarded
+   tokens, for each combine mode, launches exact under replay;
 9. ring parity: the same on h2o-danube-3-4b at full width, 2 layers, its
    window cut to 128 under a 160-token prompt, so that every decode step
-   attends through a ring cache (the flash-decode kernel's ring form);
+   attends through a ring cache (the flash-decode kernel's ring form),
+   graphed on the GPU: every traced decode attention call is the ring's;
 10. decode main path: ``guided_decode`` on llama3.2-1b at full width and
    depth (random bf16 weights from a seed), B = 4 prompts of 512 tokens, 256
-   new tokens, with exact launch counts (RMSNorm's split by rows), for COND
-   suffix fractions f in {0, 0.2, 0.5, 1.0}; then where its time goes
-   (device time of a step from a CUDA-graph replay, beside its eager wall
-   time) and the kernels that lead a FULL step under ``torch.profiler``,
-   with RMSNorm's and Eq. 1's shares;
+   new tokens, graphed (the default), with exact launch counts (RMSNorm's
+   split by rows), each combine; graphed against eager
+   (``graphs=False``) in one call, each combine at f = 0.2: teacher-forced
+   logits within phase 8's tolerance (bit-equal or not, logged) and tokens
+   equal up to the first step the logits do not decide (``[dgraphs]``);
+   seconds per generate and tokens/s graphed for COND suffix fractions f in
+   {0, 0.2, 0.5, 1.0} and eager at f = 0.2, the launches and RMSNorm's by
+   shape equal between them; then where its time goes (device time of a
+   step from a CUDA-graph replay, beside its eager wall time; the loop's
+   busy share graphed and eager; the graphs' capture ms and pool bytes)
+   and the kernels that lead a FULL step under ``torch.profiler``, eager
+   and as a graph replay, with RMSNorm's and Eq. 1's shares;
 11. paged kernels vs plain: the four paged/ragged decode kernels against
    their plain version at the serve path's shapes (R 16, H 32, K 8, hd 64,
    pages of 16, a pool of 640 pages, tables of 40), positions spread over
@@ -63,16 +77,21 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    same kernel on the same inputs, bit for bit;
 12. serve parity: the same arrival trace through ``ContinuousEngine`` on
    llama3.2-1b at full width, 2 layers, on the CPU (plain versions) and the
-   GPU (kernels), both step modes and both pool dtypes, and the apg and
-   interval combines: event streams equal, tokens equal up to the first
-   step the logits do not decide;
+   GPU (kernels; the ragged step a CUDA graph), both step modes and both
+   pool dtypes, and the apg and interval combines: event streams equal,
+   tokens equal up to the first step the logits do not decide;
 13. serve main path: ``ContinuousEngine`` on llama3.2-1b at full width and
    depth, 16 requests of 128 to 512 prompt tokens and 128 new tokens
-   arriving two a tick, ragged bf16 at f in {0, 0.2, 0.5} and at f = 0.2
-   ragged int8, signature bf16 and signature int8, each after a warm-up,
+   arriving two a tick, ragged bf16 (graphed) at f in {0, 0.2, 0.5} and at
+   f = 0.2 ragged int8 (graphed), signature bf16 and signature int8, and
+   ragged bf16 and int8 eager (``graphs=False``), each after a warm-up,
    with exact launch counts of the paged kernels and RMSNorm's launches by
-   rows; then a steady tick under ``torch.profiler``, with RMSNorm's and
-   the paged kernel's shares;
+   rows; graphed against eager on the same trace, ragged bf16 and int8 at
+   f = 0.2 (``[sgraphs]``): event streams equal, ``step_compiles`` 1 for
+   both, tokens equal up to the first step the two runs' logits do not
+   decide; then a steady tick of each of the four (graphed and eager,
+   bf16 and int8) under ``torch.profiler``: wall per tick, busy share,
+   RMSNorm's and the paged kernel's shares;
 14. training kernels vs plain: B6 (bf16 x at 2048 and 16 rows of 2048,
    float32 x at 2048 x 2048, float32 scale) and B4 (bf16, B 4, S 512:
    llama3.2-1b's heads causal and non-causal, h2o-danube-3-4b's with a
@@ -107,6 +126,9 @@ decode steps (the cfg and the APG FULL step), a steady serve tick of each
 B2 at its four timed shapes, of the ``repro_torch`` under SRC alone (two
 trees compare in turns in one call); ``--apg-plans`` times B2 under other
 launch plans than its own.
+
+Every launch count on a graphed path is exact: a capture records the
+kernels' launches and each replay adds them (``core/graphs.py``).
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``.
@@ -214,31 +236,15 @@ def launch_counts() -> dict:
     return {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()}
 
 
-class _NormCensus:
-    """Counts the RMSNorm kernel's launches by (rows, dim) while active: the
-    wrapper is swapped for one that counts each CUDA call and calls it."""
+def norm_census() -> dict:
+    """RMSNorm's launches by (rows, dim) since the last ``reset_launches``
+    (``rmsnorm.LAUNCH_SHAPES``: kept exact under graph replay)."""
+    from repro_torch.kernels import rmsnorm as KR
+    return dict(KR.LAUNCH_SHAPES)
 
-    def __init__(self):
-        self.by_shape = {}
 
-    def __enter__(self):
-        from repro_torch.kernels import rmsnorm as KR
-        self._inner = inner = KR.rmsnorm
-
-        def counted(x, scale, eps=1e-6):
-            if x.is_cuda and x.numel():
-                key = (x.numel() // x.shape[-1], x.shape[-1])
-                self.by_shape[key] = self.by_shape.get(key, 0) + 1
-            return inner(x, scale, eps)
-        KR.rmsnorm = counted
-        return self
-
-    def __exit__(self, *exc):
-        from repro_torch.kernels import rmsnorm as KR
-        KR.rmsnorm = self._inner
-
-    def summary(self) -> str:
-        return ", ".join(f"{r}x{d}: {n}" for (r, d), n in sorted(self.by_shape.items()))
+def census_summary(by_shape: dict) -> str:
+    return ", ".join(f"{r}x{d}: {n}" for (r, d), n in sorted(by_shape.items()))
 
 
 # -- phases ----------------------------------------------------------------------
@@ -707,17 +713,23 @@ def phase_attn_kernels():
                         note("flash_attention", dtype, e)
         log(f"[attn] flash_attention hd={hd} H/K={H}/{K}: (B, S) in (1|4, 77|512|2048) and "
             f"(2, 128) x causal/non-causal x window None/256 x bf16/f32 within tolerance")
-        for B, cap, positions in ((1, 768, (0, 63, 64, 511, 767)), (4, 768, (0, 63, 64, 511, 767)),
-                                  (1, 4096, (4095,))):
+        # B5 reads its position from the device: pos as a one-element int32
+        # tensor, at 0, the last key of the first tile, the first of the
+        # second, the middle and the last slot, and capacity 4096 at 511
+        # (the blocks past pos load nothing) and 4095
+        for B, cap in ((1, 768), (4, 768), (1, 4096)):
             for dtype in (bf16, f32):
+                tk = KD.TILE[dtype]
+                positions = (0, tk - 1, tk, cap // 2, cap - 1) if cap == 768 else (0, 511, 4095)
                 q, k, v = rnd(B, H, hd, dtype=dtype), rnd(B, cap, K, hd, dtype=dtype), \
                     rnd(B, cap, K, hd, dtype=dtype)
                 for pos in positions:
+                    pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
                     for window in (None, 256):
                         tag = f"hd={hd} B={B} S={cap} pos={pos} window={window} {str(dtype)[6:]}"
                         e = _err_ok("decode_attention", tag,
-                                    KD.decode_attention(q, k, v, pos, window=window),
-                                    KD.decode_attention_plain(q, k, v, pos, window=window),
+                                    KD.decode_attention(q, k, v, pos_t, window=window),
+                                    KD.decode_attention_plain(q, k, v, pos_t, window=window),
                                     per_row=tol(dtype))
                         note("decode_attention", dtype, e)
         # the ring form: W slots, position p at slot p % W, the positions past
@@ -727,22 +739,22 @@ def phase_attn_kernels():
             q, k, v = rnd(2, H, hd, dtype=dtype), rnd(2, W, K, hd, dtype=dtype), \
                 rnd(2, W, K, hd, dtype=dtype)
             for pos in (150, 1000):
-                slots = torch.arange(W, device=dev, dtype=torch.int32)
-                slot_pos = pos - (pos - slots) % W
-                slot_pos = torch.where(slot_pos < 0, -1, slot_pos).to(torch.int32)
-                slot_pos[torch.randperm(W, generator=gen, device=dev)[:8]] = -1
-                slot_pos[pos % W] = pos
+                slot_pos = _ring_slots(W, pos, gen)
+                pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
                 for window in (64, 256):
                     tag = f"hd={hd} ring W={W} pos={pos} window={window} {str(dtype)[6:]}"
                     e = _err_ok("decode_attention", tag,
-                                KD.decode_attention(q, k, v, pos, window=window, slot_pos=slot_pos),
+                                KD.decode_attention(q, k, v, pos_t, window=window,
+                                                    slot_pos=slot_pos),
                                 KD.decode_attention_plain(
                                     q, k, v, pos, valid=KD.ring_valid(slot_pos, pos, window)),
                                 per_row=tol(dtype))
                     note("decode_attention", dtype, e)
-        log(f"[attn] decode_attention hd={hd} H/K={H}/{K}: capacity 768 at pos in (0, 63, 64, 511, "
-            f"767) x B in (1, 4), capacity 4096 at pos 4095, x window None/256; ring of {W} slots "
-            f"at pos 150/1000 x window 64/256; bf16/f32 within tolerance")
+        log(f"[attn] decode_attention hd={hd} H/K={H}/{K}, pos a device tensor: capacity 768 at "
+            f"pos 0, TK-1, TK, 384, 767 (TK 64 bf16, 32 f32) x B in (1, 4), capacity 4096 at pos "
+            f"0, 511, 4095, x window None/256; ring of {W} slots at pos 150/1000 x window "
+            f"64/256; bf16/f32 within tolerance")
+    _captured_decode(rnd, tol, note)
     for rows, D in ((4, 2048), (2048, 2048), (4 * 32, 64)):
         for xdt, sdt in ((bf16, bf16), (bf16, f32), (f32, f32)):
             x, sc = rnd(rows, D, dtype=xdt) * 3, rnd(D, dtype=sdt)
@@ -793,13 +805,16 @@ def phase_attn_kernels():
     rows["flash_attention"] = flash_row(q, k, v)
     flash_row(*(t[:2, :128].contiguous() for t in (q, k, v)))     # a serve prefill bucket
     kc4, vc4 = rnd(B, 4096, K, hd, dtype=bf16), rnd(B, 4096, K, hd, dtype=bf16)
-    for kk, vv, pos in ((kc, vc, DECODE_S), (kc, vc, cap - 1), (kc4, vc4, 4095)):
+    for kk, vv, pos in ((kc, vc, DECODE_S), (kc, vc, cap - 1), (kc4, vc4, 4095),
+                        (kc4, vc4, 511)):
         S_kv = kk.shape[1]
         kkt, vvt = kk.transpose(1, 2).contiguous(), vv.transpose(1, 2).contiguous()
         mask = (torch.arange(S_kv, device=dev) <= pos)[None, None, None, :]
-        r = row("decode_attention", f"B={B} capacity={S_kv} pos={pos} H={H} K={K} hd={hd} bf16",
-                lambda: KD.decode_attention(qd, kk, vv, pos),
-                lambda: KD.decode_attention_plain(qd, kk, vv, pos),
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        r = row("decode_attention", f"B={B} capacity={S_kv} pos={pos} (a device tensor) H={H} "
+                f"K={K} hd={hd} bf16",
+                lambda: KD.decode_attention(qd, kk, vv, pos_t),
+                lambda: KD.decode_attention_plain(qd, kk, vv, pos_t),
                 lambda: F.scaled_dot_product_attention(qd[:, :, None], kkt, vvt, attn_mask=mask,
                                                        enable_gqa=True),
                 2 * (2 * B * H * hd + 2 * B * (pos + 1) * K * hd), 4 * B * H * hd * (pos + 1))
@@ -1020,6 +1035,60 @@ def phase_alternation() -> dict:
     return out
 
 
+def _ring_slots(W: int, pos: int, gen):
+    """A ring's (W,) int32 slot positions at ``pos``: position p at slot
+    p % W, slots before position 0 and eight random others empty (-1)."""
+    import torch
+    slots = torch.arange(W, device="cuda", dtype=torch.int32)
+    slot_pos = pos - (pos - slots) % W
+    slot_pos = torch.where(slot_pos < 0, -1, slot_pos).to(torch.int32)
+    slot_pos[torch.randperm(W, generator=gen, device="cuda")[:8]] = -1
+    slot_pos[pos % W] = pos
+    return slot_pos
+
+
+def _captured_decode(rnd, tol, note) -> None:
+    """One B5 launch captured in a CUDA graph (``core/graphs.capture``) and
+    replayed at three positions by rewriting its position tensor: equal to
+    the plain version at each (llama3.2-1b's heads, capacity 768, bf16 and
+    float32, linear with and without a window, and the ring form)."""
+    import torch
+    from repro_torch.core import graphs as G
+    from repro_torch.kernels import decode_attention as KD
+
+    B, H, K, hd, cap, W = 4, 32, 8, 64, 768, 256
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    pool = G.pool()
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = rnd(B, H, hd, dtype=dtype), rnd(B, cap, K, hd, dtype=dtype), \
+            rnd(B, cap, K, hd, dtype=dtype)
+        kr, vr = k[:, :W].contiguous(), v[:, :W].contiguous()
+        for form, window in (("linear", None), ("linear", 256), ("ring", 128)):
+            pos_t = torch.zeros(1, dtype=torch.int32, device="cuda")
+            slot_pos = torch.full((W,), -1, dtype=torch.int32, device="cuda")
+            if form == "ring":
+                step = lambda: KD.decode_attention(q, kr, vr, pos_t, window=window,  # noqa: E731
+                                                   slot_pos=slot_pos)
+            else:
+                step = lambda: KD.decode_attention(q, k, v, pos_t, window=window)  # noqa: E731
+            graph, _ = G.capture(step, pool)
+            for pos in (5, 300, cap - 1):
+                pos_t.fill_(pos)
+                if form == "ring":
+                    slot_pos.copy_(_ring_slots(W, pos, gen))
+                    ref = KD.decode_attention_plain(
+                        q, kr, vr, pos, valid=KD.ring_valid(slot_pos, pos, window))
+                else:
+                    ref = KD.decode_attention_plain(q, k, v, pos, window=window)
+                tag = f"captured once, replayed at pos {pos}, {form} window={window} " \
+                      f"{str(dtype)[6:]}"
+                note("decode_attention", dtype,
+                     _err_ok("decode_attention", tag, graph.replay(), ref, per_row=tol(dtype)))
+    log(f"[attn] decode_attention captured once and replayed at pos 5, 300, {cap - 1} "
+        f"(B={B} H={H} K={K} hd={hd} capacity {cap}; linear, window 256, ring of {W} slots "
+        f"with window 128; bf16/f32): equal to the plain version within tolerance at each")
+
+
 def _planted_faults(rnd) -> None:
     """The bf16 attention tolerance must catch a causal fault that only
     late rows see, at the main path's prefill shape (B 4, S 512, H 32, K 8,
@@ -1076,10 +1145,9 @@ COMBINE_MODES = {"cfg": ("cfg_combine", {}),
 
 def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None) -> str:
     """The same ``guided_decode`` on the CPU (plain versions) and the GPU
-    (kernels, inside the context ``around_gpu()`` if given): the GPU run's
-    launch counts must equal ``want``, the teacher-forced logits agree
-    within ``LOGIT_TOL`` of max|logit|, tokens equal up to each row's first
-    step the logits do not decide. -> the log's summary."""
+    (kernels, graphed, inside the context ``around_gpu()`` if given): the
+    GPU run's launch counts must equal ``want`` and ``_margin_guard`` hold.
+    -> the log's summary."""
     import contextlib
 
     import torch
@@ -1095,28 +1163,38 @@ def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None) -> str:
         fail(f"{tag}: launches {counts}, want {want}")
     la = AR.teacher_forced_logits(cpu, toks, plan, a, **kw)
     lb = AR.teacher_forced_logits(gpu, toks.cuda(), plan, a.cuda(), **kw).cpu()
+    return f"launches {want}; " + _margin_guard(tag, a, b.cpu(), la, lb)
+
+
+def _margin_guard(tag, a, b, la, lb) -> str:
+    """Tokens ``a`` and ``b`` (B, n) of two runs, ``la`` and ``lb`` their
+    float32 logits teacher-forced on ``a``: the logits within ``LOGIT_TOL``
+    of max|la|, the tokens equal up to each row's first step that the
+    logits do not decide, where ``a``'s margin of its top token over some
+    other token is no larger than the two logits' differences. -> the log's
+    summary."""
+    import torch
     big = la.abs().max().item()
     err = (lb - la).abs()
     if not err.max().item() <= LOGIT_TOL * big:
         fail(f"{tag}: teacher-forced logits rel err {err.max().item() / big:.3g} > {LOGIT_TOL}")
-    # a step is decided where the CPU's margin of its top token over every
-    # other token exceeds the two logits' CPU-GPU differences
     top = la.argmax(-1, keepdim=True)
     gap = la.gather(-1, top) - la
     slack = err.gather(-1, top) + err
-    other = torch.arange(la.shape[-1]) != top
-    undecided = ((gap <= slack) & other).any(-1)                 # (B, n_new)
+    other = torch.arange(la.shape[-1], device=la.device) != top
+    undecided = ((gap <= slack) & other).any(-1).cpu()          # (B, n_new)
+    a, b = a.cpu(), b.cpu()
     compared = 0
     for r in range(a.shape[0]):
         low = undecided[r].nonzero()
         upto = int(low[0]) if len(low) else a.shape[1]
-        if not torch.equal(a[r, :upto], b[r, :upto].cpu()):
+        if not torch.equal(a[r, :upto], b[r, :upto]):
             fail(f"{tag}: row {r} tokens differ before step {upto}: "
                  f"{a[r].tolist()} vs {b[r].tolist()}")
         compared += upto
-    return (f"launches {want}; teacher-forced logits rel err {err.max().item() / big:.3g} "
-            f"(tol {LOGIT_TOL}, max|logit| {big:.3g}); tokens equal on the {compared} of "
-            f"{a.numel()} decided steps, {int((a == b.cpu()).sum())} equal overall")
+    return (f"teacher-forced logits rel err {err.max().item() / big:.3g} (tol {LOGIT_TOL}, "
+            f"max|logit| {big:.3g}); tokens equal on the {compared} of {a.numel()} decided "
+            f"steps, {int((a == b).sum())} equal overall")
 
 
 def phase_decode_parity():
@@ -1179,28 +1257,34 @@ def phase_ring_parity():
     toks = torch.from_numpy(encode_batch(prompts, cfg.vocab_size, RING_PROMPT)).long()
     plan = GuidancePlan.suffix(16, 0.25, DECODE_SCALE)
     want = _expected_launches(cfg.num_layers, plan, "cfg_combine")
-    ring_calls = [0]
-    ring = A.attn_decode_ring
+    calls = {"ring": 0, "linear": 0}
+    ring, linear = A.attn_decode_ring, A.attn_decode
 
-    def counted(*args, **kw):
-        ring_calls[0] += 1
-        return ring(*args, **kw)
+    def counted(kind, fn):
+        def wrapped(*args, **kw):
+            calls[kind] += 1
+            return fn(*args, **kw)
+        return wrapped
 
     @contextlib.contextmanager
     def counting():
-        A.attn_decode_ring = counted
+        A.attn_decode_ring, A.attn_decode = counted("ring", ring), counted("linear", linear)
         try:
             yield
         finally:
-            A.attn_decode_ring = ring
+            A.attn_decode_ring, A.attn_decode = ring, linear
     summary = _decode_pair("ring parity", cpu, gpu, toks, plan, dict(combine="cfg"), want,
                            counting)
-    if ring_calls[0] != want["decode_attention"]:
-        fail(f"ring parity: {ring_calls[0]} ring-cache decode calls on the GPU, want "
-             f"{want['decode_attention']} (layers x decode forwards)")
+    # graphed: the layers' Python calls run at the FULL and COND steps'
+    # warm-ups and captures, and the replays launch what they captured
+    if calls["linear"] or not calls["ring"]:
+        fail(f"ring parity: decode attention calls on the GPU {calls}: every layer's must "
+             "take the ring path")
     log(f"[ring] {cfg.name} x{cfg.num_layers} layers, window {RING_WINDOW}, B=2 S={RING_PROMPT}, "
-        f"16 new tokens, the ring path: attn_decode_ring {ring_calls[0]} times in the GPU run, "
-        f"each one decode_attention launch; set-up {time.perf_counter() - t0:.2f} s; {summary}")
+        f"16 new tokens, graphed: every decode attention call takes the ring path "
+        f"({calls['ring']} traced calls, none linear) and the replays launch decode_attention "
+        f"{want['decode_attention']} times (layers x decode forwards); set-up "
+        f"{time.perf_counter() - t0:.2f} s; {summary}")
 
 
 def _decode_model():
@@ -1245,8 +1329,9 @@ def _apg_fn():
 
 
 def phase_decode_main():
-    """``guided_decode`` on llama3.2-1b at full width and depth. -> (model,
-    prompts, launches of the counted f = 0.2 runs, seconds per generate by f)."""
+    """``guided_decode`` on llama3.2-1b at full width and depth, graphed (the
+    default) and eager. -> (model, prompts, launches of the counted f = 0.2
+    runs, rows of seconds per generate by f and mode)."""
     import numpy as np
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
@@ -1275,41 +1360,74 @@ def phase_decode_main():
     plan = GuidancePlan.suffix(DECODE_NEW, 0.2, DECODE_SCALE)
     for mode, (kernel, kw) in COMBINE_MODES.items():
         reset_launches()
-        with _NormCensus() as census:
-            out, dt = run(plan, combine=mode, **kw)
+        out, dt = run(plan, combine=mode, **kw)       # graphed: captures FULL and COND
         counts, want = launch_counts(), _expected_launches(cfg.num_layers, plan, kernel)
-        if sum(census.by_shape.values()) != counts["rmsnorm"]:
-            fail(f"dmain combine={mode}: rmsnorm census {census.by_shape} against "
+        census = norm_census()
+        if sum(census.values()) != counts["rmsnorm"]:
+            fail(f"dmain combine={mode}: rmsnorm census {census} against "
                  f"{counts['rmsnorm']} launches")
         if mode == "cfg":
             log(f"[dmain] rmsnorm launches by rows x dim, one generate f=0.2: "
-                f"{census.summary()}")
+                f"{census_summary(census)}")
         if counts != want:
             fail(f"dmain combine={mode}: launches {counts}, want {want}")
         for name in ("flash_attention", "decode_attention", "rmsnorm", kernel):
             launches[name] = counts[name]
-        log(f"[dmain] generate combine={mode} f=0.2: launches {want}, {dt:.3f} s incl. "
-            f"first-call set-up, first tokens {out[0, :8].tolist()}")
+        log(f"[dmain] generate combine={mode} f=0.2, graphed: launches {want}, {dt:.3f} s incl. "
+            f"the graphs' capture, first tokens {out[0, :8].tolist()}")
+    phase_decode_graphs(model, toks, plan)
 
     rows = []
-    for f in (0.0, 0.2, 0.5, 1.0):
+    for f, graphs in ((0.0, None), (0.2, None), (0.5, None), (1.0, None), (0.2, False)):
         plan = GuidancePlan.suffix(DECODE_NEW, f, DECODE_SCALE)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        times = [run(plan)[1] for _ in range(4)][1:]
+        times = [run(plan, graphs=graphs)[1] for _ in range(4)][1:]
         counts = {k: v / 4 for k, v in launch_counts().items()}
         want = _expected_launches(cfg.num_layers, plan, "cfg_combine")
         if counts != want:
-            fail(f"dmain f={f}: launches per generate {counts}, want {want}")
+            fail(f"dmain f={f} graphs={graphs}: launches per generate {counts}, want {want}")
         forwards = 2 + 2 * (DECODE_NEW - plan.optimized_steps) + plan.optimized_steps
-        rows.append(dict(f=f, mean_s=float(np.mean(times)), std_s=float(np.std(times)),
-                         forwards=forwards, peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        rows.append(dict(f=f, graphed=graphs is None, mean_s=float(np.mean(times)),
+                         std_s=float(np.std(times)), forwards=forwards, census=norm_census(),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+    graphed = {r["f"]: r for r in rows if r["graphed"]}
+    eager = next(r for r in rows if not r["graphed"])
+    if eager["census"] != graphed[0.2]["census"]:
+        fail(f"dmain f=0.2: rmsnorm launches by shape graphed {graphed[0.2]['census']} against "
+             f"eager {eager['census']}")
     for r in rows:
-        r["saving"] = 1.0 - r["mean_s"] / rows[0]["mean_s"]
-        log(f"[dmain] f={r['f']}: mean {r['mean_s']:.4f} s std {r['std_s']:.4f} s (1 warm-up, "
-            f"3 timed), {DECODE_B * DECODE_NEW / r['mean_s']:.1f} tokens/s, forwards "
-            f"{r['forwards']}, saving {r['saving']:.4f}, peak {r['peak_gb']:.2f} GB")
+        r["saving"] = 1.0 - r["mean_s"] / graphed[0.0]["mean_s"] if r["graphed"] else None
+        log(f"[dmain] f={r['f']} {'graphed' if r['graphed'] else 'eager'}: mean "
+            f"{r['mean_s']:.4f} s std {r['std_s']:.4f} s (1 warm-up, 3 timed), "
+            f"{DECODE_B * DECODE_NEW / r['mean_s']:.1f} tokens/s, forwards {r['forwards']}, "
+            + (f"saving {r['saving']:.4f}, " if r["graphed"] else "")
+            + f"peak {r['peak_gb']:.2f} GB")
+    log(f"[dmain] f=0.2: graphed {graphed[0.2]['mean_s']:.4f} s against eager "
+        f"{eager['mean_s']:.4f} s a generate ({eager['mean_s'] / graphed[0.2]['mean_s']:.2f}x); "
+        f"launches per generate and RMSNorm's by shape equal")
     return model, toks, launches, rows
+
+
+def phase_decode_graphs(model, toks, plan) -> None:
+    """Graphed against eager on the card, each combine: the same prompts
+    through ``guided_decode(graphs=False)`` and the graphed default, the
+    teacher-forced logits of both fed the eager run's tokens (bit-equal or
+    not, logged), and ``_margin_guard``."""
+    import torch
+    from repro_torch.core import ar_decode as AR
+
+    for mode, (_, kw) in COMBINE_MODES.items():
+        kw = dict(kw, combine=mode)
+        a, _ = AR.guided_decode(model, toks, plan, graphs=False, **kw)
+        b, _ = AR.guided_decode(model, toks, plan, **kw)
+        la = AR.teacher_forced_logits(model, toks, plan, a, graphs=False, **kw)
+        lb = AR.teacher_forced_logits(model, toks, plan, a, **kw)
+        summary = _margin_guard(f"dgraphs {mode}", a, b, la, lb)
+        log(f"[dgraphs] {mode} f=0.2, graphed against eager: teacher-forced logits bit-equal "
+            f"{torch.equal(la, lb)}; {summary}")
+        del la, lb
+    torch.cuda.empty_cache()
 
 
 def _graph_ms(fn, iters: int = 20) -> float:
@@ -1353,10 +1471,13 @@ def _wall_ms(fn, iters: int = 10) -> float:
 def phase_decode_breakdown(model, toks, rows) -> None:
     """Where a generate's time goes: both prefills, one FULL and one COND
     step, each as device time (CUDA-graph replay) and eager wall time, and
-    the device-busy share of the decode loop at f = 0.2."""
+    at f = 0.2, graphed and eager, the device-busy share of a generate (its
+    kernel time under ``torch.profiler`` over its unprofiled wall); the
+    graphs' capture times and pool bytes."""
     import torch
     from repro_torch.core import ar_decode as AR
     from repro_torch.core.selective import GuidancePlan
+    from torch.profiler import ProfilerActivity, profile
 
     null = AR.null_prompt(toks)
     pos = DECODE_S + DECODE_NEW // 2
@@ -1369,16 +1490,34 @@ def phase_decode_breakdown(model, toks, rows) -> None:
     plan = GuidancePlan.suffix(DECODE_NEW, 0.2, DECODE_SCALE)
     n_cond = plan.optimized_steps
     n_full = DECODE_NEW - n_cond
-    gen_s = next(r["mean_s"] for r in rows if r["f"] == 0.2)
-    loop_s = gen_s - pre_wall / 1e3
-    busy = (n_full * full_dev + n_cond * cond_dev) / 1e3 / loop_s
     log(f"[dbreak] prefill, both streams: device {pre_dev:.3f} ms, wall {pre_wall:.3f} ms")
-    log(f"[dbreak] FULL step at pos {pos}: device {full_dev:.3f} ms, wall {full_wall:.3f} ms; "
-        f"COND step: device {cond_dev:.3f} ms, wall {cond_wall:.3f} ms; COND/FULL device "
-        f"{cond_dev / full_dev:.3f}, wall {cond_wall / full_wall:.3f}")
-    log(f"[dbreak] generate f=0.2 wall {gen_s:.4f} s = prefill {pre_wall / 1e3:.4f} s + decode "
-        f"loop {loop_s:.4f} s ({n_full} FULL + {n_cond} COND steps); device-busy share of the "
-        f"loop {busy:.4f}")
+    log(f"[dbreak] FULL step at pos {pos}: device {full_dev:.3f} ms, eager wall {full_wall:.3f} "
+        f"ms; COND step: device {cond_dev:.3f} ms, eager wall {cond_wall:.3f} ms; COND/FULL "
+        f"device {cond_dev / full_dev:.3f}, eager wall {cond_wall / full_wall:.3f}")
+    for r in rows:
+        if r["f"] != 0.2:
+            continue
+        what = "graphed" if r["graphed"] else "eager"
+        loop_s = r["mean_s"] - pre_wall / 1e3
+        # kernel time of one whole generate under the profiler (its kernels'
+        # durations do not depend on the host's pace), over the unprofiled wall
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            AR.guided_decode(model, toks, plan, graphs=None if r["graphed"] else False)
+            torch.cuda.synchronize()
+        kernel_s = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e9
+        log(f"[dbreak] generate f=0.2 {what}: wall {r['mean_s']:.4f} s = prefill "
+            f"{pre_wall / 1e3:.4f} s + decode loop {loop_s:.4f} s ({n_full} FULL + {n_cond} COND "
+            f"steps, {loop_s / DECODE_NEW * 1e3:.3f} ms a step); kernel time {kernel_s:.4f} s "
+            f"(profiled), device-busy share of the wall {kernel_s / r['mean_s']:.4f}")
+    graphs = [(key, g) for loop in model._decode_loops.values() for key, g in loop.graphs.items()]
+    log(f"[dbreak] {len(graphs)} decode graphs on {len(model._decode_loops)} static cache "
+        f"set(s): " + "; ".join(f"{key[:2]} capture {g.capture_s * 1e3:.1f} ms (incl. its "
+                                 f"eager first step), {sum(g.launches[4].values())} RMSNorm and "
+                                 f"{sum(g.launches[1].values())} B5 launches a replay"
+                                 for key, g in graphs)
+        + f"; pool bytes reserved {sum(g.pool_bytes for _, g in graphs)}")
+
 
 def _profile_share(by_name: dict, key: str) -> tuple[int, int]:
     """(ns, launches) summed over the profiled kernels whose name holds ``key``."""
@@ -1386,11 +1525,13 @@ def _profile_share(by_name: dict, key: str) -> tuple[int, int]:
     return sum(t for t, _ in hits), sum(k for _, k in hits)
 
 
-def phase_decode_profile(model, toks, combine_fn=None, what: str = "FULL") -> None:
+def phase_decode_profile(model, toks, combine_fn=None, what: str = "FULL",
+                         graphed: bool = False) -> None:
     """The kernels that take a FULL decode step's device time under
     ``torch.profiler`` (combining with ``combine_fn`` if given, ``what``
-    naming it): summed device time by kernel, its share of the step's
-    kernel time, and launches per step."""
+    naming it; with ``graphed``, one replay of the step captured as a CUDA
+    graph): summed device time by kernel, its share of the step's kernel
+    time, and launches per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1398,6 +1539,13 @@ def phase_decode_profile(model, toks, combine_fn=None, what: str = "FULL") -> No
         step, _ = _decode_steps(model, toks, DECODE_S, combine_fn)
         step()
         torch.cuda.synchronize()
+        if graphed:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                step()
+            step, what = graph.replay, f"{what} (graph replay)"
+            step()
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()
             torch.cuda.synchronize()
@@ -1616,7 +1764,7 @@ def _serve_requests(cfg, n: int, lens, new: int, seed: int):
 
 def _recording_engine():
     """``ContinuousEngine`` keeping the logits each request's tokens came
-    from (host float32 copies: a parity run only)."""
+    from (host float32 copies: a parity run only), graphed or eager."""
     from repro_torch.serve import ContinuousEngine
 
     class Recording(ContinuousEngine):
@@ -1624,11 +1772,13 @@ def _recording_engine():
             super().__init__(*a, **kw)
             self.logits = {}
 
-        def _sample(self, logits, uids, temps, keys, steps):
-            host = logits[:len(uids)].float().cpu()
+        def _draw(self, nxt, logits, uids, temps, keys, steps):
+            # every sample, eager or after a replay, passes here; a copy,
+            # since a replay rewrites the graph's logits
+            host = logits[:len(uids)].float().cpu().clone()
             for i, uid in enumerate(uids):
                 self.logits.setdefault(uid, []).append(host[i])
-            return super()._sample(logits, uids, temps, keys, steps)
+            return super()._draw(nxt, logits, uids, temps, keys, steps)
 
     return Recording
 
@@ -1690,47 +1840,57 @@ def phase_serve_parity():
         if sum(cl.values()) != 0 or gl[kern] != want or not gl[comb_kern] or gl[other]:
             fail(f"sparity {tag}: launches CPU {cl}, GPU {gl}; want {kern} x{want} and "
                  f"{comb_kern} alone of the combines")
-        compared = total = 0
-        worst = 0.0
-        for uid in co:
-            a, b = co[uid], go[uid]
-            n = min(len(a), len(b))
-            mis = next((i for i in range(n) if a[i] != b[i]), n)
-            upto = min(mis + 1, n)
-            la = torch.stack(ce.logits[uid][:upto])
-            lb = torch.stack(ge.logits[uid][:upto])
-            big = la.abs().max().item()
-            err = (lb - la).abs()
-            worst = max(worst, err.max().item() / big)
-            if not err.max().item() <= SERVE_LOGIT_TOL * big:
-                fail(f"sparity {tag} {uid}: logits rel err {err.max().item() / big:.3g} "
-                     f"> {SERVE_LOGIT_TOL}")
-            top = la.argmax(-1, keepdim=True)
-            gap = la.gather(-1, top) - la
-            slack = err.gather(-1, top) + err
-            undecided = ((gap <= slack) & (torch.arange(la.shape[-1]) != top)).any(-1)
-            if mis < n and not bool(undecided[mis]):
-                fail(f"sparity {tag} {uid}: tokens part at decided step {mis}: {a} vs {b}")
-            compared += mis
-            total += n
         log(f"[sparity] {tag}: {len(co)} requests, {ge.tick_count} ticks, events equal "
             f"({len(ge.metrics.trace.keys())}), {kern} x{gl[kern]} "
-            f"(= {cfg.num_layers} layers x decode forwards); logits rel err {worst:.3g} "
-            f"(tol {SERVE_LOGIT_TOL}); tokens equal on {compared} of {total} before any "
-            f"undecided parting")
+            f"(= {cfg.num_layers} layers x decode forwards); "
+            + _serve_margin(f"sparity {tag}", ce, co, ge, go))
 
 
 SERVE_LOGIT_TOL = 3e-2   # CPU vs GPU serve logits, of max|logit| (bf16 stacks, int8 pools)
 
 
+def _serve_margin(tag, ea, oa, eb, ob) -> str:
+    """Two recording engines' runs of one trace (outputs ``oa``, ``ob``):
+    each request's logits within ``SERVE_LOGIT_TOL`` of max|logit| up to
+    its first parting token, which must come at a step the logits do not
+    decide. -> the log's summary."""
+    import torch
+    compared = total = equal = 0
+    worst = 0.0
+    bits = True
+    for uid in oa:
+        a, b = oa[uid], ob[uid]
+        n = min(len(a), len(b))
+        mis = next((i for i in range(n) if a[i] != b[i]), n)
+        upto = min(mis + 1, n)
+        la = torch.stack(ea.logits[uid][:upto])
+        lb = torch.stack(eb.logits[uid][:upto])
+        bits = bits and torch.equal(la, lb)
+        big = la.abs().max().item()
+        err = (lb - la).abs()
+        worst = max(worst, err.max().item() / big)
+        if not err.max().item() <= SERVE_LOGIT_TOL * big:
+            fail(f"{tag} {uid}: logits rel err {err.max().item() / big:.3g} > {SERVE_LOGIT_TOL}")
+        top = la.argmax(-1, keepdim=True)
+        gap = la.gather(-1, top) - la
+        slack = err.gather(-1, top) + err
+        undecided = ((gap <= slack) & (torch.arange(la.shape[-1]) != top)).any(-1)
+        if mis < n and not bool(undecided[mis]):
+            fail(f"{tag} {uid}: tokens part at decided step {mis}: {a} vs {b}")
+        compared += mis
+        total += n
+        equal += sum(x == y for x, y in zip(a, b))
+    return (f"logits rel err {worst:.3g} (tol {SERVE_LOGIT_TOL}), bit-equal {bits}; tokens "
+            f"equal on {compared} of {total} before any undecided parting, {equal} equal "
+            f"overall")
+
+
 def phase_serve_main():
     """``ContinuousEngine`` on llama3.2-1b at full width and depth. -> (model,
-    launches per kernel summed over the counted runs, rows)."""
-    import numpy as np
+    launches per kernel summed over the graphed-default runs, rows)."""
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
     from repro_torch.models.transformer import Transformer
-    from repro_torch.serve import ContinuousEngine
 
     t0 = time.perf_counter()
     model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -1741,26 +1901,23 @@ def phase_serve_main():
         f"{time.perf_counter() - t0:.2f} s; 16 requests, prompts {SERVE_LENS} cycling, "
         f"{SERVE_NEW} new tokens, scale {SERVE_SCALE}, greedy, two arriving at each of "
         f"ticks 0-7; pages of {SERVE_PS}, 8 slots, pass budget 16")
-    runs = [("ragged", "bf16", 0.0), ("ragged", "bf16", 0.2), ("ragged", "bf16", 0.5),
-            ("ragged", "int8", 0.2), ("signature", "bf16", 0.2), ("signature", "int8", 0.2)]
-    totals, rows = {}, []
-    census = _NormCensus()
-    for step_mode, kv_dtype, f in runs:
+    runs = [("ragged", "bf16", 0.0, None), ("ragged", "bf16", 0.2, None),
+            ("ragged", "bf16", 0.5, None), ("ragged", "int8", 0.2, None),
+            ("signature", "bf16", 0.2, None), ("signature", "int8", 0.2, None),
+            ("ragged", "bf16", 0.2, False), ("ragged", "int8", 0.2, False)]
+    totals, rows, census = {}, [], {}
+    for step_mode, kv_dtype, f, graphs in runs:
         def engine():
-            return ContinuousEngine(model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8,
-                                    pass_budget=16, prompt_len=512, max_new=SERVE_NEW,
-                                    stop_on_eos=False, prefills_per_tick=2, seed=0,
-                                    selective_fraction=f, step_mode=step_mode,
-                                    kv_dtype=kv_dtype)
+            return _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs)
         engine().serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
         eng = engine()
+        what = f"{step_mode} {kv_dtype} f={f} {'graphed' if eng.graphs else 'eager'}"
         reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t1 = time.perf_counter()
-        with census:
-            out = eng.serve_trace(reqs, arrivals)
+        out = eng.serve_trace(reqs, arrivals)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
         counts = launch_counts()
@@ -1768,54 +1925,97 @@ def phase_serve_main():
         tokens = sum(len(v) for v in out.values())
         if len(out) != 16 or any(len(v) != SERVE_NEW for v in out.values()) or not all(
                 0 <= t < cfg.vocab_size for v in out.values() for t in v):
-            fail(f"smain {step_mode} {kv_dtype} f={f}: results {len(out)} requests, lengths "
+            fail(f"smain {what}: results {len(out)} requests, lengths "
                  f"{sorted({len(v) for v in out.values()})}")
         if eng.pages.n_free != eng.pages.num_pages:
-            fail(f"smain {step_mode} {kv_dtype} f={f}: pool not balanced at drain")
+            fail(f"smain {what}: pool not balanced at drain")
         kern = _paged_kernel_of(step_mode, kv_dtype)
         want = cfg.num_layers * _decode_forwards(m, step_mode)
         others = sum(counts[n] for n in PAGED if n != kern)
         if counts[kern] != want or others:
-            fail(f"smain {step_mode} {kv_dtype} f={f}: {kern} x{counts[kern]}, want {want} "
+            fail(f"smain {what}: {kern} x{counts[kern]}, want {want} "
                  f"(= {cfg.num_layers} layers x decode forwards); other paged kernels x{others}")
-        for k, v in counts.items():
-            totals[k] = totals.get(k, 0) + v
+        if graphs is None:        # the main path: the graphed default
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            for k, v in norm_census().items():
+                census[k] = census.get(k, 0) + v
         peak = torch.cuda.max_memory_allocated() / 1e9
-        row = dict(step_mode=step_mode, kv_dtype=kv_dtype, f=f, wall_s=wall,
+        row = dict(step_mode=step_mode, kv_dtype=kv_dtype, f=f, graphed=eng.graphs, wall_s=wall,
                    tokens_per_s=tokens / wall, ticks=m.ticks, passes=m.denoiser_passes,
                    prefill_passes=m.prefill_passes, reclaimed=m.pages_reclaimed,
                    peak_pages=m.peak_pages_in_use, peak_bytes=m.peak_bytes_in_use,
                    step_launches=m.step_launches, peak_gb=peak)
         rows.append(row)
-        log(f"[smain] {step_mode} {kv_dtype} f={f}: wall {wall:.4f} s, {tokens / wall:.1f} "
+        log(f"[smain] {what}: wall {wall:.4f} s, {tokens / wall:.1f} "
             f"tokens/s, ticks {m.ticks}, denoiser passes {m.denoiser_passes}, prefill passes "
             f"{m.prefill_passes}, pages reclaimed {m.pages_reclaimed}, peak pages "
             f"{m.peak_pages_in_use}, peak bytes {m.peak_bytes_in_use}, step launches "
             f"{m.step_launches} (compiles {m.step_compiles}), launches "
             f"{ {k: v for k, v in counts.items() if v} }, peak device memory {peak:.2f} GB; "
             f"first tokens {out['q0'][:6]}")
-    if sum(census.by_shape.values()) != totals["rmsnorm"]:
-        fail(f"smain: rmsnorm census {census.by_shape} against {totals['rmsnorm']} launches")
-    log(f"[smain] rmsnorm launches by rows x dim over the six runs: {census.summary()}")
+    if sum(census.values()) != totals["rmsnorm"]:
+        fail(f"smain: rmsnorm census {census} against {totals['rmsnorm']} launches")
+    log(f"[smain] rmsnorm launches by rows x dim over the six graphed-default runs: "
+        f"{census_summary(census)}")
     return model, totals, rows
 
 
-def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16") -> None:
-    """Where a steady serve tick's time goes (f = 0.2, ticks 20-49, eight
-    requests in flight and no admissions; the ragged bf16 step by default):
-    the wall and its phases from the engine's tick timer over ticks 20-39,
-    then the kernels' device time over ticks 40-49 under ``torch.profiler``,
-    and the busy share, device time over wall; B6's share and the paged
-    kernel's."""
+def _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs=None, cls=None):
+    """The serve main path's engine (phase 13's configuration)."""
+    from repro_torch.serve import ContinuousEngine
+    return (cls or ContinuousEngine)(
+        model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8, pass_budget=16,
+        prompt_len=512, max_new=SERVE_NEW, stop_on_eos=False, prefills_per_tick=2, seed=0,
+        selective_fraction=f, step_mode=step_mode, kv_dtype=kv_dtype, graphs=graphs)
+
+
+def phase_serve_graphs(model) -> None:
+    """Graphed against eager on the serve main path's trace (full depth),
+    ragged bf16 and ragged int8 at f = 0.2: event streams equal,
+    ``step_compiles`` 1 for both, tokens equal up to the first step that
+    the two runs' logits do not decide (phase 12's guard), logits within
+    ``SERVE_LOGIT_TOL``."""
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
-    from repro_torch.serve import ContinuousEngine
+
+    Recording = _recording_engine()
+    arrivals = [i // 2 for i in range(16)]
+    for kv_dtype in ("bf16", "int8"):
+        runs = {}
+        for graphs in (False, None):
+            eng = _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, graphs, Recording)
+            out = eng.serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
+            torch.cuda.synchronize()
+            runs[eng.graphs] = (eng, out)
+        (ee, eo), (ge, go) = runs[False], runs[True]
+        tag = f"sgraphs ragged {kv_dtype} f=0.2"
+        if ee.metrics.trace.keys() != ge.metrics.trace.keys():
+            fail(f"{tag}: event streams differ")
+        if (ee.metrics.step_compiles, ge.metrics.step_compiles) != (1, 1):
+            fail(f"{tag}: step_compiles eager {ee.metrics.step_compiles}, graphed "
+                 f"{ge.metrics.step_compiles}; want 1")
+        log(f"[sgraphs] ragged {kv_dtype} f=0.2, graphed against eager: {len(eo)} requests, "
+            f"{ge.tick_count} ticks, events equal ({len(ge.metrics.trace.keys())}), "
+            f"step_compiles 1 and 1; " + _serve_margin(tag, ee, eo, ge, go))
+        del runs, ee, ge
+    torch.cuda.empty_cache()
+
+
+def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16",
+                        graphs: bool | None = None) -> None:
+    """Where a steady serve tick's time goes (f = 0.2, ticks 20-49, eight
+    requests in flight and no admissions; the ragged bf16 step, graphed, by
+    default): the wall and its phases from the engine's tick timer over
+    ticks 20-39, then the kernels' device time over ticks 40-49 under
+    ``torch.profiler`` (a graph's replays included), and the busy share,
+    device time over wall; B6's share and the paged kernel's."""
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
     from torch.profiler import ProfilerActivity, profile
 
-    eng = ContinuousEngine(model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8,
-                           pass_budget=16, prompt_len=512, max_new=SERVE_NEW, stop_on_eos=False,
-                           prefills_per_tick=2, seed=0, selective_fraction=0.2,
-                           step_mode=step_mode, kv_dtype=kv_dtype)
+    eng = _serve_engine(model, cfg, step_mode, kv_dtype, 0.2, graphs)
+    what = f"{step_mode} {'graphed' if eng.graphs else 'eager'}"
     reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
     arrivals = [i // 2 for i in range(16)]
     i = 0
@@ -1842,7 +2042,7 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
             by_name[e.name()] = (t_ + e.end_ns() - e.start_ns(), k + 1)
             n += 1
     total = sum(t_ for t_, _ in by_name.values())
-    log(f"[sprofile] steady {step_mode} tick ({kv_dtype}, f=0.2, 8 requests in flight): wall "
+    log(f"[sprofile] steady {what} tick ({kv_dtype}, f=0.2, 8 requests in flight): wall "
         f"{wall * 1e3:.3f} ms, of which " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in seg.items()))
     if not total:
         log("[sprofile] device time not measured: the profiler saw no device time")
@@ -1850,6 +2050,20 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
     dev_ms = total / 1e6 / 10
     log(f"[sprofile] {n / 10:.0f} kernel launches and {dev_ms:.3f} ms of kernel time per tick "
         f"(profiled); device-busy share of the unprofiled wall {dev_ms / (wall * 1e3):.4f}")
+    if eng._ragged_graph is not None:
+        # the last tick's graph again on its own rows (the same K/V writes):
+        # the card's time for a replay, its kernels and the gaps between them
+        graph = eng._ragged_graph.graph
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / 20
+        log(f"[sprofile] one replay of the ragged graph: {replay_ms:.3f} ms on the device "
+            f"(events, 20 replays), kernel time {dev_ms / replay_ms:.3f} of it; the host's "
+            f"staging, sampling and harvest {wall * 1e3 - replay_ms:.3f} ms of the wall")
     for rank, (name, (t_, k)) in enumerate(sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]):
         log(f"[sprofile] {rank + 1}. {t_ / total:.3f} of kernel time, {k / 10:.0f}x per tick "
             f"{name[:80]}")
@@ -2376,6 +2590,7 @@ def main() -> None:
     model, toks, ar_launches, ar_rows = phase_decode_main()
     phase_decode_breakdown(model, toks, ar_rows)
     phase_decode_profile(model, toks)
+    phase_decode_profile(model, toks, graphed=True)
     phase_decode_profile(model, toks, _apg_fn(), "APG FULL")
     del model
     torch.cuda.empty_cache()
@@ -2384,7 +2599,10 @@ def main() -> None:
     phase_paged_identity()
     phase_serve_parity()
     model, serve_launches, _ = phase_serve_main()
-    phase_serve_profile(model)
+    phase_serve_graphs(model)
+    for kv_dtype in ("bf16", "int8"):
+        for graphs in (None, False):
+            phase_serve_profile(model, "ragged", kv_dtype, graphs)
     del model
     torch.cuda.empty_cache()
 

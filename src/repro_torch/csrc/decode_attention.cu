@@ -10,16 +10,27 @@
 // sliding-window decode cache) holds the position of slot s in
 // slot_pos[s] (-1: empty), and slot s is valid iff lo <= slot_pos[s] <= pos.
 //
+// pos is read from the device (one int32, the TPU kernel's scalar-prefetch
+// pos_ref), so that one launch, captured in a CUDA graph, serves every
+// position: the launch depends on shapes alone and each block computes lo
+// and its share of the keys from pos.
+//
 // What bounds it: bytes. Each valid key's K and V rows are read once and
 // used for rep = H/K query heads, about rep flops per byte.
 //
 // One launch, no scratch. One thread-block cluster per (batch, kv head)
-// splits the keys: the linear form's [lo, pos] (the ring form's S slots) in
-// 64-key tiles (32 at float32) from first_key, per_cta consecutive tiles per
-// block, ``cluster`` blocks (at most 8, the portable cluster size: on the
-// H100 clusters of 12 and 16 blocks cost more than they saved;
-// kernels/decode_attention.py ``decode_split_plan`` sizes the cluster from
-// the number of tiles, so pos 0 runs one block). Tiles come through a ring
+// splits the keys in 64-key tiles (32 at float32). The launch plan
+// (kernels/decode_attention.py ``decode_launch_plan``) gives the most tiles
+// the live keys can span, ``span``: all S slots' tiles for a linear cache
+// without a window and for a ring, ceil(window / tile) + 1 with a window;
+// and ``cluster`` blocks (at most 8, the portable cluster size: on the
+// H100 clusters of 12 and 16 blocks cost more than they saved), as many as
+// an even split of ``span`` tiles needs. On the device the live tiles are
+// those of [lo, pos] (the ring's S slots): from lo's tile to pos's, n of
+// them, per = ceil(n / cluster) consecutive tiles a block
+// (``decode_split_plan`` mirrors this); blocks past the last live tile
+// load nothing and publish an empty partial (m = kNegInf, l = 0, acc = 0).
+// Tiles come through a ring
 // of 16-byte cp.async copies into shared memory, in the cache's dtype, the
 // next tiles' bytes in flight while one is computed; invalid slots are
 // zero-filled, not read. The blocks end holding (m, l, acc) for each head
@@ -46,6 +57,10 @@
 //     (K rows at the same conflict-free stride), then each warp takes
 //     heads h = warp + 4i: the tile's max and sum over its 32 lanes and PV
 //     with each lane owning DPL contiguous head dims; a two-stage ring.
+//
+// An invalid key's p is 0, never exp(kNegInf - kNegInf): a warp or block
+// whose keys are all invalid keeps l = 0 and acc = 0, and the merges weight
+// it by exp(kNegInf - max), 0 beside any block with a valid key.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise and returns cudaGetLastError().
@@ -128,7 +143,31 @@ __host__ __device__ __forceinline__ int row_stride(int hd, int elem) {
   return (hd * elem + 127) / 128 * 128 + 16;
 }
 
-// Cluster (per_cta-tile blocks) per (batch b, kv head g) = blockIdx.y. HPW:
+// This block's tiles [t_begin, t_end) of the live keys: [lo, pos]'s tiles
+// (a ring's span tiles) split evenly over the cluster's csize blocks; the
+// first tile's keys start at 0 (absolute tile indices).
+struct Split {
+  int pos, lo, t_begin, t_end;
+};
+
+template <int TK>
+__device__ __forceinline__ Split block_split(const int* pos_ptr, bool ring, int window, int span,
+                                             int rank, int csize) {
+  Split sp;
+  sp.pos = __ldg(pos_ptr);
+  sp.lo = window > 0 ? max(0, sp.pos - window + 1) : 0;
+  int t0 = 0, n = span;
+  if (!ring) {
+    t0 = sp.lo / TK;
+    n = min(max(sp.pos, 0) / TK - t0 + 1, span);
+  }
+  const int per = (n + csize - 1) / csize;
+  sp.t_begin = t0 + rank * per;
+  sp.t_end = min(t0 + n, sp.t_begin + per);
+  return sp;
+}
+
+// Cluster (blocks of the split above) per (batch b, kv head g) = blockIdx.y. HPW:
 // heads per warp (rep <= 4 * HPW); DPL: head dims per lane (hd <= 32 * DPL).
 // Shared memory: the K/V ring (2 stages of K then V, kTile rows each), then
 // q (rep x hd floats), the scores (rep x kTile), acc (rep x hd) and (m, l)
@@ -136,8 +175,9 @@ __host__ __device__ __forceinline__ int row_stride(int hd, int elem) {
 template <typename T, int HPW, int DPL>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ out, const int* __restrict__ slot_pos, int S, int K, int hd,
-              int rep, int pos, int lo, int first_key, int ntiles, int per_cta, float scale) {
+              T* __restrict__ out, const int* __restrict__ slot_pos,
+              const int* __restrict__ pos_ptr, int S, int K, int hd, int rep, int window,
+              int span, float scale) {
   constexpr int TK = kTile<T>;
   constexpr int NHG = kThreads / TK;                  // head groups in the score pass
   constexpr int HPA = (4 * HPW + NHG - 1) / NHG;      // heads per thread there
@@ -155,7 +195,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int rank = (int)cluster.block_rank(), csize = (int)gridDim.x;  // one cluster spans x
   const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t_begin = rank * per_cta, t_end = min(ntiles, t_begin + per_cta);
+  const Split sp = block_split<TK>(pos_ptr, slot_pos != nullptr, window, span, rank, csize);
+  const int pos = sp.pos, lo = sp.lo, t_begin = sp.t_begin, t_end = sp.t_end;
 
   // whether slot ``s`` holds a key this query attends to
   auto valid = [&](int s) {
@@ -170,7 +211,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int step_j = kThreads / cpr, step_c = kThreads - step_j * cpr;
   const int first_j = tid / cpr, first_c = tid - first_j * cpr;
   auto issue = [&](int t, int stage) {
-    const int k0 = first_key + t * TK;
+    const int k0 = t * TK;
     unsigned char* dst = smem + stage * stage_bytes;
     int which = 0, j = first_j, c = first_c;
     while (j >= TK) {
@@ -226,7 +267,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     __syncthreads();  // tile t (and q) visible to every thread
     const unsigned char* kt = smem + stage * stage_bytes;
     const unsigned char* vt = kt + TK * rstride;
-    const int k0 = first_key + t * TK;
+    const int k0 = t * TK;
 
     {  // scores: thread (key j, head group hg)
       const int j = tid % TK, hg = tid / TK;
@@ -280,7 +321,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
         float ps = 0.0f;
 #pragma unroll
         for (int kk = 0; kk < KPL; ++kk) {
-          const float p = expf(x[kk] - mn);
+          const float p = x[kk] > kNegInf ? expf(x[kk] - mn) : 0.0f;
           ps += p;
           sc[h * TK + lane + 32 * kk] = round_to<T>(p);
         }
@@ -362,8 +403,8 @@ template <int MT, int D, int NS>
 __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                  const int* __restrict__ slot_pos, int S, int K, int hd, int rep, int pos,
-                  int lo, int first_key, int ntiles, int per_cta, float scale_log2) {
+                  const int* __restrict__ slot_pos, const int* __restrict__ pos_ptr, int S,
+                  int K, int hd, int rep, int window, int span, float scale_log2) {
   constexpr int TK = kTile<__nv_bfloat16>;   // 64 keys: 16 a warp
   constexpr int NB = D / 8;                  // n blocks of the PV product at most
   extern __shared__ __align__(16) unsigned char smem[];
@@ -376,7 +417,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const int rank = (int)cluster.block_rank(), csize = (int)gridDim.x;  // one cluster spans x
   const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int t_begin = rank * per_cta, t_end = min(ntiles, t_begin + per_cta);
+  const Split sp = block_split<TK>(pos_ptr, slot_pos != nullptr, window, span, rank, csize);
+  const int pos = sp.pos, lo = sp.lo, t_begin = sp.t_begin, t_end = sp.t_end;
 
   auto valid = [&](int s) {
     if (s >= S) return false;
@@ -392,7 +434,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const __nv_bfloat16* kv = which ? v : k;
   auto issue = [&](int t) {
     if (t < t_end) {
-      const int s = first_key + t * TK + warp * 16 + j;
+      const int s = t * TK + warp * 16 + j;
       const bool ok = valid(s);
       const __nv_bfloat16* src = kv + ((static_cast<long long>(b) * S + (ok ? s : 0)) * K + g) * hd;
       const uint32_t dst = smem_u32(smem + (t - t_begin) % NS * stage_bytes) +
@@ -442,7 +484,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     __syncwarp();  // tile t's rows visible to the warp
     const uint32_t kt = smem_u32(smem + stage * stage_bytes) + warp * 16 * rstride;
     const uint32_t vt = kt + TK * rstride;
-    const int k0 = first_key + t * TK + warp * 16;
+    const int k0 = t * TK + warp * 16;
 
     // S (16 MT rows x this warp's 16 keys) = q K^T
     float sc[MT][2][4];
@@ -501,7 +543,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             float& x = sc[mt][n][2 * h + e];
-            x = exp2f(x - mx);
+            x = ok[n][e] ? exp2f(x - mx) : 0.0f;
             sum += x;
           }
         l[mt][h] = l[mt][h] * corr + sum;
@@ -603,22 +645,22 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 template <int HPW, int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
-               int B, int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
-               int per_cta, int cluster, float scale, cudaStream_t st) {
+               const int* pos, int B, int S, int H, int K, int hd, int window, int span,
+               int cluster, float scale, cudaStream_t st) {
   constexpr int TK = kTile<float>;
   const int rep = H / K;
   const size_t smem = 2 * 2 * (size_t)TK * row_stride(hd, 4) +
                       sizeof(float) * ((size_t)2 * rep * hd + (size_t)rep * TK + 2 * rep);
   return cluster_launch(decode_kernel<float, HPW, DPL>, dim3(cluster, B * K), kThreads, smem,
                         st, static_cast<const float*>(q), static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<float*>(out), slot_pos, S, K,
-                        hd, rep, pos, lo, first_key, ntiles, per_cta, scale);
+                        static_cast<const float*>(v), static_cast<float*>(out), slot_pos, pos, S,
+                        K, hd, rep, window, span, scale);
 }
 
 template <int MT, int D, int NS>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
-                int B, int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
-                int per_cta, int cluster, float scale, cudaStream_t st) {
+                const int* pos, int B, int S, int H, int K, int hd, int window, int span,
+                int cluster, float scale, cudaStream_t st) {
   constexpr int TK = kTile<__nv_bfloat16>;
   const int rep = H / K;
   const size_t rs = row_stride((hd + 15) / 16 * 16, 2);
@@ -628,27 +670,24 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, const in
                         tiles_and_q > merge ? tiles_and_q : merge, st,
                         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                         static_cast<const __nv_bfloat16*>(v),
-                        static_cast<__nv_bfloat16*>(out), slot_pos, S, K, hd, rep, pos, lo,
-                        first_key, ntiles, per_cta, scale * kLog2e);
+                        static_cast<__nv_bfloat16*>(out), slot_pos, pos, S, K, hd, rep, window,
+                        span, scale * kLog2e);
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, const int* slot_pos, int B,
-             int S, int H, int K, int hd, int pos, int lo, int first_key, int ntiles,
-             int per_cta, int cluster, float scale, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
+             const int* pos, int B, int S, int H, int K, int hd, int window, int span,
+             int cluster, float scale, cudaStream_t st) {
   constexpr int TK = kTile<T>;
-  // the plan must cover the keys exactly: [lo, pos] or the ring's S slots
-  const bool plan_ok =
-      slot_pos != nullptr
-          ? first_key == 0 && ntiles == (S + TK - 1) / TK
-          : pos < S && first_key == lo - lo % TK && first_key + (ntiles - 1) * TK <= pos &&
-                pos < first_key + ntiles * TK;
-  if (!plan_ok || per_cta < 1 || cluster < 1 || cluster > kMaxCluster ||
-      (cluster - 1) * per_cta >= ntiles || ntiles > cluster * per_cta)
+  // the plan must span every key a position can attend to: the S slots'
+  // tiles (a ring, or no window), or a window's ceil(window / TK) + 1
+  const int all = (S + TK - 1) / TK;
+  const int want = slot_pos != nullptr || window <= 0 ? all : min(all, (window + TK - 1) / TK + 1);
+  if (span != want || cluster < 1 || cluster > kMaxCluster || cluster > span)
     return (int)cudaErrorInvalidValue;
   const int rep = H / K;
 #define DECODE_ARGS \
-  q, k, v, out, slot_pos, B, S, H, K, hd, pos, lo, first_key, ntiles, per_cta, cluster, scale, st
+  q, k, v, out, slot_pos, pos, B, S, H, K, hd, window, span, cluster, scale, st
   if constexpr (sizeof(T) == 2) {
     const int hdp = (hd + 15) / 16 * 16;
     if (rep <= 16) {
@@ -678,26 +717,26 @@ extern "C" {
 
 // q, out: (B,H,hd); k, v: (B,S,K,hd); all contiguous, k and v 16-byte
 // aligned; dtype 0 = float32 or 1 = bfloat16; H % K == 0 with H / K <= 32;
-// hd a multiple of 8, at most 256. slot_pos: null for a linear cache (then
-// pos < S), else (S,) int32 slot positions of a ring. Valid keys' positions
-// are [lo, pos], 0 <= lo <= pos. The split (first_key, ntiles, per_cta,
-// cluster) is kernels/decode_attention.py ``decode_split_plan``'s, in
-// tiles of 64 keys (bfloat16) or 32 (float32).
+// hd a multiple of 8, at most 256. slot_pos: null for a linear cache, else
+// (S,) int32 slot positions of a ring. pos: one int32 on the device, the
+// query's position (the caller keeps a linear cache's in [0, S)); window 0
+// for none. The plan (span, cluster) is kernels/decode_attention.py
+// ``decode_launch_plan``'s, in tiles of 64 keys (bfloat16) or 32 (float32).
 int decode_attention(const void* q, const void* k, const void* v, void* out, const void* slot_pos,
-                     int B, int S, int H, int K, int hd, int pos, int lo, int first_key,
-                     int ntiles, int per_cta, int cluster, float scale, int dtype, void* stream) {
+                     const void* pos, int B, int S, int H, int K, int hd, int window, int span,
+                     int cluster, float scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0) return (int)cudaGetLastError();
   if (K <= 0 || H % K != 0 || H / K > kMaxGroup || hd <= 0 || hd % 8 != 0 || hd > 256 ||
-      S <= 0 || pos < 0 || lo < 0 || lo > pos)
+      S <= 0 || window < 0 || pos == nullptr)
     return (int)cudaErrorInvalidValue;
   const int* sp = static_cast<const int*>(slot_pos);
+  const int* pp = static_cast<const int*>(pos);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, sp, B, S, H, K, hd, pos, lo, first_key, ntiles, per_cta,
-                           cluster, scale, st);
+    return dispatch<float>(q, k, v, out, sp, pp, B, S, H, K, hd, window, span, cluster, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, sp, B, S, H, K, hd, pos, lo, first_key, ntiles,
-                                   per_cta, cluster, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, out, sp, pp, B, S, H, K, hd, window, span, cluster,
+                                   scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

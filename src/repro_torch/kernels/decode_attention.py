@@ -9,8 +9,11 @@ sliding-window decode cache): slot ``s`` holds position ``slot_pos[s]``
 (-1: empty) and is valid under the same rule. Float32 softmax, out in q's
 dtype. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (one cluster launch) or raises. Any capacity S: the TPU kernel's
-``S % 512`` does not apply. ``decode_split_plan`` is the kernel's launch
-plan. ``LAUNCHES`` counts kernel launches.
+``S % 512`` does not apply. The kernel reads ``pos`` from the device, as
+the TPU kernel reads its scalar-prefetch ``pos``: ``decode_launch_plan``,
+its launch, depends on shapes alone, and ``decode_split_plan`` mirrors the
+split of the keys that each launch computes from ``pos``. ``LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -34,10 +37,31 @@ def reset_launches() -> None:
     LAUNCHES["decode_attention"] = 0
 
 
+class DecodeLaunch(NamedTuple):
+    """The launch: ``span`` tiles, the most that the keys one position
+    attends to can span, over ``cluster`` blocks a (batch, kv head)."""
+    span: int
+    cluster: int
+
+
+def decode_launch_plan(S: int, window: int | None = None, ring: bool = False,
+                       tile: int = 64) -> DecodeLaunch:
+    """B5's launch, from shapes alone, so that one launch (captured in a CUDA
+    graph) serves every position: a linear cache without a window and a
+    ring span all S slots' tiles, a window of W at most ceil(W / tile) + 1
+    tiles; as many blocks as an even split of ``span`` tiles over at most
+    ``MAX_CLUSTER`` needs."""
+    tiles = -(-S // tile)
+    span = tiles if ring or window is None else min(tiles, -(-window // tile) + 1)
+    per = -(-span // MAX_CLUSTER)
+    return DecodeLaunch(span, -(-span // per))
+
+
 class DecodePlan(NamedTuple):
-    """The keys' split: tiles of ``tile`` keys from ``first_key``, ``tiles``
-    of them, ``per_block`` consecutive tiles for each of the ``cluster``
-    blocks of one (batch, kv head). Valid positions start at ``lo``."""
+    """The keys' split at one position: tiles of ``tile`` keys from
+    ``first_key``, ``tiles`` of them, ``per_block`` consecutive tiles for
+    each of the first ``cluster`` blocks of one (batch, kv head); the
+    launch's other blocks load nothing. Valid positions start at ``lo``."""
     lo: int
     first_key: int
     tiles: int
@@ -47,28 +71,33 @@ class DecodePlan(NamedTuple):
 
 def decode_split_plan(S: int, pos: int, window: int | None = None, ring: bool = False,
                       tile: int = 64) -> DecodePlan:
-    """A linear cache's tiles cover [lo, pos] (the first one from lo rounded
-    down to a tile), a ring's all S slots; they go to at most
-    ``MAX_CLUSTER`` blocks, as many as their even split needs."""
+    """What each block of ``decode_launch_plan``'s launch computes on the
+    device from ``pos`` (``block_split`` in ``csrc/decode_attention.cu``):
+    a linear cache's tiles cover [lo, pos] (the first one from lo rounded
+    down to a tile), a ring's all S slots; the launch's blocks take
+    ceil(tiles / cluster) each."""
+    launch = decode_launch_plan(S, window, ring, tile)
     lo = max(0, pos - window + 1) if window is not None else 0
-    first, end = (0, S) if ring else (lo - lo % tile, pos + 1)
-    tiles = -(-(end - first) // tile)
-    per = -(-tiles // MAX_CLUSTER)
-    return DecodePlan(lo, first, tiles, per, -(-tiles // per))
+    first = 0 if ring else lo // tile
+    tiles = launch.span if ring else min(pos // tile - first + 1, launch.span)
+    per = -(-tiles // launch.cluster)
+    return DecodePlan(lo, first * tile, tiles, per, -(-tiles // per))
 
 
-def ring_valid(slot_pos, pos: int, window: int | None):
-    """A ring's (S,) bool mask of the slots ``pos`` attends to."""
+def ring_valid(slot_pos, pos, window: int | None):
+    """A ring's (S,) bool mask of the slots ``pos`` (an int or a
+    one-element tensor) attends to."""
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window is not None:
         valid = valid & (slot_pos > pos - window)
     return valid
 
 
-def decode_attention_plain(q, k, v, pos: int, *, window: int | None = None, valid=None):
-    """Mirrors ``repro/kernels/ref.py::ref_decode_attention``. ``valid``, an
-    (S,) bool mask, replaces the mask of ``pos`` and ``window`` (a ring
-    cache's slots are not in position order)."""
+def decode_attention_plain(q, k, v, pos, *, window: int | None = None, valid=None):
+    """Mirrors ``repro/kernels/ref.py::ref_decode_attention``; ``pos`` an int
+    or a one-element tensor. ``valid``, an (S,) bool mask, replaces the mask
+    of ``pos`` and ``window`` (a ring cache's slots are not in position
+    order)."""
     if valid is None:
         kpos = torch.arange(k.shape[1], device=q.device)
         valid = kpos <= pos
@@ -77,12 +106,13 @@ def decode_attention_plain(q, k, v, pos: int, *, window: int | None = None, vali
     return grouped_attention_plain(q[:, None], k, v, valid)[:, 0]
 
 
-def decode_attention(q, k, v, pos: int, *, window: int | None = None, slot_pos=None):
-    """q (B,H,hd); k, v (B,S,K,hd); ``pos`` a Python int, in [0, S) for a
-    linear cache; ``slot_pos`` None (a linear cache) or a ring's (S,) int32
-    slot positions -> (B,H,hd). The kernel takes contiguous float32 or
-    bfloat16, hd a multiple of 8 up to ``MAX_HEAD_DIM`` and H/K up to
-    ``MAX_GROUP``."""
+def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None):
+    """q (B,H,hd); k, v (B,S,K,hd); ``pos`` a one-element int32 tensor on
+    q's device (the kernel reads it there: one launch serves every
+    position) or a Python int, in [0, S) for a linear cache (staged to the
+    device); ``slot_pos`` None (a linear cache) or a ring's (S,) int32 slot
+    positions -> (B,H,hd). The kernel takes contiguous float32 or bfloat16,
+    hd a multiple of 8 up to ``MAX_HEAD_DIM`` and H/K up to ``MAX_GROUP``."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[3] != q.shape[2] or q.shape[1] % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
@@ -95,8 +125,11 @@ def decode_attention(q, k, v, pos: int, *, window: int | None = None, slot_pos=N
                                  or slot_pos.dtype != torch.int32):
         raise ValueError(f"slot_pos {tuple(slot_pos.shape)} {slot_pos.dtype}: need "
                          f"({k.shape[1]},) int32")
-    ring = () if slot_pos is None else (slot_pos,)
-    if not build.on_cuda(q, k, v, *ring):
+    on_device = torch.is_tensor(pos)
+    if on_device and (pos.numel() != 1 or pos.dtype != torch.int32):
+        raise ValueError(f"pos {tuple(pos.shape)} {pos.dtype}: need one int32")
+    extra = tuple(t for t in (slot_pos, pos if on_device else None) if t is not None)
+    if not build.on_cuda(q, k, v, *extra):
         if slot_pos is None:
             return decode_attention_plain(q, k, v, pos, window=window)
         return decode_attention_plain(q, k, v, pos, valid=ring_valid(slot_pos, pos, window))
@@ -104,22 +137,24 @@ def decode_attention(q, k, v, pos: int, *, window: int | None = None, slot_pos=N
     build.check_aligned(k, v)
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
-    pos = int(pos)
-    if pos < 0 or (slot_pos is None and pos >= S):
-        raise ValueError(f"pos {pos} outside the cache's {S} slots")
     if hd % 8 or hd > MAX_HEAD_DIM or H // K > MAX_GROUP:
         raise ValueError(f"kernel takes hd a multiple of 8 up to {MAX_HEAD_DIM} and H/K up "
                          f"to {MAX_GROUP}, got hd {hd}, H/K {H // K}")
     if slot_pos is not None and not slot_pos.is_contiguous():
         raise ValueError("kernel takes a contiguous slot_pos")
-    plan = decode_split_plan(S, pos, window, slot_pos is not None, TILE[q.dtype])
+    if not on_device:
+        pos = int(pos)
+        if pos < 0 or (slot_pos is None and pos >= S):
+            raise ValueError(f"pos {pos} outside the cache's {S} slots")
+        pos = torch.full((1,), pos, dtype=torch.int32, device=q.device)
+    plan = decode_launch_plan(S, window, slot_pos is not None, TILE[q.dtype])
     out = torch.empty_like(q)
     lib = build.load()
     code = lib.decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 None if slot_pos is None else slot_pos.data_ptr(),
-                                B, S, H, K, hd, pos, plan.lo, plan.first_key, plan.tiles,
-                                plan.per_block, plan.cluster, 1.0 / math.sqrt(hd),
-                                build.DTYPES[q.dtype], build.stream(q))
+                                pos.data_ptr(), B, S, H, K, hd, window or 0, plan.span,
+                                plan.cluster, 1.0 / math.sqrt(hd), build.DTYPES[q.dtype],
+                                build.stream(q))
     build.check(lib, "decode_attention", code)
     LAUNCHES["decode_attention"] += 1
     return out

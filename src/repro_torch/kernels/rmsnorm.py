@@ -6,7 +6,8 @@ Per row of the last axis, ``x * rsqrt(mean(x^2) + eps) * scale`` in float32,
 returned in x's dtype. A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. At the decoders' shapes a launch is bound by
 latency, not bytes; ``rmsnorm_plan`` is its launch plan and the source note
-in ``rmsnorm.cu`` says why. ``LAUNCHES`` counts kernel launches.
+in ``rmsnorm.cu`` says why. ``LAUNCHES`` counts kernel launches, and
+``LAUNCH_SHAPES`` the same launches by (rows, D).
 
 Under autograd (grad enabled and x or scale requiring grad) a CUDA call
 runs the same kernel inside ``RmsNormFn``, whose backward is the closed
@@ -24,6 +25,7 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = {"rmsnorm": 0}
+LAUNCH_SHAPES: dict = {}     # (rows, D) -> launches
 MAX_DIM = 8192
 MAX_VECS = 4           # 16-byte vectors of x a thread holds (the register cap)
 MAX_BLOCK = 256        # threads a block of sub-warp rows
@@ -66,6 +68,7 @@ def rmsnorm_plan(rows: int, dim: int, dtype: torch.dtype) -> RmsPlan:
 
 def reset_launches() -> None:
     LAUNCHES["rmsnorm"] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def rmsnorm_plain(x, scale, eps: float = 1e-6):
@@ -138,4 +141,5 @@ def _launch(x, scale, eps: float):
                        plan.vecs, plan.rows_per_block, build.stream(x))
     build.check(lib, "rmsnorm", code)
     LAUNCHES["rmsnorm"] += 1
+    LAUNCH_SHAPES[rows, D] = LAUNCH_SHAPES.get((rows, D), 0) + 1
     return out

@@ -8,7 +8,8 @@ caches. Counterpart of ``repro.models.attention``.
                          version (the same math as ``attn_forward``) on the
                          CPU;
 * ``attn_decode``        one token vs a linear cache, written in place, then
-                         the flash-decode kernel (CUDA) or its plain version;
+                         the flash-decode kernel (CUDA) or its plain version,
+                         at a position on the device (``decode_pos``);
 * ``attn_decode_ring``   one token vs a ring buffer of ``window`` slots,
                          written in place, then the flash-decode kernel's
                          ring form (CUDA) or its plain version;
@@ -25,6 +26,7 @@ computes once per forward. Grouped-head products never replicate KV.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -102,28 +104,54 @@ def attn_forward_auto(p, cfg, x, rope, *, causal=True, window=None):
     return _out_proj(p, ctx), {"k": k, "v": v}
 
 
-def attn_decode(p, cfg, x, cache, pos: int, rope, *, window=None):
-    """One token at ``pos`` vs a linear cache {k, v} (B,S,K,hd). Writes the
-    new K/V at ``pos`` in place (the reference updates functionally), then
-    attends to keys ``<= pos`` (and inside ``window``). x (B,1,D) ->
-    (out (B,1,D), cache)."""
+class DecodePos(NamedTuple):
+    """A decode step's position on the device: ``pos`` (1,) int32, which
+    the flash-decode kernel reads, and ``index`` (1,) int64, where the
+    caches are written. Nothing reads it on the host, so a step that takes
+    one can be captured once in a CUDA graph and replayed at every
+    position."""
+    pos: torch.Tensor
+    index: torch.Tensor
+
+
+def decode_pos(pos, device) -> DecodePos:
+    """``pos`` (a Python int, a 0-d or one-element int32 tensor, or a
+    ``DecodePos``) as a ``DecodePos`` on ``device``; an int is filled in on
+    the device (no host-to-device copy)."""
+    if isinstance(pos, DecodePos):
+        return pos
+    if torch.is_tensor(pos):
+        pos = pos.reshape(1).to(torch.int32)
+    else:
+        pos = torch.full((1,), int(pos), dtype=torch.int32, device=device)
+    return DecodePos(pos, pos.long())
+
+
+def attn_decode(p, cfg, x, cache, pos, rope, *, window=None):
+    """One token at ``pos`` (see ``decode_pos``) vs a linear cache {k, v}
+    (B,S,K,hd). Writes the new K/V at ``pos`` in place by a device index
+    (the reference updates functionally), then attends to keys ``<= pos``
+    (and inside ``window``). x (B,1,D) -> (out (B,1,D), cache)."""
+    dp = decode_pos(pos, x.device)
     q, k_new, v_new = _qkv(p, cfg, x, rope)
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
-    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], pos, window=window)
+    cache["k"].index_copy_(1, dp.index, k_new)
+    cache["v"].index_copy_(1, dp.index, v_new)
+    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], dp.pos, window=window)
     return _out_proj(p, ctx[:, None]), cache
 
 
-def attn_decode_ring(p, cfg, x, cache, pos: int, rope, *, window: int):
+def attn_decode_ring(p, cfg, x, cache, pos, rope, *, window: int):
     """One token vs a ring buffer {k, v (B,W,K,hd), slot_pos (W,) int32
-    absolute positions, -1 = empty}, updated in place at slot pos % W."""
+    absolute positions, -1 = empty}, updated in place at slot pos % W,
+    computed on the device."""
+    dp = decode_pos(pos, x.device)
     W = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, cfg, x, rope)
-    slot = pos % W
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
-    cache["slot_pos"][slot] = pos
-    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], pos, window=window,
+    slot = dp.index % W
+    cache["k"].index_copy_(1, slot, k_new)
+    cache["v"].index_copy_(1, slot, v_new)
+    cache["slot_pos"].index_copy_(0, slot, dp.pos)
+    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], dp.pos, window=window,
                               slot_pos=cache["slot_pos"])
     return _out_proj(p, ctx[:, None]), cache
 

@@ -135,7 +135,7 @@ def block_forward(p, cfg, x, rope, *, window):
     return x, cache
 
 
-def block_decode(p, cfg, x, cache, pos: int, rope, *, window):
+def block_decode(p, cfg, x, cache, pos, rope, *, window):
     """One-token step; updates ``cache`` in place. -> (y, cache)."""
     h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
     if "slot_pos" in cache:
@@ -234,11 +234,14 @@ class Transformer(nn.Module):
             caches.append(cache)
         return x, (caches if want_caches else None)
 
-    def decode_step(self, token_embeds, caches, pos: int, *, long_ctx: bool = False):
+    def decode_step(self, token_embeds, caches, pos, *, long_ctx: bool = False):
         """One token at ``pos`` for the whole stack; the caches are updated in
-        place. -> (hidden (B,1,D), caches)."""
+        place. ``pos`` a 0-d or one-element int32 tensor on the device (the
+        step then reads no value on the host and can be captured in a CUDA
+        graph) or a Python int. -> (hidden (B,1,D), caches)."""
         x = token_embeds
-        rope = self._rope(torch.full((1, 1), pos, device=x.device))
+        pos = A.decode_pos(pos, x.device)
+        rope = self._rope(pos.pos.view(1, 1))
         for kind, layer, cache in zip(self.cfg.blocks, self.layers, caches):
             x, _ = block_decode(layer, self.cfg, x, cache, pos, rope,
                                 window=self._window(kind, long_ctx))

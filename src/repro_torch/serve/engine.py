@@ -17,7 +17,12 @@ Two step modes:
   position and phase: FULL entries give a cond and an uncond row, COND
   entries one, the rest is phase-0 padding. The attention goes to the
   ragged paged kernels (B7 bf16, B8 int8). Its shape never changes, so it
-  is counted as one compile per model, under the key ``("rstep", R)``.
+  is counted as one compile per model, under the key ``("rstep", R)``. On
+  a GPU it is a CUDA graph (``graphs``, on by default there), the
+  counterpart of the reference's jitted step: captured at that compile
+  (the forward over the pools, the combine, argmax and the divergence),
+  then each tick copies its staged rows into fixed device buffers and
+  replays it once; rows at temperature > 0 are drawn after the replay.
 * ``"signature"`` runs the FULL and COND groups of the tick, each padded to
   a power of two, through the per-row-position kernels (B9, B10); one
   compile is counted per ``("pstep", n_full, n_cond)`` bucket.
@@ -49,6 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import graphs as G
 from repro_torch.core.guidance import apg_combine, cfg_combine_rowscale
 from repro_torch.core.policy import (GUIDANCE_POLICIES, DivergenceGuidancePolicy,
                                      DynamicPlanCursor, GuidancePolicy, make_policy)
@@ -160,7 +166,8 @@ class ContinuousEngine:
                  apg_threshold: float = 0.0,
                  interval: tuple[float, float] = (0.0, 1.0),
                  mesh=None,
-                 tick_mode: str = "sync"):
+                 tick_mode: str = "sync",
+                 graphs: bool | None = None):
         # the reference's validation, in its order
         if kv not in KV_MODES:
             raise ValueError(f"kv {kv!r} not in {KV_MODES}")
@@ -227,6 +234,12 @@ class ContinuousEngine:
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True needs a model on a CUDA device")
+        # the ragged step as a CUDA graph (a port option: None = on a GPU);
+        # signature steps run eagerly
+        self.graphs = step_mode == "ragged" and (
+            self.device.type == "cuda" if graphs is None else bool(graphs))
         self.num_slots = num_slots
         self.prompt_len = prompt_len           # engine-wide maximum
         self.max_new = max_new
@@ -273,6 +286,7 @@ class ContinuousEngine:
         self._shapes: set = set()              # step shapes used, by the reference's jit keys
         self._pool_p = None                    # one paged pool per layer
         self._staging = None                   # the ragged step's host and device rows
+        self._ragged_graph = None              # the captured ragged step (graphs)
 
     # -- public API --------------------------------------------------------
 
@@ -447,11 +461,17 @@ class ContinuousEngine:
     def _sample(self, logits, uids, temps, keys, steps):
         """Next tokens (n,) on the device from logits (n, V) float32. Rows
         ``i < len(uids)`` are requests, the rest padding. Greedy at
-        temperature 0; above, a draw from a generator seeded by the
-        request's key and ``steps[i]``, as the reference folds its key
-        with the step."""
-        nxt = logits.argmax(dim=-1)
-        for i in np.flatnonzero(np.asarray(temps[:len(uids)]) > 0):
+        temperature 0; above, a draw (``_draw``)."""
+        return self._draw(logits.argmax(dim=-1), logits, uids, temps, keys, steps)
+
+    def _draw(self, nxt, logits, uids, temps, keys, steps):
+        """``nxt`` (the argmax of each row of ``logits``) with the rows at
+        temperature > 0 drawn from a generator seeded by the request's key
+        and ``steps[i]``, as the reference folds its key with the step."""
+        rows = np.flatnonzero(np.asarray(temps[:len(uids)]) > 0)
+        if len(rows):
+            nxt = nxt.clone()
+        for i in rows:
             gen = torch.Generator(device=logits.device)
             gen.manual_seed((int(keys[i]) << 24) + int(steps[i]))
             probs = torch.softmax(logits[i] / float(temps[i]), dim=-1)
@@ -648,21 +668,38 @@ class ContinuousEngine:
 
     def _ragged_step(self, st: dict, uids: list):
         """One fixed-shape decode step for the whole tick's flat pass list
-        (B7/B8). ``u_idx[r]`` names the row carrying row r's unconditional
-        logits: the uncond pair row for FULL output rows, r itself
-        everywhere else, where the combine returns c exactly."""
+        (B7/B8): the graph's replay, or, at the step's first use (the
+        reference's compile), its capture; eager without ``graphs``."""
         self._seen(("rstep", self.ragged_rows), step=True)
-        model, dev, host = self.model, st["dev"], st["host"]
+        host = st["host"]
+        if not self.graphs:
+            nxt, div, combined = self._ragged_forward(st["dev"])
+            return self._sample(combined, uids, host["temp"], host["rkey"],
+                                1 + host["lstep"]), div
+        if self._ragged_graph is None:
+            self._ragged_graph, (nxt, div, combined) = G.capture(
+                lambda: self._ragged_forward(st["dev"], argmax=True), G.pool())
+        else:
+            nxt, div, combined = self._ragged_graph.replay()
+        return self._draw(nxt, combined, uids, host["temp"], host["rkey"],
+                          1 + host["lstep"]), div
+
+    def _ragged_forward(self, dev: dict, argmax: bool = False):
+        """The ragged step on the device rows ``dev``. ``u_idx[r]`` names the
+        row carrying row r's unconditional logits: the uncond pair row for
+        FULL output rows, r itself everywhere else, where the combine
+        returns c exactly. -> (argmax of each combined row, or None; per-row
+        divergence; the combined logits (R, V) float32)."""
+        model = self.model
         emb = model.embed_tokens(dev["tok"].long()[:, None])
         h, _ = model.decode_step_paged(emb, self._pool_p, dev["bt"], dev["pos"],
                                        phase=dev["phase"])
         logits = model.unembed(h)[:, 0, :].float()
         u_idx = dev["u_idx"].long()
         combined = self._combine(logits[u_idx], logits, dev["scale"])
-        nxt = self._sample(combined, uids, host["temp"], host["rkey"], 1 + host["lstep"])
         # per-output-row divergence; self-paired rows read exactly 0
         div = torch.sqrt(((logits - logits[u_idx]) ** 2).sum(-1))
-        return nxt, div
+        return (combined.argmax(dim=-1) if argmax else None), div, combined
 
     # -- execution ---------------------------------------------------------
 
@@ -710,7 +747,9 @@ class ContinuousEngine:
 
     def _ragged_staging(self) -> dict:
         """The ragged step's rows: one int32 and one float32 host buffer
-        (pinned on a GPU), named views into them, and the sampling keys."""
+        (pinned on a GPU), named views into them, the sampling keys, and
+        the fixed device buffers that each tick's rows are copied into (the
+        captured step reads them there)."""
         if self._staging is None:
             R, nb = self.ragged_rows, self.nb_max
             pin = self.device.type == "cuda"
@@ -718,7 +757,10 @@ class ContinuousEngine:
             fbuf = torch.zeros(2 * R, dtype=torch.float32, pin_memory=pin)
             host = _ragged_views(ibuf.numpy(), fbuf.numpy(), R, nb)
             host["rkey"] = np.zeros(R, np.uint32)
-            self._staging = {"ibuf": ibuf, "fbuf": fbuf, "host": host, "dev": None}
+            dev_i = torch.zeros(ibuf.shape, dtype=torch.int32, device=self.device)
+            dev_f = torch.zeros(fbuf.shape, dtype=torch.float32, device=self.device)
+            self._staging = {"ibuf": ibuf, "fbuf": fbuf, "host": host, "dev_ibuf": dev_i,
+                             "dev_fbuf": dev_f, "dev": _ragged_views(dev_i, dev_f, R, nb)}
         return self._staging
 
     def _dispatch_ragged(self, plan: TickPlan) -> tuple:
@@ -727,7 +769,8 @@ class ContinuousEngine:
         every entry's cond pass in ``plan.full + plan.cond`` order; rows
         [in_flight, in_flight + n_full) the FULL entries' uncond passes;
         the rest padding (phase 0, out-of-range tables). The rows go to the
-        device in two copies; nothing here waits for the device.
+        fixed device buffers in two copies; nothing here waits for the
+        device.
         -> (next tokens, divergences, n_out), device tensors unforced."""
         R = self.ragged_rows
         rows = plan.pass_rows()
@@ -751,9 +794,8 @@ class ContinuousEngine:
             h["lstep"][r] = self._slots.lstep[slot]
             h["phase"][r] = 1
         h["u_idx"][:plan.n_full] = n_out + np.arange(plan.n_full)
-        st["dev"] = _ragged_views(st["ibuf"].to(self.device, non_blocking=True),
-                                  st["fbuf"].to(self.device, non_blocking=True),
-                                  R, self.nb_max)
+        st["dev_ibuf"].copy_(st["ibuf"], non_blocking=True)
+        st["dev_fbuf"].copy_(st["fbuf"], non_blocking=True)
         uids = [pr.entry.uid for pr in rows[:n_out]]
         nxt, div = self._ragged_step(st, uids)
         return nxt, div, n_out
