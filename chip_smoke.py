@@ -117,7 +117,33 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    ``launch/train.py``'s step with and without remat; ms a step, peak
    memory, a finite loss, and B4's and B6's exact launches a step
    (``[tmain]``); then one step of each under ``torch.profiler``, with the
-   shares of B4's and B6's kernels and backwards (``[tprofile]``).
+   shares of B4's and B6's kernels and backwards (``[tprofile]``);
+18. B5's per-row form, the slot arena's step (a position and a cache row
+   a query row), against its plain version at the slot shape (8 rows of a 9-row pool of capacity
+   640, positions over [512, 639], in order and permuted with a padding
+   row on the spare, bf16 and float32, window None/256), timed beside its
+   bound, its plain version and SDPA with a per-row mask (``[slotkern]``);
+19. slot and lazy parity: the slot arena and lazy reservation (ragged bf16
+   and int8, signature bf16; a pool the simulator sizes to preempt and
+   copy on write) on llama3.2-1b at full width, 2 layers, CPU against GPU:
+   events equal, tokens margin-guarded, B5's per-row launches and the
+   paged kernels' exact, the lazy counters and events equal the port
+   simulator's (``[slotparity]``);
+20. the slot arena (the engine's default) at full width and depth: phase
+   13's 16 requests padded to prompts of 512, 128 new tokens, 8 slots, f =
+   0.2, the signature step eager: wall, tokens/s, ticks, B5's per-row and
+   B4's launches exact (``[slotmain]``);
+21. lazy reservation at full width and depth: 16 requests from the port's
+   ``poisson_arrivals`` (rate 1.0), prompts of 120/248/376/504 (each 8 short
+   of phase 13's, so that a shared prefix ends inside a page of 16, where
+   copy-on-write can happen), priorities 0/2/1, the pool sized by the port
+   simulator on the CPU (the largest with two preemptions and a
+   copy-on-write), bf16 and int8 with the ragged step graphed: counters and
+   events equal the simulator's, TTFT/TPOT p50/p99 (``[lazymain]``);
+22. ``ServingEngine``: one ``generate`` of 8 requests at full depth, its
+   pass count exact (``[facade]``).
+
+Phases 18-22 run after phase 13, on its model.
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -1961,13 +1987,15 @@ def phase_serve_main():
     return model, totals, rows
 
 
-def _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs=None, cls=None):
-    """The serve main path's engine (phase 13's configuration)."""
+def _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs=None, cls=None, lazy_pages=None):
+    """The serve main path's engine (phase 13's configuration); with
+    ``lazy_pages``, lazy reservation on a pool of that many pages."""
     from repro_torch.serve import ContinuousEngine
+    lazy = {} if lazy_pages is None else dict(reservation="lazy", num_pages=lazy_pages)
     return (cls or ContinuousEngine)(
         model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8, pass_budget=16,
         prompt_len=512, max_new=SERVE_NEW, stop_on_eos=False, prefills_per_tick=2, seed=0,
-        selective_fraction=f, step_mode=step_mode, kv_dtype=kv_dtype, graphs=graphs)
+        selective_fraction=f, step_mode=step_mode, kv_dtype=kv_dtype, graphs=graphs, **lazy)
 
 
 def phase_serve_graphs(model) -> None:
@@ -2077,8 +2105,352 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
                 f"launches a tick, {t_ / max(k, 1) / 1e3:.2f} us each (profiled)")
 
 
-# -- training ----------------------------------------------------------------------
+# -- the slot arena, lazy reservation and the facade (phases 18-22) -------------------
 
+SLOT_S, SLOT_NEW = 512, 128                                  # the slot main path
+LAZY_LENS = tuple(n - 8 for n in SERVE_LENS)                 # ends the prefix mid-page
+LAZY_PRIOS, LAZY_RATE, LAZY_SEED = (0, 2, 1), 1.0, 0
+
+
+def phase_slot_kernel() -> dict:
+    """B5's per-row form (the slot arena's step: a position and a cache row
+    a query row) against its plain version at the slot main path's shape:
+    8 query rows on a pool of 9 rows (8 slots and the spare) of capacity
+    640, positions spread over [512, 639], H 32, K 8, hd 64, bf16 and
+    float32, without and with a window of 256, the rows in order and
+    permuted with a padding row on the spare; timed (bf16, rows 0-7) beside
+    its bound, its plain version and SDPA with a per-row boolean mask. ->
+    {"decode_attention_rows": row}"""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as KD
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, N, cap, H, K, hd = 8, 9, SLOT_S + SLOT_NEW, 32, 8, 64
+    pos = torch.linspace(SLOT_S, cap - 1, B, device=dev).round().to(torch.int32)
+    in_order = torch.arange(B, dtype=torch.int32, device=dev)
+    permuted = torch.tensor([5, 0, 7, 2, 8, 3, 1, 6], dtype=torch.int32, device=dev)
+    err, worst = 0.0, {}
+    for dtype in (bf16, f32):
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(N, cap, K, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(N, cap, K, hd, generator=gen, device=dev).to(dtype)
+        for rows in (in_order, permuted):
+            for window in (None, 256):
+                reset_launches()
+                out = KD.decode_attention(q, k, v, pos, window=window, rows=rows)
+                r = rows.long()
+                ref = KD.decode_attention_plain(q, k[r], v[r], pos, window=window)
+                tag = (f"B={B} rows of {N} capacity={cap} pos {pos.tolist()} rows "
+                       f"{rows.tolist()} window={window} {str(dtype)[6:]}")
+                e = _err_ok("decode_attention_rows", tag, out, ref,
+                            per_row=ATTN_BF16_STEPS * BF16_STEP if dtype == bf16 else 1e-5)
+                if KD.LAUNCH_FORMS != {"rows": 1}:
+                    fail(f"decode_attention_rows {tag}: launches {KD.LAUNCH_FORMS}")
+                err = max(err, e[0])
+                worst[dtype] = max(worst.get(dtype, 0.0), e[1])
+        # one position for the batch, written as one a row, is the batch form
+        one = KD.decode_attention(q[:4], k[:4], v[:4], pos[:1])
+        same = KD.decode_attention(q[:4], k[:4], v[:4], pos[:1].repeat(4))
+        torch.cuda.synchronize()
+        if not torch.equal(one, same):
+            fail(f"decode_attention_rows {str(dtype)[6:]}: a repeated position differs from "
+                 "the batch form")
+    log(f"[slotkern] decode_attention_rows: largest error over its row's max|out| "
+        f"bf16 {worst[bf16]:.3g} ({worst[bf16] / BF16_STEP:.2f} bf16 steps), f32 "
+        f"{worst[f32]:.3g}; a repeated position bit-equal to the batch form")
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf16)
+    k = torch.randn(N, cap, K, hd, generator=gen, device=dev).to(bf16)
+    v = torch.randn(N, cap, K, hd, generator=gen, device=dev).to(bf16)
+    kt, vt = k[:B].transpose(1, 2).contiguous(), v[:B].transpose(1, 2).contiguous()
+    mask = (torch.arange(cap, device=dev)[None] <= pos[:, None])[:, None, None, :]
+    r = in_order.long()
+    (ms, host_ms), (plain_ms, _) = (
+        time_ms(lambda: KD.decode_attention(q, k, v, pos, rows=in_order)),
+        time_ms(lambda: KD.decode_attention_plain(q, k[r], v[r], pos)))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True))[0]
+    keys = int((pos.long() + 1).sum())
+    nbytes = 2 * (2 * B * H * hd + 2 * keys * K * hd) + 8 * B
+    b_ms, b_by = bound_ms(nbytes, 4 * H * hd * keys, H100_BF16_FLOPS)
+    log(f"[slotkern] decode_attention_rows B={B} rows 0-7 of {N}, capacity={cap}, pos "
+        f"{pos.tolist()}, H={H} K={K} hd={hd} bf16: device time kernel {ms * 1e3:.2f} us "
+        f"(host {host_ms * 1e3:.2f} us/call), plain {plain_ms * 1e3:.2f} us, SDPA with a "
+        f"per-row mask {lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}: {nbytes} B)")
+    return {"decode_attention_rows": dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)}
+
+
+def _lazy_trace(cfg, lens, n: int, new: int, arrivals, seed: int):
+    """-> (engine requests, simulator requests) of one lazy trace: prompts
+    cycling through ``lens``, priorities through ``LAZY_PRIOS``, the plan
+    of ``_serve_engine``'s f = 0.2 (``selective_fraction`` 0.2)."""
+    import dataclasses
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.serve import SimRequest
+
+    reqs = [dataclasses.replace(r, priority=LAZY_PRIOS[i % len(LAZY_PRIOS)])
+            for i, r in enumerate(_serve_requests(cfg, n, lens, new, seed))]
+    plan = GuidancePlan.suffix(new, 0.2, SERVE_SCALE)
+    sims = [SimRequest(r.uid, int(a), plan, prompt_len=r.prompt_len, priority=r.priority)
+            for r, a in zip(reqs, arrivals)]
+    return reqs, sims
+
+
+def _lazy_pool(sims, hi: int, preempts: int, step: int = 1, **kw):
+    """The largest pool, from ``hi`` pages down by ``step``, in which the
+    port's simulator serves ``sims`` to the end with at least ``preempts``
+    preemptions and one copy-on-write. -> (pages, the simulator's metrics)"""
+    from repro_torch.serve import simulate
+    for n in range(hi, 0, -step):
+        m = simulate(sims, num_pages=n, reservation="lazy", kv="paged", **kw).metrics
+        if m.preemptions >= preempts and m.cow_copies and m.completed == len(sims):
+            return n, m
+    fail(f"no pool of at most {hi} pages preempts {preempts} times and copies on write")
+
+
+LAZY_COUNTERS = ("pages_grown", "preemptions", "resumes", "shared_page_hits", "cow_copies",
+                 "pages_reclaimed", "peak_pages_in_use", "completed", "denoiser_passes",
+                 "prefill_passes", "tokens_emitted", "ticks")
+
+
+def _engine_equals_sim(tag, em, sm) -> None:
+    if em.trace.keys() != sm.trace.keys():
+        fail(f"{tag}: the engine's events differ from the simulator's")
+    diff = {k: (getattr(em, k), getattr(sm, k)) for k in LAZY_COUNTERS
+            if getattr(em, k) != getattr(sm, k)}
+    if diff:
+        fail(f"{tag}: engine != simulator counters {diff}")
+
+
+def phase_slot_parity():
+    """The slot arena and lazy reservation at full width, 2 layers, CPU
+    (plain versions) against GPU (kernels): events equal, tokens equal up to
+    the first step the logits do not decide, B5's per-row launches and the
+    paged kernels' exact; the lazy runs' counters equal the simulator's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import simulate
+
+    cfg = dataclasses.replace(CONFIG, num_layers=2)
+    cpu = Transformer.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                           device="cpu")
+    gpu = Transformer.from_state_dict(cfg, {k: t.cuda() for k, t in cpu.state_dict().items()})
+    Recording = _recording_engine()
+    lens, new, arrivals = (24, 40, 17, 33), 12, [0, 0, 1, 1, 2, 3]
+    base = dict(num_slots=4, pass_budget=6, prompt_len=48, max_new=new, stop_on_eos=False,
+                prefills_per_tick=2, seed=0, selective_fraction=0.2)
+    _, sims = _lazy_trace(cfg, lens, len(arrivals), new, arrivals, 7)
+    pages, _ = _lazy_pool(sims, 2 * 4 * 4, 1, num_slots=4, pass_budget=6, page_size=16,
+                          prefills_per_tick=2)
+    cases = [("slot", "signature", "bf16"), ("lazy", "ragged", "bf16"),
+             ("lazy", "ragged", "int8"), ("lazy", "signature", "bf16")]
+    for arena, step_mode, kv_dtype in cases:
+        if arena == "slot":
+            kw = dict(base, kv="slot")
+            make = lambda: [dataclasses.replace(r, prompt_len=None)  # noqa: E731
+                            for r in _lazy_trace(cfg, lens, len(arrivals), new, arrivals, 7)[0]]
+        else:
+            kw = dict(base, kv="paged", page_size=16, num_pages=pages, reservation="lazy",
+                      step_mode=step_mode, kv_dtype=kv_dtype)
+            make = lambda: _lazy_trace(cfg, lens, len(arrivals), new, arrivals, 7)[0]  # noqa: E731
+        runs = {}
+        for side, model in (("cpu", cpu), ("gpu", gpu)):
+            eng = Recording(model, cfg, **kw)
+            reset_launches()
+            out = eng.serve_trace(make(), arrivals)
+            torch.cuda.synchronize()
+            runs[side] = (eng, out, launch_counts())
+        (ce, co, cl), (ge, go, gl) = runs["cpu"], runs["gpu"]
+        tag = f"{arena} step_mode={step_mode} kv_dtype={kv_dtype}"
+        if ce.metrics.trace.keys() != ge.metrics.trace.keys():
+            fail(f"slotparity {tag}: event streams differ")
+        fwd = cfg.num_layers * _decode_forwards(ge.metrics, step_mode)
+        if arena == "slot":
+            want = {"decode_attention": fwd}
+        else:
+            want = {_paged_kernel_of(step_mode, kv_dtype): fwd}
+            sm = simulate(sims, num_pages=pages, reservation="lazy", kv="paged", num_slots=4,
+                          pass_budget=6, page_size=16, prefills_per_tick=2, kv_dtype=kv_dtype,
+                          step_mode=step_mode).metrics
+            _engine_equals_sim(f"slotparity {tag}", ge.metrics, sm)
+            if not ge.metrics.preemptions or not ge.metrics.cow_copies:
+                fail(f"slotparity {tag}: no preemption or copy-on-write")
+        attn = {k: v for k, v in gl.items() if v and ("decode_attention" in k)}
+        if sum(cl.values()) != 0 or attn != want:
+            fail(f"slotparity {tag}: launches CPU {cl}, GPU {gl}; want {want}")
+        log(f"[slotparity] {tag}: {len(co)} requests, {ge.tick_count} ticks, events equal "
+            f"({len(ge.metrics.trace.keys())}), {attn}, preemptions {ge.metrics.preemptions}, "
+            f"copies on write {ge.metrics.cow_copies} (pool {pages if arena == 'lazy' else '-'} "
+            f"pages); " + _serve_margin(f"slotparity {tag}", ce, co, ge, go))
+
+
+def phase_slot_main(model) -> dict:
+    """The slot arena (the engine's default) on llama3.2-1b at full width
+    and depth: phase 13's 16 requests, padded to prompts of 512, 128 new
+    tokens, two arriving a tick, 8 slots, pass budget 16 (phase 13's), f =
+    0.2, the signature step eager; after a two-request warm-up. -> launches
+    per kernel."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.serve import ContinuousEngine
+
+    cfg = model.cfg
+    arrivals = [i // 2 for i in range(16)]
+
+    def reqs(n):
+        return [dataclasses.replace(r, prompt_len=None)
+                for r in _serve_requests(cfg, n, SERVE_LENS, SLOT_NEW, 0)]
+
+    def engine():
+        return ContinuousEngine(model, cfg, num_slots=8, pass_budget=16, prompt_len=SLOT_S,
+                                max_new=SLOT_NEW, stop_on_eos=False, prefills_per_tick=2,
+                                seed=0, selective_fraction=0.2)
+    engine().serve_trace(reqs(2), [0, 0])
+    eng = engine()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.serve_trace(reqs(16), arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, forms = launch_counts(), dict(KD.LAUNCH_FORMS)
+    m = eng.metrics
+    tokens = sum(len(v) for v in out.values())
+    fwd = cfg.num_layers * _decode_forwards(m, "signature")
+    want = {"decode_attention": fwd, "flash_attention": 2 * cfg.num_layers * 16}
+    got = {k: counts[k] for k in want}
+    if len(out) != 16 or any(len(v) != SLOT_NEW for v in out.values()) or got != want \
+            or forms != {"rows": fwd} or any(counts[n] for n in PAGED):
+        fail(f"slotmain: {len(out)} results, launches {got} (want {want}), forms {forms}")
+    log(f"[slotmain] {cfg.name} slot arena, 8 slots, pass budget 16, prompt_len {SLOT_S}, "
+        f"{SLOT_NEW} new, f=0.2, signature step eager: wall {wall:.4f} s, {tokens / wall:.1f} tokens/s, "
+        f"ticks {m.ticks}, denoiser passes {m.denoiser_passes}, step launches {m.step_launches} "
+        f"(compiles {m.step_compiles}, shapes {sorted(k for k in eng._shapes if k[0] == 'step')}"
+        f"), B5 per-row launches {forms['rows']} (= {cfg.num_layers} layers x decode forwards), "
+        f"prefill B4 launches {counts['flash_attention']}, defrags "
+        f"{int(('defrag',) in eng._shapes)}, kv {eng.kv_hbm_bytes()}; first tokens "
+        f"{out['q0'][:6]}")
+    return _rows_form(counts)
+
+
+def _rows_form(counts: dict) -> dict:
+    """A slot path's launch counts with B5's under its per-row form's name
+    (every B5 launch there is one, ``LAUNCH_FORMS`` says)."""
+    from repro_torch.kernels import decode_attention as KD
+    out = dict(counts)
+    n = out.pop("decode_attention")
+    if n != KD.LAUNCH_FORMS.get("rows", 0):
+        fail(f"B5 launches {n} on a slot path, per-row {KD.LAUNCH_FORMS}")
+    out["decode_attention_rows"] = n
+    return out
+
+
+def phase_lazy_main(model) -> dict:
+    """Lazy reservation on the paged arena at full width and depth: 16
+    requests from the port's ``poisson_arrivals`` (rate 1.0 a tick),
+    prompts cycling ``LAZY_LENS``, priorities ``LAZY_PRIOS``, 128 new
+    tokens, f = 0.2, pages of 16, the pool sized on the CPU by the port's
+    simulator (the largest with two preemptions and a copy-on-write); bf16
+    and int8, the ragged step graphed; the engine's counters and events
+    equal the simulator's; TTFT and TPOT from ``ServeMetrics``. ->
+    launches per kernel."""
+    import torch
+    from repro_torch.serve import poisson_arrivals, simulate
+
+    cfg = model.cfg
+    arrivals = [int(a) for a in poisson_arrivals(LAZY_SEED, n=16, rate=LAZY_RATE)]
+    reqs, sims = _lazy_trace(cfg, LAZY_LENS, 16, SERVE_NEW, arrivals, 0)
+    sim_kw = dict(num_slots=8, pass_budget=16, page_size=SERVE_PS, prefills_per_tick=2,
+                  step_mode="ragged")
+    t0 = time.perf_counter()
+    pages, _ = _lazy_pool(sims, 2 * 8 * SERVE_NB, 2, SERVE_PS, **sim_kw)
+    log(f"[lazymain] {cfg.name}: 16 requests arriving at ticks {arrivals} (poisson_arrivals "
+        f"seed {LAZY_SEED}, rate {LAZY_RATE}), prompts {LAZY_LENS} cycling, priorities "
+        f"{LAZY_PRIOS} cycling, {SERVE_NEW} new, f=0.2; pool of {pages} pages of {SERVE_PS} "
+        f"(the simulator's choice in steps of {SERVE_PS}, {time.perf_counter() - t0:.2f} s on the "
+        f"CPU)")
+    totals = {}
+    for kv_dtype in ("bf16", "int8"):
+        def engine():
+            return _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, lazy_pages=pages)
+        engine().serve_trace(_lazy_trace(cfg, LAZY_LENS, 2, 4, [0, 0], 1)[0], [0, 0])
+        eng = engine()
+        torch.cuda.synchronize()
+        reset_launches()
+        t1 = time.perf_counter()
+        out = eng.serve_trace(_lazy_trace(cfg, LAZY_LENS, 16, SERVE_NEW, arrivals, 0)[0],
+                              arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = launch_counts()
+        m = eng.metrics
+        sm = simulate(sims, num_pages=pages, reservation="lazy", kv="paged", kv_dtype=kv_dtype,
+                      **sim_kw).metrics
+        tag = f"lazymain ragged {kv_dtype}"
+        _engine_equals_sim(tag, m, sm)
+        kern = _paged_kernel_of("ragged", kv_dtype)
+        want = cfg.num_layers * m.step_launches
+        if m.preemptions < 2 or not m.cow_copies or counts[kern] != want or len(out) != 16 \
+                or any(len(v) != SERVE_NEW for v in out.values()) or not eng.graphs \
+                or eng.pages.n_free != eng.pages.num_pages:
+            fail(f"{tag}: preemptions {m.preemptions}, copies on write {m.cow_copies}, {kern} "
+                 f"x{counts[kern]} (want {want}), {len(out)} results, graphs {eng.graphs}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        s = m.summary()
+        tick_ms = 1e3 * m.wall_s / max(m.ticks, 1)
+        tokens = sum(len(v) for v in out.values())
+        log(f"[lazymain] ragged {kv_dtype} graphed: wall {wall:.4f} s, {tokens / wall:.1f} "
+            f"tokens/s, ticks {m.ticks} ({tick_ms:.3f} ms a tick), engine == simulator: "
+            f"preemptions {m.preemptions}, resumes {m.resumes}, copies on write "
+            f"{m.cow_copies}, pages grown {m.pages_grown}, shared page hits "
+            f"{m.shared_page_hits}, peak pages {m.peak_pages_in_use}, prefill passes "
+            f"{m.prefill_passes}, denoiser passes {m.denoiser_passes}; TTFT ticks p50 "
+            f"{s['ttft']['p50']} p99 {s['ttft']['p99']}, TPOT ticks p50 {s['tpot']['p50']} "
+            f"p99 {s['tpot']['p99']} (log2 buckets), tick_s p50 {s['tick_s']['p50']} p99 "
+            f"{s['tick_s']['p99']}; {kern} x{counts[kern]}")
+    return totals
+
+
+def phase_serving_facade(model) -> dict:
+    """``ServingEngine`` (the static-batch facade over the slot arena) on
+    llama3.2-1b at full width and depth: one ``generate`` of 8 requests,
+    prompts of 128, 32 new tokens at f = 0.2, its pass count exact. ->
+    launches per kernel."""
+    import torch
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    eng = ServingEngine(model, cfg, max_batch=8, prompt_len=128, max_new=32,
+                        selective_fraction=0.2)
+    reqs = [Request(uid=f"g{i}", prompt=f"a serving facade request {i}", max_new_tokens=32,
+                    guidance_scale=SERVE_SCALE) for i in range(8)]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = 8 * GuidancePlan.suffix(32, 0.2, SERVE_SCALE).denoiser_passes()
+    counts = launch_counts()
+    if len(out) != 8 or eng.stats.denoiser_passes != want or not counts["decode_attention"]:
+        fail(f"facade: {len(out)} results, passes {eng.stats.denoiser_passes} (want {want}), "
+             f"launches {counts}")
+    log(f"[facade] ServingEngine 8 requests, prompts 128, 32 new, f=0.2: passes "
+        f"{eng.stats.denoiser_passes} = 8 x {want // 8} (exact), tokens "
+        f"{eng.stats.tokens_generated}, wall {wall:.4f} s ({eng.stats.tokens_per_s:.1f} "
+        f"tokens/s), shapes {sorted(eng._compiled)}")
+    return _rows_form(counts)
+
+
+# -- training ----------------------------------------------------------------------
 
 TRAIN_LM_B, TRAIN_LM_S = 4, 512      # llama3.2-1b training batch and sequence
 TRAIN_SD_B = 4                       # sd-unet-prod training batch
@@ -2565,6 +2937,7 @@ def phase_train_main() -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     smi = phase_device()
     try:
@@ -2603,6 +2976,12 @@ def main() -> None:
     for kv_dtype in ("bf16", "int8"):
         for graphs in (None, False):
             phase_serve_profile(model, "ragged", kv_dtype, graphs)
+    t_slot = time.perf_counter()
+    rows.update(phase_slot_kernel())
+    phase_slot_parity()
+    slot_paths = (phase_slot_main(model), phase_lazy_main(model), phase_serving_facade(model))
+    log(f"[time] phases 18-22 {time.perf_counter() - t_slot:.1f} s, after "
+        f"{t_slot - t_start:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -2618,6 +2997,8 @@ def main() -> None:
         "apg_combine": ("cfg_combine.cu", "src/repro/kernels/cfg_combine.py:136"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:69"),
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
+        "decode_attention_rows": (
+            "decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
         "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24"),
         "ragged_paged_decode_attention": (
             "paged_decode_attention.cu", "src/repro/kernels/paged_decode_attention.py:276"),
@@ -2632,15 +3013,17 @@ def main() -> None:
     for name, (src, replaces) in kernels.items():
         sd, ar = sd_launches.get(name, 0), ar_launches.get(name, 0)
         sv = serve_launches.get(name, 0)
+        sl = sum(d.get(name, 0) for d in slot_paths)
         cl, tr = claims_launches.get(name, 0), train_launches.get(name, 0)
-        if sd + ar + sv + cl + tr == 0:
+        if sd + ar + sv + sl + cl + tr == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
-            f"{sv} in the serve runs', {cl} in the claims' generates on the trained pipeline, "
-            f"{tr} in the timed LM training steps")
+            f"{sv} in the paged serve runs', {sl} in the slot, lazy and facade runs', {cl} in "
+            f"the claims' generates on the trained pipeline, {tr} in the timed LM training steps")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar + sv + cl + tr, **r))
+                        launches=sd + ar + sv + sl + cl + tr, **r))
+    log(f"[time] the whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

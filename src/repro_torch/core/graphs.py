@@ -13,7 +13,8 @@ rewritten in place between replays. A capture that fails raises; there is
 no eager fallback.
 
 Launch bookkeeping. The kernels' wrappers count a launch (``LAUNCHES``,
-and ``rmsnorm.LAUNCH_SHAPES`` by shape) when they are called, and inside a
+``decode_attention.LAUNCH_FORMS`` by form and ``rmsnorm.LAUNCH_SHAPES`` by
+shape) when they are called, and inside a
 capture they are called once and launch nothing. So a capture records the
 counts' change (``launch_delta``), restores them, and each replay adds
 that change once (``add_launches``): the counts keep meaning the launches
@@ -30,8 +31,9 @@ from repro_torch.kernels import build, cfg_combine, decode_attention, flash_atte
     paged_decode_attention, rmsnorm
 
 # every counter of kernel launches, in a fixed order
-COUNTERS = (cfg_combine.LAUNCHES, decode_attention.LAUNCHES, flash_attention.LAUNCHES,
-            paged_decode_attention.LAUNCHES, rmsnorm.LAUNCHES, rmsnorm.LAUNCH_SHAPES)
+COUNTERS = (cfg_combine.LAUNCHES, decode_attention.LAUNCHES, decode_attention.LAUNCH_FORMS,
+            flash_attention.LAUNCHES, paged_decode_attention.LAUNCHES, rmsnorm.LAUNCHES,
+            rmsnorm.LAUNCH_SHAPES)
 
 
 def snapshot(counters=COUNTERS) -> tuple[dict, ...]:

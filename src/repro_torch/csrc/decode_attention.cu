@@ -5,8 +5,11 @@
 // src/repro/kernels/decode_attention.py::decode_attention_pallas: one query
 // token per row, q (B,H,hd), against a cache k, v (B,S,K,hd); fp32 softmax;
 // p is cast to v's dtype before PV. A linear cache holds position kpos at
-// slot kpos, and key kpos is valid iff lo <= kpos <= pos (one pos for the
-// batch; lo = pos - window + 1 with a window, else 0). A ring cache (the
+// slot kpos, and key kpos is valid iff lo <= kpos <= pos (lo = pos - window
+// + 1 with a window, else 0). pos is one for the batch (pos_stride 0) or
+// one a row (pos_stride 1: the slot arena's step, the TPU kernel vmapped
+// over its scalar-prefetch pos). With ``rows``, query row b reads cache row
+// rows[b] (a slot arena read in place), else row b. A ring cache (the
 // sliding-window decode cache) holds the position of slot s in
 // slot_pos[s] (-1: empty), and slot s is valid iff lo <= slot_pos[s] <= pos.
 //
@@ -153,6 +156,7 @@ struct Split {
 template <int TK>
 __device__ __forceinline__ Split block_split(const int* pos_ptr, bool ring, int window, int span,
                                              int rank, int csize) {
+  // pos_ptr points at this row's position
   Split sp;
   sp.pos = __ldg(pos_ptr);
   sp.lo = window > 0 ? max(0, sp.pos - window + 1) : 0;
@@ -176,8 +180,8 @@ template <typename T, int HPW, int DPL>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
               T* __restrict__ out, const int* __restrict__ slot_pos,
-              const int* __restrict__ pos_ptr, int S, int K, int hd, int rep, int window,
-              int span, float scale) {
+              const int* __restrict__ pos_ptr, const int* __restrict__ rows, int pos_stride,
+              int S, int K, int hd, int rep, int window, int span, float scale) {
   constexpr int TK = kTile<T>;
   constexpr int NHG = kThreads / TK;                  // head groups in the score pass
   constexpr int HPA = (4 * HPW + NHG - 1) / NHG;      // heads per thread there
@@ -194,8 +198,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)gridDim.x;  // one cluster spans x
   const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
+  const long long cb = rows != nullptr ? __ldg(rows + b) : b;  // the cache row
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Split sp = block_split<TK>(pos_ptr, slot_pos != nullptr, window, span, rank, csize);
+  const Split sp = block_split<TK>(pos_ptr + b * pos_stride, slot_pos != nullptr, window, span,
+                                   rank, csize);
   const int pos = sp.pos, lo = sp.lo, t_begin = sp.t_begin, t_end = sp.t_end;
 
   // whether slot ``s`` holds a key this query attends to
@@ -222,7 +228,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
       const int s = k0 + j;
       const bool ok = valid(s);
       const T* src = (which ? v : k) +
-                     ((static_cast<long long>(b) * S + (ok ? s : 0)) * K + g) * hd + c * VEC;
+                     ((cb * S + (ok ? s : 0)) * K + g) * hd + c * VEC;
       const uint32_t d = static_cast<uint32_t>(
           __cvta_generic_to_shared(dst + which * TK * rstride + j * rstride + c * 16));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
@@ -403,8 +409,9 @@ template <int MT, int D, int NS>
 __global__ void __launch_bounds__(kThreads)
 decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                  const int* __restrict__ slot_pos, const int* __restrict__ pos_ptr, int S,
-                  int K, int hd, int rep, int window, int span, float scale_log2) {
+                  const int* __restrict__ slot_pos, const int* __restrict__ pos_ptr,
+                  const int* __restrict__ rows, int pos_stride, int S, int K, int hd, int rep,
+                  int window, int span, float scale_log2) {
   constexpr int TK = kTile<__nv_bfloat16>;   // 64 keys: 16 a warp
   constexpr int NB = D / 8;                  // n blocks of the PV product at most
   extern __shared__ __align__(16) unsigned char smem[];
@@ -416,8 +423,10 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), csize = (int)gridDim.x;  // one cluster spans x
   const int bg = blockIdx.y, b = bg / K, g = bg - b * K;
+  const long long cb = rows != nullptr ? __ldg(rows + b) : b;  // the cache row
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const Split sp = block_split<TK>(pos_ptr, slot_pos != nullptr, window, span, rank, csize);
+  const Split sp = block_split<TK>(pos_ptr + b * pos_stride, slot_pos != nullptr, window, span,
+                                   rank, csize);
   const int pos = sp.pos, lo = sp.lo, t_begin = sp.t_begin, t_end = sp.t_end;
 
   auto valid = [&](int s) {
@@ -436,7 +445,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     if (t < t_end) {
       const int s = t * TK + warp * 16 + j;
       const bool ok = valid(s);
-      const __nv_bfloat16* src = kv + ((static_cast<long long>(b) * S + (ok ? s : 0)) * K + g) * hd;
+      const __nv_bfloat16* src = kv + ((cb * S + (ok ? s : 0)) * K + g) * hd;
       const uint32_t dst = smem_u32(smem + (t - t_begin) % NS * stage_bytes) +
                            (which * TK + warp * 16 + j) * rstride;
       for (int c = 0; c < cpr; ++c) {
@@ -645,22 +654,22 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 template <int HPW, int DPL>
 int launch_f32(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
-               const int* pos, int B, int S, int H, int K, int hd, int window, int span,
-               int cluster, float scale, cudaStream_t st) {
+               const int* pos, const int* rows, int pos_stride, int B, int S, int H, int K,
+               int hd, int window, int span, int cluster, float scale, cudaStream_t st) {
   constexpr int TK = kTile<float>;
   const int rep = H / K;
   const size_t smem = 2 * 2 * (size_t)TK * row_stride(hd, 4) +
                       sizeof(float) * ((size_t)2 * rep * hd + (size_t)rep * TK + 2 * rep);
   return cluster_launch(decode_kernel<float, HPW, DPL>, dim3(cluster, B * K), kThreads, smem,
                         st, static_cast<const float*>(q), static_cast<const float*>(k),
-                        static_cast<const float*>(v), static_cast<float*>(out), slot_pos, pos, S,
-                        K, hd, rep, window, span, scale);
+                        static_cast<const float*>(v), static_cast<float*>(out), slot_pos, pos, rows,
+                        pos_stride, S, K, hd, rep, window, span, scale);
 }
 
 template <int MT, int D, int NS>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
-                const int* pos, int B, int S, int H, int K, int hd, int window, int span,
-                int cluster, float scale, cudaStream_t st) {
+                const int* pos, const int* rows, int pos_stride, int B, int S, int H, int K,
+                int hd, int window, int span, int cluster, float scale, cudaStream_t st) {
   constexpr int TK = kTile<__nv_bfloat16>;
   const int rep = H / K;
   const size_t rs = row_stride((hd + 15) / 16 * 16, 2);
@@ -670,14 +679,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, const in
                         tiles_and_q > merge ? tiles_and_q : merge, st,
                         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                         static_cast<const __nv_bfloat16*>(v),
-                        static_cast<__nv_bfloat16*>(out), slot_pos, pos, S, K, hd, rep, window,
-                        span, scale * kLog2e);
+                        static_cast<__nv_bfloat16*>(out), slot_pos, pos, rows, pos_stride, S, K,
+                        hd, rep, window, span, scale * kLog2e);
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, const int* slot_pos,
-             const int* pos, int B, int S, int H, int K, int hd, int window, int span,
-             int cluster, float scale, cudaStream_t st) {
+             const int* pos, const int* rows, int pos_stride, int B, int S, int H, int K,
+             int hd, int window, int span, int cluster, float scale, cudaStream_t st) {
   constexpr int TK = kTile<T>;
   // the plan must span every key a position can attend to: the S slots'
   // tiles (a ring, or no window), or a window's ceil(window / TK) + 1
@@ -687,7 +696,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const int* 
     return (int)cudaErrorInvalidValue;
   const int rep = H / K;
 #define DECODE_ARGS \
-  q, k, v, out, slot_pos, pos, B, S, H, K, hd, window, span, cluster, scale, st
+  q, k, v, out, slot_pos, pos, rows, pos_stride, B, S, H, K, hd, window, span, cluster, scale, st
   if constexpr (sizeof(T) == 2) {
     const int hdp = (hd + 15) / 16 * 16;
     if (rep <= 16) {
@@ -718,25 +727,32 @@ extern "C" {
 // q, out: (B,H,hd); k, v: (B,S,K,hd); all contiguous, k and v 16-byte
 // aligned; dtype 0 = float32 or 1 = bfloat16; H % K == 0 with H / K <= 32;
 // hd a multiple of 8, at most 256. slot_pos: null for a linear cache, else
-// (S,) int32 slot positions of a ring. pos: one int32 on the device, the
-// query's position (the caller keeps a linear cache's in [0, S)); window 0
-// for none. The plan (span, cluster) is kernels/decode_attention.py
+// (S,) int32 slot positions of a ring. pos: int32 on the device, the
+// query's position, one for the batch (pos_stride 0) or one a row
+// (pos_stride 1; the caller keeps a linear cache's in [0, S)). rows: null
+// (query row b reads k, v row b) or (B,) int32 cache rows, each in k's
+// rows; a ring takes neither rows nor pos_stride 1. window 0 for none. The
+// plan (span, cluster) is kernels/decode_attention.py
 // ``decode_launch_plan``'s, in tiles of 64 keys (bfloat16) or 32 (float32).
 int decode_attention(const void* q, const void* k, const void* v, void* out, const void* slot_pos,
-                     const void* pos, int B, int S, int H, int K, int hd, int window, int span,
-                     int cluster, float scale, int dtype, void* stream) {
+                     const void* pos, const void* rows, int B, int S, int H, int K, int hd,
+                     int window, int span, int cluster, int pos_stride, float scale, int dtype,
+                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0) return (int)cudaGetLastError();
   if (K <= 0 || H % K != 0 || H / K > kMaxGroup || hd <= 0 || hd % 8 != 0 || hd > 256 ||
-      S <= 0 || window < 0 || pos == nullptr)
+      S <= 0 || window < 0 || pos == nullptr || (pos_stride != 0 && pos_stride != 1) ||
+      (slot_pos != nullptr && (rows != nullptr || pos_stride != 0)))
     return (int)cudaErrorInvalidValue;
   const int* sp = static_cast<const int*>(slot_pos);
   const int* pp = static_cast<const int*>(pos);
+  const int* rp = static_cast<const int*>(rows);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, out, sp, pp, B, S, H, K, hd, window, span, cluster, scale, st);
+    return dispatch<float>(q, k, v, out, sp, pp, rp, pos_stride, B, S, H, K, hd, window, span,
+                           cluster, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, sp, pp, B, S, H, K, hd, window, span, cluster,
-                                   scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, out, sp, pp, rp, pos_stride, B, S, H, K, hd, window,
+                                   span, cluster, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

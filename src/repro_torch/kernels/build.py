@@ -33,7 +33,7 @@ SIGNATURES = {
     "apg_combine": [_P, _P, _P, _P, _P, _LL, _LL, _F, _F, _F] + [_I] * 7 + [_P],
     "rmsnorm": [_P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
-    "decode_attention": [_P] * 6 + [_I] * 8 + [_F, _I, _P],
+    "decode_attention": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     "paged_decode_attention": [_P] * 9 + [_I] * 13 + [_F, _I, _I, _P],
 }
 # dtype codes the C entry points take

@@ -12,8 +12,12 @@ kernel (one cluster launch) or raises. Any capacity S: the TPU kernel's
 ``S % 512`` does not apply. The kernel reads ``pos`` from the device, as
 the TPU kernel reads its scalar-prefetch ``pos``: ``decode_launch_plan``,
 its launch, depends on shapes alone, and ``decode_split_plan`` mirrors the
-split of the keys that each launch computes from ``pos``. ``LAUNCHES``
-counts kernel launches.
+split of the keys that each launch computes from ``pos``. A linear cache
+also takes a position per row, and ``rows``, the cache row each query row
+reads (the slot arena's step, rows read in place): the TPU kernel vmapped
+over its ``pos``. ``LAUNCHES`` counts kernel launches, and ``LAUNCH_FORMS``
+the same launches by form: ``"batch"`` (one position) or ``"rows"`` (one a
+row).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import grouped_attention_plain
 
 LAUNCHES = {"decode_attention": 0}
+LAUNCH_FORMS: dict = {}   # "batch" or "rows" -> launches
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32     # query heads per kv head; kMaxGroup in csrc/decode_attention.cu
 MAX_CLUSTER = 8    # blocks per (batch, kv head) cluster, the portable most; kMaxCluster
@@ -35,6 +40,7 @@ TILE = {torch.bfloat16: 64, torch.float32: 32}   # keys per tile: 128 bytes of e
 
 def reset_launches() -> None:
     LAUNCHES["decode_attention"] = 0
+    LAUNCH_FORMS.clear()
 
 
 class DecodeLaunch(NamedTuple):
@@ -93,30 +99,48 @@ def ring_valid(slot_pos, pos, window: int | None):
     return valid
 
 
+def linear_valid(S: int, pos, window: int | None, device):
+    """A linear cache's mask of the keys ``pos`` attends to: (S,) for an int
+    or a one-element tensor, (B, S) for a (B,) tensor of positions."""
+    kpos = torch.arange(S, device=device)
+    if torch.is_tensor(pos) and pos.numel() > 1:
+        pos = pos.reshape(-1, 1)
+    valid = kpos <= pos
+    if window is not None:
+        valid = valid & (kpos > pos - window)
+    return valid
+
+
 def decode_attention_plain(q, k, v, pos, *, window: int | None = None, valid=None):
-    """Mirrors ``repro/kernels/ref.py::ref_decode_attention``; ``pos`` an int
-    or a one-element tensor. ``valid``, an (S,) bool mask, replaces the mask
-    of ``pos`` and ``window`` (a ring cache's slots are not in position
+    """Mirrors ``repro/kernels/ref.py::ref_decode_attention`` (vmapped over
+    rows for a (B,) ``pos``); ``pos`` an int, a one-element tensor or one
+    position a row. ``valid``, an (S,) or a (B, S) bool mask, replaces the
+    mask of ``pos`` and ``window`` (a ring cache's slots are not in position
     order)."""
     if valid is None:
-        kpos = torch.arange(k.shape[1], device=q.device)
-        valid = kpos <= pos
-        if window is not None:
-            valid = valid & (kpos > pos - window)
+        valid = linear_valid(k.shape[1], pos, window, q.device)
+    if valid.ndim == 2:
+        valid = valid[:, None, None, None, :]
     return grouped_attention_plain(q[:, None], k, v, valid)[:, 0]
 
 
-def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None):
-    """q (B,H,hd); k, v (B,S,K,hd); ``pos`` a one-element int32 tensor on
-    q's device (the kernel reads it there: one launch serves every
-    position) or a Python int, in [0, S) for a linear cache (staged to the
-    device); ``slot_pos`` None (a linear cache) or a ring's (S,) int32 slot
-    positions -> (B,H,hd). The kernel takes contiguous float32 or bfloat16,
-    hd a multiple of 8 up to ``MAX_HEAD_DIM`` and H/K up to ``MAX_GROUP``."""
-    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None, rows=None):
+    """q (B,H,hd); k, v (B,S,K,hd), or (N,S,K,hd) with ``rows``; ``pos`` a
+    one-element int32 tensor on q's device (the kernel reads it there: one
+    launch serves every position), a (B,) int32 tensor there (one position
+    a row) or a Python int, in [0, S) for a linear cache (staged to the
+    device); ``rows`` None or (B,) int32 on the device, the cache row each
+    query row reads, each in [0, N); ``slot_pos`` None (a linear cache) or a
+    ring's (S,) int32 slot positions, with one position and no ``rows``
+    -> (B,H,hd). The kernel takes contiguous float32 or bfloat16, hd a
+    multiple of 8 up to ``MAX_HEAD_DIM`` and H/K up to ``MAX_GROUP``."""
+    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape \
+            or (rows is None and k.shape[0] != q.shape[0]) \
             or k.shape[3] != q.shape[2] or q.shape[1] % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
                          "need q (B,H,hd) and k, v (B,S,K,hd) with H % K == 0")
+    if rows is not None and (tuple(rows.shape) != (q.shape[0],) or rows.dtype != torch.int32):
+        raise ValueError(f"rows {tuple(rows.shape)} {rows.dtype}: need ({q.shape[0]},) int32")
     if q.dtype != k.dtype or q.dtype != v.dtype:
         raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
     if window is not None and window < 1:
@@ -126,10 +150,15 @@ def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None):
         raise ValueError(f"slot_pos {tuple(slot_pos.shape)} {slot_pos.dtype}: need "
                          f"({k.shape[1]},) int32")
     on_device = torch.is_tensor(pos)
-    if on_device and (pos.numel() != 1 or pos.dtype != torch.int32):
-        raise ValueError(f"pos {tuple(pos.shape)} {pos.dtype}: need one int32")
-    extra = tuple(t for t in (slot_pos, pos if on_device else None) if t is not None)
+    per_row = on_device and pos.numel() > 1
+    if on_device and (pos.numel() not in (1, q.shape[0]) or pos.dtype != torch.int32):
+        raise ValueError(f"pos {tuple(pos.shape)} {pos.dtype}: need one or one a row, int32")
+    if slot_pos is not None and (per_row or rows is not None):
+        raise ValueError("a ring cache takes one position and no rows")
+    extra = tuple(t for t in (slot_pos, pos if on_device else None, rows) if t is not None)
     if not build.on_cuda(q, k, v, *extra):
+        if rows is not None:
+            k, v = k[rows.long()], v[rows.long()]
         if slot_pos is None:
             return decode_attention_plain(q, k, v, pos, window=window)
         return decode_attention_plain(q, k, v, pos, valid=ring_valid(slot_pos, pos, window))
@@ -140,8 +169,8 @@ def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None):
     if hd % 8 or hd > MAX_HEAD_DIM or H // K > MAX_GROUP:
         raise ValueError(f"kernel takes hd a multiple of 8 up to {MAX_HEAD_DIM} and H/K up "
                          f"to {MAX_GROUP}, got hd {hd}, H/K {H // K}")
-    if slot_pos is not None and not slot_pos.is_contiguous():
-        raise ValueError("kernel takes a contiguous slot_pos")
+    if any(not t.is_contiguous() for t in extra):
+        raise ValueError("kernel takes a contiguous slot_pos, pos and rows")
     if not on_device:
         pos = int(pos)
         if pos < 0 or (slot_pos is None and pos >= S):
@@ -152,9 +181,12 @@ def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None):
     lib = build.load()
     code = lib.decode_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 None if slot_pos is None else slot_pos.data_ptr(),
-                                pos.data_ptr(), B, S, H, K, hd, window or 0, plan.span,
-                                plan.cluster, 1.0 / math.sqrt(hd), build.DTYPES[q.dtype],
+                                pos.data_ptr(), None if rows is None else rows.data_ptr(),
+                                B, S, H, K, hd, window or 0, plan.span, plan.cluster,
+                                int(per_row), 1.0 / math.sqrt(hd), build.DTYPES[q.dtype],
                                 build.stream(q))
     build.check(lib, "decode_attention", code)
     LAUNCHES["decode_attention"] += 1
+    form = "rows" if per_row or rows is not None else "batch"
+    LAUNCH_FORMS[form] = LAUNCH_FORMS.get(form, 0) + 1
     return out

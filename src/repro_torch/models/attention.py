@@ -9,7 +9,9 @@ caches. Counterpart of ``repro.models.attention``.
                          CPU;
 * ``attn_decode``        one token vs a linear cache, written in place, then
                          the flash-decode kernel (CUDA) or its plain version,
-                         at a position on the device (``decode_pos``);
+                         at a position on the device (``decode_pos``), one
+                         for the batch or one a row (a slot arena's rows,
+                         read and written in place);
 * ``attn_decode_ring``   one token vs a ring buffer of ``window`` slots,
                          written in place, then the flash-decode kernel's
                          ring form (CUDA) or its plain version;
@@ -109,17 +111,25 @@ class DecodePos(NamedTuple):
     the flash-decode kernel reads, and ``index`` (1,) int64, where the
     caches are written. Nothing reads it on the host, so a step that takes
     one can be captured once in a CUDA graph and replayed at every
-    position."""
+    position. The per-row form (a slot arena's step): ``pos`` and ``index``
+    (B,), one position a row, and ``rows`` (B,) int32 with ``row_index``
+    (B,) int64, the cache row each batch row reads and writes in place."""
     pos: torch.Tensor
     index: torch.Tensor
+    rows: torch.Tensor | None = None
+    row_index: torch.Tensor | None = None
 
 
-def decode_pos(pos, device) -> DecodePos:
+def decode_pos(pos, device, rows=None) -> DecodePos:
     """``pos`` (a Python int, a 0-d or one-element int32 tensor, or a
     ``DecodePos``) as a ``DecodePos`` on ``device``; an int is filled in on
-    the device (no host-to-device copy)."""
+    the device (no host-to-device copy). With ``rows``, the (B,) cache rows
+    of the batch rows, ``pos`` is a (B,) tensor, a position a row."""
     if isinstance(pos, DecodePos):
         return pos
+    if rows is not None:
+        pos, rows = pos.reshape(-1).to(torch.int32), rows.reshape(-1).to(torch.int32)
+        return DecodePos(pos, pos.long(), rows, rows.long())
     if torch.is_tensor(pos):
         pos = pos.reshape(1).to(torch.int32)
     else:
@@ -129,14 +139,20 @@ def decode_pos(pos, device) -> DecodePos:
 
 def attn_decode(p, cfg, x, cache, pos, rope, *, window=None):
     """One token at ``pos`` (see ``decode_pos``) vs a linear cache {k, v}
-    (B,S,K,hd). Writes the new K/V at ``pos`` in place by a device index
-    (the reference updates functionally), then attends to keys ``<= pos``
-    (and inside ``window``). x (B,1,D) -> (out (B,1,D), cache)."""
+    (B,S,K,hd), or (N,S,K,hd) read through per-row cache rows. Writes the new K/V
+    at ``pos`` in place by a device index (the reference updates
+    functionally), then attends to keys ``<= pos`` (and inside
+    ``window``). x (B,1,D) -> (out (B,1,D), cache)."""
     dp = decode_pos(pos, x.device)
     q, k_new, v_new = _qkv(p, cfg, x, rope)
-    cache["k"].index_copy_(1, dp.index, k_new)
-    cache["v"].index_copy_(1, dp.index, v_new)
-    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], dp.pos, window=window)
+    if dp.rows is None:
+        cache["k"].index_copy_(1, dp.index, k_new)
+        cache["v"].index_copy_(1, dp.index, v_new)
+    else:
+        cache["k"].index_put_((dp.row_index, dp.index), k_new[:, 0])
+        cache["v"].index_put_((dp.row_index, dp.index), v_new[:, 0])
+    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], dp.pos, window=window,
+                              rows=dp.rows)
     return _out_proj(p, ctx[:, None]), cache
 
 
@@ -145,6 +161,9 @@ def attn_decode_ring(p, cfg, x, cache, pos, rope, *, window: int):
     absolute positions, -1 = empty}, updated in place at slot pos % W,
     computed on the device."""
     dp = decode_pos(pos, x.device)
+    if dp.rows is not None:
+        raise NotImplementedError("a ring cache with a position per row (a windowed slot "
+                                  "arena) is not ported yet (ROADMAP A4.1)")
     W = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, cfg, x, rope)
     slot = dp.index % W

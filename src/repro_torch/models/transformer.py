@@ -103,7 +103,7 @@ def _check_decoder(cfg) -> None:
         ("embedding inputs", cfg.embedding_inputs)) if present]
     if later:
         raise ValueError(f"{cfg.name}: {', '.join(later)} not ported yet (a later slice, "
-                         "ROADMAP A12); the decoder takes attn/swa stacks")
+                         "ROADMAP A7); the decoder takes attn/swa stacks")
 
 
 def init_block(cfg, mk):
@@ -234,14 +234,17 @@ class Transformer(nn.Module):
             caches.append(cache)
         return x, (caches if want_caches else None)
 
-    def decode_step(self, token_embeds, caches, pos, *, long_ctx: bool = False):
+    def decode_step(self, token_embeds, caches, pos, *, rows=None, long_ctx: bool = False):
         """One token at ``pos`` for the whole stack; the caches are updated in
         place. ``pos`` a 0-d or one-element int32 tensor on the device (the
         step then reads no value on the host and can be captured in a CUDA
-        graph) or a Python int. -> (hidden (B,1,D), caches)."""
+        graph) or a Python int; with ``rows``, the (B,) cache row of each
+        batch row (a slot arena's rows, read and written in place), a (B,)
+        int32 tensor of per-row positions (RoPE, the cache write and the
+        attention mask per row). -> (hidden (B,1,D), caches)."""
         x = token_embeds
-        pos = A.decode_pos(pos, x.device)
-        rope = self._rope(pos.pos.view(1, 1))
+        pos = A.decode_pos(pos, x.device, rows)
+        rope = self._rope(pos.pos.view(-1, 1))
         for kind, layer, cache in zip(self.cfg.blocks, self.layers, caches):
             x, _ = block_decode(layer, self.cfg, x, cache, pos, rope,
                                 window=self._window(kind, long_ctx))

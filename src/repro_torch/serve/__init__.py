@@ -1,28 +1,38 @@
-"""The serve stack of the port: the continuous-batching engine over the
-paged KV arena and its framework-free copies (queue, scheduler, page
-allocator, metrics and the event trace). Counterpart of ``repro.serve``
-for eager reservation and synchronous ticks; the slot arena, lazy
-reservation, the host tier, async ticks, the simulator and the fleet are
-not ported yet (ROADMAP A9-A11)."""
+"""The serve stack of the port: the continuous-batching engine over the slot
+or paged KV arena (eager or lazy reservation), the framework-free copies
+(queue, scheduler, page allocator, metrics and the event trace), the
+offline simulator, the fleet router and simulator, and the Chrome-trace
+export. Counterpart of ``repro.serve``; the host tier, the content prefix
+cache, async ticks, ``ServeFleet`` and the autotuner are not ported yet
+(ROADMAP A5), nor the sharding helpers (A8)."""
 
 from repro_torch.serve.engine import COMBINE_MODES, TICK_MODES, ContinuousEngine
+from repro_torch.serve.fleet import (FLEET_COUNTERS, ROUTE_POLICIES, FleetReport,
+                                     FleetRouter, fleet_summary, simulate_fleet)
 from repro_torch.serve.metrics import RequestTimeline, ServeMetrics, TickRecord
 from repro_torch.serve.obs import (Event, EventTrace, Log2Histogram, TickTimer, TickTiming,
-                                   fold_counters)
+                                   fleet_chrome_trace, fold_counters, to_chrome_trace,
+                                   write_chrome_trace)
 from repro_torch.serve.queue import ArrivalQueue, ServeRequest
-from repro_torch.serve.scheduler import (PassRow, Scheduler, TickPlan, bucket_pow2,
-                                         provision_growth)
+from repro_torch.serve.scheduler import (PassRow, Scheduler, TickPlan, admission_cutoff,
+                                         bucket_pow2, provision_growth, victim_key)
+from repro_torch.serve.sim import (SimRequest, compare_policies, poisson_arrivals,
+                                   poisson_trace, simulate)
 from repro_torch.serve.state import (ContentPrefixRegistry, HostPagePool, PageAllocator,
                                      PrefixShareRegistry, StatePool, content_key,
-                                     kv_page_bytes, page_nbytes, pages_for,
-                                     pages_for_pool_bytes, plan_swap_out,
-                                     stream_page_needs)
+                                     fresh_lazy_needs, host_pages_for_bytes, kv_page_bytes,
+                                     page_nbytes, pages_for, pages_for_pool_bytes,
+                                     plan_swap_out, resume_lazy_needs, stream_page_needs)
 
 __all__ = [
-    "COMBINE_MODES", "TICK_MODES", "ContinuousEngine", "RequestTimeline", "ServeMetrics",
-    "TickRecord", "Event", "EventTrace", "Log2Histogram", "TickTimer", "TickTiming",
-    "fold_counters", "ArrivalQueue", "ServeRequest", "PassRow", "Scheduler", "TickPlan",
-    "bucket_pow2", "provision_growth", "ContentPrefixRegistry", "HostPagePool",
-    "PageAllocator", "PrefixShareRegistry", "StatePool", "content_key", "kv_page_bytes",
-    "page_nbytes", "pages_for", "pages_for_pool_bytes", "plan_swap_out", "stream_page_needs",
+    "ArrivalQueue", "COMBINE_MODES", "ContentPrefixRegistry", "ContinuousEngine", "Event",
+    "EventTrace", "FLEET_COUNTERS", "FleetReport", "FleetRouter", "HostPagePool",
+    "Log2Histogram", "PageAllocator", "PassRow", "PrefixShareRegistry", "ROUTE_POLICIES",
+    "RequestTimeline", "Scheduler", "ServeMetrics", "ServeRequest", "SimRequest", "StatePool",
+    "TICK_MODES", "TickPlan", "TickRecord", "TickTimer", "TickTiming", "admission_cutoff",
+    "bucket_pow2", "compare_policies", "content_key", "fleet_chrome_trace", "fleet_summary",
+    "fold_counters", "fresh_lazy_needs", "host_pages_for_bytes", "kv_page_bytes",
+    "page_nbytes", "pages_for", "pages_for_pool_bytes", "plan_swap_out", "poisson_arrivals",
+    "poisson_trace", "provision_growth", "resume_lazy_needs", "simulate", "simulate_fleet",
+    "stream_page_needs", "to_chrome_trace", "victim_key", "write_chrome_trace",
 ]

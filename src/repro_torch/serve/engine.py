@@ -1,14 +1,33 @@
-"""Continuous-batching serve engine over the paged KV arena. Counterpart of
-``repro.serve.engine.ContinuousEngine``, for the part of it that runs on
-pages with eager reservation and synchronous ticks.
+"""Continuous-batching serve engine over a slot or paged KV arena.
+Counterpart of ``repro.serve.engine.ContinuousEngine`` with synchronous
+ticks.
 
 Requests join and leave mid-flight. Each tick expires queued requests past
-their deadline, admits new ones (a batched, pow2-bucketed prefill of both
-streams into the shared page pool), asks the :class:`Scheduler` to pack the
+their deadline, admits new ones, asks the :class:`Scheduler` to pack the
 active requests against the tick's denoiser-pass budget (FULL = 2 passes,
 COND = 1), runs one decode step, then emits tokens, retires completed
-requests and returns a request's unconditional pages to the pool the moment
-its plan crosses into the COND suffix.
+requests and, on pages, returns a request's unconditional pages to the pool
+the moment its plan crosses into the COND suffix.
+
+Two KV arenas (``kv``):
+
+* ``"slot"`` (the default) holds two pools, cond and uncond, of
+  ``num_slots`` linear caches of ``prompt_len + max_new`` positions a
+  layer; every request uses the engine-wide ``prompt_len``. Each admission
+  prefills its row; the step reads and writes the rows of its groups in
+  place through their slot indices, each row at its own position (B5's
+  per-row form). Holes left by departures are compacted (``_maybe_defrag``)
+  past ``defrag_threshold``.
+* ``"paged"`` shares one page pool between both streams of every request
+  through block tables. ``reservation="eager"`` grants each stream every
+  page it can touch at admission; ``"lazy"`` grants the prompt's pages,
+  grows the decode span every tick (``provision_growth``), shares the
+  uncond prompt prefix between requests of one length (copy-on-write once
+  a shared partial page diverges), and when the pool runs dry preempts the
+  weakest request: its pages are freed, its cursor, tokens and sampling key
+  kept, and on resume one prefill over prompt + generated tokens rebuilds
+  its KV, so the resumed tokens are those of an uninterrupted run. The
+  prefills of one tick are batched per pow2 length bucket.
 
 Two step modes:
 
@@ -23,9 +42,11 @@ Two step modes:
   (the forward over the pools, the combine, argmax and the divergence),
   then each tick copies its staged rows into fixed device buffers and
   replays it once; rows at temperature > 0 are drawn after the replay.
-* ``"signature"`` runs the FULL and COND groups of the tick, each padded to
-  a power of two, through the per-row-position kernels (B9, B10); one
-  compile is counted per ``("pstep", n_full, n_cond)`` bucket.
+* ``"signature"`` (the slot arena's; opt-in on pages) runs the FULL and
+  COND groups of the tick, each padded to a power of two; on pages through
+  the per-row-position kernels (B9, B10), one compile counted per
+  ``("pstep", n_full, n_cond)`` bucket, in the slot arena through B5 per
+  row, one per ``("step", n_full, n_cond)``. It runs eagerly.
 
 ``kv_dtype="int8"`` stores the pool as int8 values with float32 scales per
 (position, kv head), quantized on write. The combine stage is Eq. 1 with a
@@ -44,9 +65,9 @@ step, not from jax's threefry keys, so sampled tokens differ from the
 reference's while greedy tokens are the parity contract.
 
 Options the port does not have yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item: the slot arena, lazy reservation, the host tier,
-the content prefix cache, async ticks, a mesh or sharding rules, and
-``pass_budget="auto"``.
+their ``ROADMAP.md`` item: a windowed (ring-cache) model in the slot arena,
+the host tier, the content prefix cache, async ticks, a mesh or sharding
+rules, and ``pass_budget="auto"``.
 """
 
 from __future__ import annotations
@@ -54,6 +75,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import ar_decode as AR
 from repro_torch.core import graphs as G
 from repro_torch.core.guidance import apg_combine, cfg_combine_rowscale
 from repro_torch.core.policy import (GUIDANCE_POLICIES, DivergenceGuidancePolicy,
@@ -65,9 +87,10 @@ from repro_torch.models import transformer as T
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.obs import TickTimer
 from repro_torch.serve.queue import ArrivalQueue, ServeRequest
-from repro_torch.serve.scheduler import Scheduler, TickPlan, bucket_pow2
-from repro_torch.serve.state import (PageAllocator, StatePool, kv_page_bytes, pages_for,
-                                     stream_page_needs)
+from repro_torch.serve.scheduler import Scheduler, TickPlan, bucket_pow2, provision_growth
+from repro_torch.serve.state import (PageAllocator, PrefixShareRegistry, StatePool,
+                                     fresh_lazy_needs, kv_page_bytes, pages_for,
+                                     resume_lazy_needs, stream_page_needs)
 
 KV_MODES = ("slot", "paged")
 KV_DTYPES = ("bf16", "int8")
@@ -109,6 +132,10 @@ class _SlotArrays:
         self.lstep = np.zeros(n, np.int32)
         self.key = np.zeros(n, np.uint32)
 
+    def permute(self, src: np.ndarray) -> None:
+        for name in ("tok", "pos", "scale", "temp", "lstep", "key"):
+            setattr(self, name, getattr(self, name)[src].copy())
+
 
 class _RequestState:
     def __init__(self, req: ServeRequest, cursor: PlanCursor, slot: int):
@@ -121,25 +148,52 @@ class _RequestState:
         self.uncond_dead = not any(s.mode is Mode.FULL for s in cursor.plan.segments)
 
 
+class _ResumeState:
+    """Checkpoint of a preempted request: its plan step and passes, its
+    tokens (the prefill's and one a step), its sampling key, the dynamic
+    policy's state and whether its uncond stream is dead. The KV pages are
+    freed, and rebuilt at re-admission by one forward over prompt +
+    generated[:-1]."""
+
+    def __init__(self, *, step: int, passes: int, generated: list[int], key: int,
+                 switch_step: int | None = None, ema: float = 0.0,
+                 uncond_dead: bool = False):
+        self.step = step
+        self.passes = passes
+        self.generated = generated
+        self.key = key
+        self.switch_step = switch_step
+        self.ema = ema
+        self.uncond_dead = uncond_dead
+
+
 class _PrefillItem:
-    """One eager admission, normalized for the batched bucketed prefill."""
+    """One admission, normalized for the batched bucketed prefill: a fresh
+    one (eager or lazy; a prefix sharer's uncond writes masked) or a resume
+    (prompt + generated tokens, no token emitted)."""
 
     def __init__(self, req: ServeRequest, slot: int, tokens: np.ndarray, true_len: int,
-                 key: int):
+                 key: int, *, u_mask_below: int | None = 0, emit: bool = True,
+                 u_tokens: np.ndarray | None = None, shared_pages: int = 0):
         self.req = req
         self.slot = slot
         self.tokens = tokens              # (true_len,) int32
         self.true_len = true_len
         self.key = key
+        self.u_mask_below = u_mask_below  # uncond writes drop below this table
+                                          # column (None: all of them)
+        self.emit = emit
+        self.u_tokens = u_tokens          # the uncond row; None: all PAD
+        self.shared_pages = shared_pages  # uncond prefix pages shared
 
 
 class ContinuousEngine:
-    """Phase-aware continuous batching over the paged KV arena.
+    """Phase-aware continuous batching over a slot or paged KV arena.
 
     ``model`` is a ``repro_torch.models.transformer.Transformer`` on the
     device the engine runs on (``Transformer.init`` puts it on the GPU
     unless asked for the CPU). The constructor takes the reference's
-    arguments and defaults; ``kv="paged"`` is required.
+    arguments and defaults.
     """
 
     def __init__(self, model, cfg, *, num_slots: int = 8,
@@ -214,20 +268,20 @@ class ContinuousEngine:
         if not 0.0 <= interval[0] < interval[1] <= 1.0:
             raise ValueError(f"interval {interval!r} must satisfy 0 <= start < stop <= 1")
         # what the port does not have yet
-        if kv == "slot":
-            raise _later('kv="slot" (the slot arena)', "A10.1")
-        if reservation == "lazy":
-            raise _later('reservation="lazy" (growth, preemption, resume, CoW)', "A10")
+        windows = [model._window(kind, False) for kind in cfg.blocks]
+        if kv == "slot" and any(w is not None and w < prompt_len + max_new for w in windows):
+            # a window under the row's capacity needs a ring a row
+            raise _later("a windowed model in the slot arena", "A4.1")
         if host_pool_bytes:
-            raise _later("host_pool_bytes (the host tier)", "A11")
+            raise _later("host_pool_bytes (the host tier)", "A5")
         if prefix_cache == "content":
-            raise _later('prefix_cache="content"', "A11")
+            raise _later('prefix_cache="content"', "A5")
         if tick_mode == "async":
-            raise _later('tick_mode="async"', "A11")
+            raise _later('tick_mode="async"', "A5")
         if mesh is not None or rules is not None:
-            raise _later("a mesh or sharding rules", "A13")
+            raise _later("a mesh or sharding rules", "A8")
         if pass_budget == "auto":
-            raise _later('pass_budget="auto" (the roofline autotuner)', "A11")
+            raise _later('pass_budget="auto" (the roofline autotuner)', "A5")
         if guidance_policy == "interval" and combine == "cfg":
             # the interval policy's semantics live in the combine stage
             combine = "interval"
@@ -237,7 +291,7 @@ class ContinuousEngine:
         if graphs and self.device.type != "cuda":
             raise ValueError("graphs=True needs a model on a CUDA device")
         # the ragged step as a CUDA graph (a port option: None = on a GPU);
-        # signature steps run eagerly
+        # signature steps run eagerly (ROADMAP A2.1)
         self.graphs = step_mode == "ragged" and (
             self.device.type == "cuda" if graphs is None else bool(graphs))
         self.num_slots = num_slots
@@ -254,6 +308,7 @@ class ContinuousEngine:
         self.apg_eta = apg_eta
         self.apg_threshold = apg_threshold
         self.interval = (float(interval[0]), float(interval[1]))
+        self.defrag_threshold = defrag_threshold
         self.prefills_per_tick = prefills_per_tick
         self.bucket = bucket
         self.kv = kv
@@ -267,11 +322,18 @@ class ContinuousEngine:
         self.reservation = reservation
         self.queue = ArrivalQueue(max_depth=queue_depth)
         self.pool = StatePool(num_slots)       # slot rows
-        # fails fast on stacks the paged arena cannot hold
-        self.page_bytes = kv_page_bytes(cfg, page_size, kv_dtype)
-        self.num_pages = num_pages if num_pages is not None \
-            else 2 * num_slots * self.nb_max
-        self.pages = PageAllocator(self.num_pages, page_size, kv_dtype=kv_dtype)
+        self.pages: PageAllocator | None = None
+        self._prefix: PrefixShareRegistry | None = None
+        self._resume: dict[str, _ResumeState] = {}
+        self.page_bytes = 0
+        if kv == "paged":
+            # fails fast on stacks the paged arena cannot hold
+            self.page_bytes = kv_page_bytes(cfg, page_size, kv_dtype)
+            self.num_pages = num_pages if num_pages is not None \
+                else 2 * num_slots * self.nb_max
+            self.pages = PageAllocator(self.num_pages, page_size, kv_dtype=kv_dtype)
+            if reservation == "lazy":
+                self._prefix = PrefixShareRegistry(self.pages)
         self.scheduler = Scheduler(self.pass_budget, policy=policy,
                                    starvation_limit=starvation_limit)
         self.metrics = ServeMetrics()
@@ -284,7 +346,9 @@ class ContinuousEngine:
         self._states: dict[str, _RequestState] = {}
         self._slots = _SlotArrays(num_slots)
         self._shapes: set = set()              # step shapes used, by the reference's jit keys
-        self._pool_p = None                    # one paged pool per layer
+        self._pool_c = None                    # slot: the cond pool, one per layer
+        self._pool_u = None                    # slot: the uncond pool
+        self._pool_p = None                    # paged: one pool per layer
         self._staging = None                   # the ragged step's host and device rows
         self._ragged_graph = None              # the captured ragged step (graphs)
 
@@ -300,7 +364,8 @@ class ContinuousEngine:
             S = self._prompt_len_for(req)
             # a request that can never fit the pool must not wedge the
             # FCFS head of the queue forever
-            if sum(stream_page_needs(plan, S, self.page_size)) > self.num_pages:
+            if self.kv == "paged" and \
+                    sum(stream_page_needs(plan, S, self.page_size)) > self.num_pages:
                 raise ValueError("page need exceeds pool")
         except ValueError:
             self.metrics.on_reject(req.uid, self.tick_count)
@@ -346,10 +411,23 @@ class ContinuousEngine:
         self.metrics.page_bytes = self.page_bytes
         with timer.phase("admit"):
             self._expire_queue(now)
-            self._admit_paged(now)
-            self.metrics.note_pages(self.pages.n_in_use, now)
+            if self.kv == "paged":
+                self._admit_paged(now)
+                self.metrics.note_pages(self.pages.n_in_use, now)
+            else:
+                self._admit(now)
+                self._maybe_defrag()
         with timer.phase("schedule"):
             plan = self.scheduler.plan_tick()
+            if self.reservation == "lazy" and plan.in_flight:
+                # on-demand growth, copy-on-write and priority preemption:
+                # the decision procedure the simulator replays
+                plan = provision_growth(
+                    plan, self.scheduler, self.pages, page_size=self.page_size,
+                    pos_of=lambda uid: int(self._slots.pos[self._states[uid].slot]),
+                    metrics=self.metrics, preempt=lambda uid: self._preempt(uid, now),
+                    copy_page=self._copy_page, reclaim_cache=self._reclaim_cache, now=now)
+                self.metrics.note_pages(self.pages.n_in_use, now)
         with timer.phase("step"):
             sampled, divs = self._execute(plan) if plan.in_flight else ([], [])
         with timer.phase("finalize"):
@@ -380,32 +458,44 @@ class ContinuousEngine:
                     # is dead, its pages go back to the shared pool now
                     state.uncond_dead = True
                     self.metrics.on_phase_transition(ev.uid, now)
-                    self.metrics.on_reclaim(ev.uid, now, self._release_uncond(ev.uid))
+                    if self.kv == "paged":
+                        self.metrics.on_reclaim(ev.uid, now, self._release_uncond(ev.uid))
             self.metrics.record_tick(
                 now, n_full=plan.n_full, n_cond=plan.n_cond, budget=plan.budget,
                 active=self.scheduler.n_active, queue_depth=len(self.queue),
-                pages_in_use=self.pages.n_in_use)
+                pages_in_use=self.pages.n_in_use if self.pages else 0)
         self.metrics.on_tick_timing(timer.finish())
         self.tick_count += 1
         return plan
 
     def kv_hbm_bytes(self) -> dict:
-        """Reserved vs peak-in-use KV arena bytes, from the page price alone
-        (asking never allocates the pool)."""
-        return {"kv": "paged", "kv_dtype": self.kv_dtype,
-                "reserved_bytes": self.num_pages * self.page_bytes,
-                "page_bytes": self.page_bytes,
-                "peak_in_use_bytes": self.metrics.peak_bytes_in_use,
-                "num_pages": self.num_pages,
-                "page_size": self.page_size}
+        """Reserved vs peak-in-use KV arena bytes, from the page price or the
+        row's shape alone (asking never allocates the pool)."""
+        if self.kv == "paged":
+            return {"kv": "paged", "kv_dtype": self.kv_dtype,
+                    "reserved_bytes": self.num_pages * self.page_bytes,
+                    "page_bytes": self.page_bytes,
+                    "peak_in_use_bytes": self.metrics.peak_bytes_in_use,
+                    "num_pages": self.num_pages,
+                    "page_size": self.page_size}
+        # one stream's row: bf16 {k, v} (capacity, K, hd) a layer
+        cfg = self.cfg
+        row_bytes = cfg.num_layers * 2 * self.capacity * cfg.num_kv_heads \
+            * cfg.resolved_head_dim * 2
+        peak_active = max((r.active for r in self.metrics.records), default=0)
+        return {"kv": "slot", "reserved_bytes": 2 * self.num_slots * row_bytes,
+                "row_bytes": 2 * row_bytes,
+                "peak_in_use_bytes": int(peak_active * 2 * row_bytes),
+                "num_slots": self.num_slots}
 
     def autotune_budget(self) -> dict:
-        raise _later('pass_budget="auto" (the roofline autotuner)', "A11")
+        raise _later('pass_budget="auto" (the roofline autotuner)', "A5")
 
     # -- admission ---------------------------------------------------------
 
     def _expire_queue(self, now: int) -> None:
         for dead in self.queue.expire(now):
+            self._resume.pop(dead.uid, None)
             self.metrics.on_expire(dead.uid, now)
 
     def _plan_for(self, req: ServeRequest) -> GuidancePlan:
@@ -429,11 +519,15 @@ class ContinuousEngine:
                            momentum=self.divergence_momentum,
                            interval=self.interval)
 
-    def _cursor_for(self, plan: GuidancePlan) -> PlanCursor:
+    def _cursor_for(self, plan: GuidancePlan, *, step: int = 0, passes: int = 0,
+                    switch_step: int | None = None, ema: float = 0.0) -> PlanCursor:
+        """The request's cursor through the configured policy;
+        ``switch_step``/``ema`` restore a preemption checkpoint's state."""
         policy = self._policy_for(plan)
         if isinstance(policy, DivergenceGuidancePolicy):
-            return policy.cursor(step=0, passes_executed=0, switch_step=None, ema=0.0)
-        return policy.cursor(step=0, passes_executed=0)
+            return policy.cursor(step=step, passes_executed=passes,
+                                 switch_step=switch_step, ema=ema)
+        return policy.cursor(step=step, passes_executed=passes)
 
     def _eff_scale(self, uid: str, lstep: int | None = None) -> np.float32:
         """Combine-stage guidance scale for ``uid``'s next sample: flat,
@@ -480,7 +574,11 @@ class ContinuousEngine:
 
     def _prompt_len_for(self, req: ServeRequest) -> int:
         S = self.prompt_len if req.prompt_len is None else req.prompt_len
-        if not 1 <= S <= self.prompt_len:
+        if self.kv == "slot":
+            if S != self.prompt_len:
+                raise ValueError(f"slot arena serves fixed prompt_len={self.prompt_len}, "
+                                 f"got {S}")
+        elif not 1 <= S <= self.prompt_len:
             raise ValueError(f"prompt_len {S} outside [1, {self.prompt_len}]")
         return S
 
@@ -492,19 +590,103 @@ class ContinuousEngine:
             ids = ids + [PAD] * (length - len(ids))
         return np.asarray(ids, np.int32)
 
+    def _admit(self, now: int) -> None:
+        """Slot arena: admit up to the quota, one prefill of both streams a
+        request at ``prompt_len``, into its rows of the two pools."""
+        quota = min(self.scheduler.admission_quota(self.pool.n_free),
+                    self.prefills_per_tick)
+        for _ in range(quota):
+            req = self.queue.pop()
+            if req is None:
+                return
+            plan = self._plan_for(req)
+            plan.validate_for_ar()
+            cursor = self._cursor_for(plan)
+            slot = self._admit_common(req, cursor, self.prompt_len)
+            state = self._states[req.uid]
+            key = self._fresh_key()
+            self._slots.lstep[slot] = 0
+            self._slots.key[slot] = key
+            if self._pool_c is None:
+                self._init_pools()
+            tok0 = self._prefill_slot(req, slot, key)
+            self.metrics.on_admit(req.uid, now, total_steps=plan.total_steps,
+                                  full_steps=plan.denoiser_passes() - plan.total_steps)
+            if self.stop_on_eos and tok0 == EOS:
+                self._finalize(req.uid, now)
+                continue
+            self._slots.tok[slot] = tok0
+            state.generated.append(tok0)
+            self.metrics.on_token(req.uid, now)       # TTFT: prefill emits
+
+    def _init_pools(self) -> None:
+        """The slot arena's cond and uncond pools: per layer {k, v}
+        (num_slots + 1, capacity, K, hd) bf16. Row ``num_slots`` is a spare
+        that a group's padding rows read and write (the reference's
+        out-of-range slot index: reads clamp, writes drop)."""
+        self._pool_c, self._pool_u = (
+            [A.cache_spec(self.cfg, self.num_slots + 1, self.capacity, device=self.device)
+             for _ in range(self.cfg.num_layers)] for _ in range(2))
+
+    def _prefill_slot(self, req: ServeRequest, slot: int, key: int) -> int:
+        """Both streams' prefill of one request into row ``slot`` of the two
+        pools (what the row holds past the prompt is never read: a step
+        writes each position before it attends to it); -> token 0."""
+        S = self.prompt_len
+        self._seen(("prefill", _bucket(S), 1), step=False)
+        tok = self._dev(self._tokenize(req.prompt, S)[None], torch.long)
+        l_c, caches_c = AR.prefill(self.model, tok)
+        l_u, caches_u = AR.prefill(self.model, AR.null_prompt(tok))
+        for pool, caches in ((self._pool_c, caches_c), (self._pool_u, caches_u)):
+            for layer, c in zip(pool, caches):
+                for name in ("k", "v"):
+                    layer[name][slot, :S] = c[name][0]
+        scale = self._dev(np.asarray([self._eff_scale(req.uid, 0)], np.float32))
+        logits = self._combine(l_u, l_c, scale)
+        return int(self._sample(logits, [req.uid], [req.temperature], [key], [0])[0])
+
+    def _maybe_defrag(self) -> None:
+        """Compact the slot pools once holes pass ``defrag_threshold``: the
+        rows permuted in place, the host arrays and the scheduler re-slotted."""
+        if self.pool.fragmentation() <= self.defrag_threshold:
+            return
+        src = self.pool.defrag_plan()
+        if src is None or self._pool_c is None:
+            return
+        self._seen(("defrag",), step=False)
+        idx = self._dev(src, torch.long)
+        n = self.num_slots
+        for layer in self._pool_c + self._pool_u:
+            for t in layer.values():
+                t[:n] = t[:n].index_select(0, idx)
+        self._slots.permute(src)
+        for slot, uid in self.pool.active():
+            self._states[uid].slot = slot
+            self.scheduler.reslot(uid, slot)
+
     def _admit_paged(self, now: int) -> None:
         """Pop admissible requests, prefill them in per-length-bucket
-        batches (one forward serves k > 1 admissions of a bucket),
-        then emit the admission events in queue order. Eager reservation:
-        admission needs the full worst-case page span of both streams."""
+        batches (one forward serves k > 1 admissions of a bucket), then emit
+        the admission events in queue order. Eager reservation needs the
+        full worst-case page span of both streams; lazy the prompt's pages
+        (a shared uncond prefix needs none), and a preempted request
+        re-admits through the same prefill, its KV rebuilt from prompt +
+        generated tokens, emitting no token."""
         quota = min(self.scheduler.admission_quota(self.pool.n_free),
                     self.prefills_per_tick)
         batch: list[_PrefillItem] = []
+        lazy = self.reservation == "lazy"
         while len(batch) < quota:
             req = self.queue.peek()
             if req is None:
                 break
-            item = self._try_admit_eager(req, self._plan_for(req), self._prompt_len_for(req))
+            plan, S = self._plan_for(req), self._prompt_len_for(req)
+            if lazy and req.uid in self._resume:
+                item = self._try_admit_resume(req, plan, S)
+            elif lazy:
+                item = self._try_admit_lazy(req, plan, S)
+            else:
+                item = self._try_admit_eager(req, plan, S)
             if item is None:
                 break                         # head-of-line waits for pages
             batch.append(item)
@@ -519,13 +701,18 @@ class ContinuousEngine:
         tok0_of: dict[str, int] = {}
         for Sb in sorted(groups):
             items = groups[Sb]
-            tok0 = self._prefill_paged_group(Sb, items).cpu()
-            for i, it in enumerate(items):
-                tok0_of[it.req.uid] = int(tok0[i])
-        # bookkeeping in queue order, not bucket order
+            tok0_of.update(self._prefill_paged_group(Sb, items))
+        # bookkeeping in queue order, not bucket order: share -> admit ->
+        # first token, or share -> resume, a request at a time
         for it in batch:
             uid = it.req.uid
+            if it.shared_pages:
+                self.metrics.on_share(uid, now, it.shared_pages)
             state = self._states[uid]
+            if not it.emit:
+                self.metrics.on_resume(uid, now, full=int(state.cursor.mode is Mode.FULL),
+                                       from_host=False)
+                continue
             plan = state.cursor.plan
             self.metrics.on_admit(uid, now, total_steps=plan.total_steps,
                                   full_steps=plan.denoiser_passes() - plan.total_steps,
@@ -538,6 +725,18 @@ class ContinuousEngine:
             state.generated.append(t0)
             self.metrics.on_token(uid, now)           # TTFT: prefill emits
 
+    def _admit_common(self, req: ServeRequest, cursor: PlanCursor, pos: int) -> int:
+        """Claim a slot, admit to the scheduler, set the slot's scalars."""
+        slot = self.pool.alloc(req.uid)
+        assert slot is not None
+        self._states[req.uid] = _RequestState(req, cursor, slot)
+        self.scheduler.admit(req.uid, slot, cursor, arrival=req.arrival,
+                             deadline=req.deadline, priority=req.priority)
+        self._slots.pos[slot] = pos
+        self._slots.scale[slot] = req.guidance_scale
+        self._slots.temp[slot] = req.temperature
+        return slot
+
     def _try_admit_eager(self, req: ServeRequest, plan: GuidancePlan,
                          S: int) -> _PrefillItem | None:
         need_c, need_u = stream_page_needs(plan, S, self.page_size)
@@ -547,58 +746,110 @@ class ContinuousEngine:
         self.pages.alloc(req.uid, "c", need_c)
         if need_u:
             self.pages.alloc(req.uid, "u", need_u)
-        slot = self.pool.alloc(req.uid)
-        assert slot is not None
-        self._states[req.uid] = _RequestState(req, self._cursor_for(plan), slot)
-        self.scheduler.admit(req.uid, slot, self._states[req.uid].cursor,
-                             arrival=req.arrival, deadline=req.deadline,
-                             priority=req.priority)
+        slot = self._admit_common(req, self._cursor_for(plan), S)
         key = self._fresh_key()
-        self._slots.pos[slot] = S
-        self._slots.scale[slot] = req.guidance_scale
-        self._slots.temp[slot] = req.temperature
         self._slots.lstep[slot] = 0
         self._slots.key[slot] = key
         return _PrefillItem(req, slot, self._tokenize(req.prompt, S), S, key)
+
+    def _try_admit_lazy(self, req: ServeRequest, plan: GuidancePlan,
+                        S: int) -> _PrefillItem | None:
+        shared = self._prefix.lookup(S) is not None
+        need_c, need_u, wants_u = fresh_lazy_needs(plan, S, self.page_size, shared=shared)
+        if self.pages.n_free < need_c + need_u:
+            return None
+        self.queue.pop()
+        self.pages.alloc(req.uid, "c", need_c)
+        u_mask: int | None = 0                 # the founder writes everything
+        n_share = 0
+        if wants_u and shared:
+            n_share = len(self._prefix.acquire(S, req.uid))
+            u_mask = None                      # canonical content: no writes
+        elif wants_u:
+            self.pages.alloc(req.uid, "u", need_u)
+            self._prefix.publish(S, req.uid)   # this prefill is canonical
+        slot = self._admit_common(req, self._cursor_for(plan), S)
+        key = self._fresh_key()
+        self._slots.lstep[slot] = 0
+        self._slots.key[slot] = key
+        return _PrefillItem(req, slot, self._tokenize(req.prompt, S), S, key,
+                            u_mask_below=u_mask, shared_pages=n_share)
+
+    def _try_admit_resume(self, req: ServeRequest, plan: GuidancePlan,
+                          S: int) -> _PrefillItem | None:
+        """Re-admit a preempted request by recompute: its pages granted
+        afresh (the whole-page uncond prompt prefix shared where a canonical
+        copy exists), its KV rebuilt by one prefill over prompt + generated
+        tokens, its checkpoint restored."""
+        rs = self._resume[req.uid]
+        shared = self._prefix.lookup(S) is not None
+        need_c, need_u, wants_u, n_share = resume_lazy_needs(
+            plan, rs.step, S, self.page_size, shared=shared, switch_step=rs.switch_step)
+        if self.pages.n_free < need_c + need_u:
+            return None
+        self.queue.pop()
+        del self._resume[req.uid]
+        self.pages.alloc(req.uid, "c", need_c)
+        u_mask: int | None = None
+        if wants_u:
+            if n_share:
+                self._prefix.acquire(S, req.uid, count=n_share)
+                if need_u:
+                    self.pages.grow(req.uid, "u", need_u)
+                u_mask = n_share               # write only the private tail
+            else:
+                self.pages.alloc(req.uid, "u", need_u)
+                u_mask = 0
+        L = S + rs.step
+        cursor = self._cursor_for(plan, step=rs.step, passes=rs.passes,
+                                  switch_step=rs.switch_step, ema=rs.ema)
+        slot = self._admit_common(req, cursor, L)
+        state = self._states[req.uid]
+        state.uncond_dead = rs.uncond_dead
+        state.generated = list(rs.generated)
+        self._slots.tok[slot] = rs.generated[-1]
+        self._slots.lstep[slot] = rs.step
+        self._slots.key[slot] = rs.key
+        row = np.concatenate([self._tokenize(req.prompt, S),
+                              np.asarray(rs.generated[:-1], np.int32)])
+        # the uncond stream consumed the sampled tokens during decode: null
+        # the prompt only, replay the generated suffix
+        u_row = row.copy()
+        u_row[:S] = PAD
+        return _PrefillItem(req, slot, row, L, rs.key, u_mask_below=u_mask, emit=False,
+                            u_tokens=u_row, shared_pages=n_share if wants_u else 0)
 
     def _fresh_key(self) -> int:
         key = int(np.random.SeedSequence([self.seed, self._req_seq]).generate_state(1)[0])
         self._req_seq += 1
         return key
 
-    def _prefill_paged_group(self, Sb: int, items: list[_PrefillItem]):
+    def _prefill_paged_group(self, Sb: int, items: list[_PrefillItem]) -> dict[str, int]:
         """Both streams' prefill of one length bucket, padded to a pow2
-        count of rows: the forwards, token 0 from each row's last position,
-        and the KV scattered through the rows' block tables (padding and
-        uncovered positions drop). -> token 0 per row (device)."""
+        count of rows: the forwards, token 0 from each emitting row's last
+        position, and the KV scattered through the rows' block tables
+        (padding, masked uncond columns and uncovered positions drop).
+        -> uid -> token 0 of the emitting rows."""
         kb = _bucket(len(items))
         self._seen(("prefill", Sb, kb), step=False)
         nb_pre = pages_for(Sb, self.page_size)
         tokens = np.full((kb, Sb), PAD, np.int32)
+        tokens_u = np.full((kb, Sb), PAD, np.int32)    # PAD == the null token
         true_len = np.ones(kb, np.int64)
         btc = np.full((kb, nb_pre), self.num_pages, np.int32)
         btu = np.full((kb, nb_pre), self.num_pages, np.int32)
-        scales = np.zeros(kb, np.float32)
-        temps = np.zeros(kb, np.float32)
         for i, it in enumerate(items):
             tokens[i, :it.true_len] = it.tokens
+            if it.u_tokens is not None:
+                tokens_u[i, :it.true_len] = it.u_tokens
             true_len[i] = it.true_len
             btc[i] = self.pages.table(it.req.uid, "c", nb_pre)
-            btu[i] = self.pages.table(it.req.uid, "u", nb_pre)
-            scales[i] = self._eff_scale(it.req.uid, 0)
-            temps[i] = it.req.temperature
+            tu = self.pages.table(it.req.uid, "u", nb_pre)
+            tu[:len(tu) if it.u_mask_below is None else it.u_mask_below] = self.num_pages
+            btu[i] = tu
         model, ps = self.model, self.page_size
-        tok = self._dev(tokens, torch.long)
-        h_c, caches_c = model(tok, want_caches=True)
-        # the null stream: all PAD (== the reference's null_prompt)
-        h_u, caches_u = model(torch.full_like(tok, PAD), want_caches=True)
-        rows = torch.arange(kb, device=self.device)
-        last = self._dev(true_len - 1)
-        l_c = model.unembed(h_c[rows, last][:, None])[:, 0].float()
-        l_u = model.unembed(h_u[rows, last][:, None])[:, 0].float()
-        logits = self._combine(l_u, l_c, self._dev(scales))
-        tok0 = self._sample(logits, [it.req.uid for it in items], temps,
-                            [it.key for it in items], np.zeros(kb, np.int64))
+        h_c, caches_c = model(self._dev(tokens, torch.long), want_caches=True)
+        h_u, caches_u = model(self._dev(tokens_u, torch.long), want_caches=True)
         col = np.arange(Sb) // ps
         offs = self._dev(np.tile(np.arange(Sb) % ps, kb))
         pages_c = self._dev(btc[:, col].reshape(-1))
@@ -606,17 +857,66 @@ class ContinuousEngine:
         for pool, cc, cu in zip(self._pool_p, caches_c, caches_u):
             A.paged_scatter_prefill(pool, cc, pages_c, offs)
             A.paged_scatter_prefill(pool, cu, pages_u, offs)
-        return tok0
+        emit = [i for i, it in enumerate(items) if it.emit]
+        if not emit:
+            return {}
+        rows = self._dev(np.asarray(emit))
+        last = self._dev(true_len[emit] - 1)
+        l_c = model.unembed(h_c[rows, last][:, None])[:, 0].float()
+        l_u = model.unembed(h_u[rows, last][:, None])[:, 0].float()
+        scales = np.asarray([self._eff_scale(items[i].req.uid, 0) for i in emit], np.float32)
+        logits = self._combine(l_u, l_c, self._dev(scales))
+        tok0 = self._sample(logits, [items[i].req.uid for i in emit],
+                            [items[i].req.temperature for i in emit],
+                            [items[i].key for i in emit], np.zeros(len(emit), np.int64))
+        return dict(zip((items[i].req.uid for i in emit), tok0.tolist()))
 
     def _release_uncond(self, uid: str) -> int:
-        """Free a request's unconditional pages at the COND transition."""
-        return self.pages.free(uid, "u")
+        """Free a request's unconditional pages at the COND transition, and
+        its prefix-registry membership with them (canonical pages that this
+        frees count too)."""
+        freed = self.pages.free(uid, "u")
+        if self._prefix is not None:
+            freed += self._prefix.release(uid)
+        return freed
+
+    def _reclaim_cache(self) -> bool:
+        """Pool pressure: evict a length-keyed uncond prefix entry."""
+        return self._prefix.evict_under_pressure()
+
+    def _preempt(self, uid: str, now: int) -> None:
+        """Evict ``uid`` back to the front of the queue: its pages freed for
+        the preemptor, its cursor, tokens and key checkpointed, so that its
+        resume is token-identical to an uninterrupted run."""
+        state = self._states.pop(uid)
+        self._resume[uid] = _ResumeState(
+            step=state.cursor.step, passes=state.cursor.passes_executed,
+            generated=list(state.generated), key=int(self._slots.key[state.slot]),
+            switch_step=getattr(state.cursor, "switch_step", None),
+            ema=getattr(state.cursor, "ema", 0.0), uncond_dead=state.uncond_dead)
+        self.pool.free(state.slot)
+        self.metrics.on_preempt(uid, now)
+        self.pages.free_all(uid)
+        self._prefix.release(uid)
+        self.scheduler.release(uid)
+        self.queue.requeue(state.req)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The copy behind a copy-on-write detach: page ``src`` to ``dst`` in
+        every layer's pool, values and (int8) scales."""
+        for pool in self._pool_p:
+            for t in pool.values():
+                t[dst] = t[src]
 
     def _finalize_state(self, uid: str) -> _RequestState:
-        """Free the slot and pages and publish the result."""
+        """Free the slot, pages and registry membership and publish the
+        result."""
         state = self._states.pop(uid)
         self.pool.free(state.slot)
-        self.pages.free_all(uid)
+        if self.pages is not None:
+            self.pages.free_all(uid)
+            if self._prefix is not None:
+                self._prefix.release(uid)
         self.scheduler.release(uid)
         self.results[uid] = state.generated
         return state
@@ -662,6 +962,34 @@ class ContinuousEngine:
             emb = model.embed_tokens(self._dev(c["tok"], torch.long)[:, None])
             h_c, _ = model.decode_step_paged(emb, self._pool_p, self._dev(c["btc"]),
                                              self._dev(c["pos"]))
+            logits = model.unembed(h_c)[:, 0, :].float()
+            c_next = self._sample(logits, c["uids"], c["temp"], c["key"], 1 + c["lstep"])
+        return f_next, c_next, f_div
+
+    def _slot_step(self, f: dict, c: dict):
+        """Mixed-phase decode step of the slot arena for one occupancy
+        signature: the FULL group's two streams and the COND group's cond
+        stream, each row read and written in place in its slot's row at its
+        own position (B5 per row). -> (next tokens of each group, FULL
+        divergences), None for an empty group."""
+        n_full, n_cond = len(f["tok"]), len(c["tok"])
+        self._seen(("step", n_full, n_cond), step=True)
+        model = self.model
+        f_next = c_next = f_div = None
+        if n_full:
+            emb = model.embed_tokens(self._dev(f["tok"], torch.long)[:, None])
+            pos, rows = self._dev(f["pos"]), self._dev(f["rows"])
+            h_c, _ = model.decode_step(emb, self._pool_c, pos, rows=rows)
+            h_u, _ = model.decode_step(emb, self._pool_u, pos, rows=rows)
+            l_c = model.unembed(h_c)[:, 0, :].float()
+            l_u = model.unembed(h_u)[:, 0, :].float()
+            logits = self._combine(l_u, l_c, self._dev(f["scale"]))
+            f_next = self._sample(logits, f["uids"], f["temp"], f["key"], 1 + f["lstep"])
+            f_div = torch.sqrt(((l_c - l_u) ** 2).sum(-1))
+        if n_cond:
+            emb = model.embed_tokens(self._dev(c["tok"], torch.long)[:, None])
+            h_c, _ = model.decode_step(emb, self._pool_c, self._dev(c["pos"]),
+                                       rows=self._dev(c["rows"]))
             logits = model.unembed(h_c)[:, 0, :].float()
             c_next = self._sample(logits, c["uids"], c["temp"], c["key"], 1 + c["lstep"])
         return f_next, c_next, f_div
@@ -714,7 +1042,8 @@ class ContinuousEngine:
         nc_b = _bucket(plan.n_cond) if self.bucket else plan.n_cond
         f = self._group(plan.full, nf_b, full=True)
         c = self._group(plan.cond, nc_b, full=False)
-        f_next, c_next, f_div = self._paged_step(f, c)
+        step = self._paged_step if self.kv == "paged" else self._slot_step
+        f_next, c_next, f_div = step(f, c)
         toks = [] if f_next is None else f_next[:plan.n_full].tolist()
         toks += [] if c_next is None else c_next[:plan.n_cond].tolist()
         divs = [] if f_div is None else f_div[:plan.n_full].tolist()
@@ -722,7 +1051,8 @@ class ContinuousEngine:
 
     def _group(self, entries, n: int, *, full: bool) -> dict:
         """Host rows of one signature group, padded to ``n`` with
-        out-of-range tables (reads clamp, writes drop)."""
+        out-of-range tables (reads clamp, writes drop), or in the slot arena
+        with the spare row."""
         slots = np.asarray([e.slot for e in entries], np.int64)
         pad = n - len(slots)
 
@@ -738,6 +1068,9 @@ class ContinuousEngine:
                                         np.float32)
             else:
                 g["scale"] = take(self._slots.scale)
+        if self.kv == "slot":
+            g["rows"] = np.concatenate([slots, np.full(pad, self.num_slots)]).astype(np.int32)
+            return g
         for stream in ("c", "u") if full else ("c",):
             bt = np.full((n, self.nb_max), self.num_pages, np.int32)
             for i, e in enumerate(entries):

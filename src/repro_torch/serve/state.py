@@ -7,7 +7,7 @@ from the config here, not from abstract specs), ``pages_for_pool_bytes``,
 the eager and lazy page needs, ``PageAllocator`` with the share registries
 and ``content_key``, and the bookkeeping half of ``HostPagePool`` with
 ``plan_swap_out``. The host tier's storage arena and the sharding helpers
-are not ported (ROADMAP A11, A13).
+are not ported (ROADMAP A5, A8).
 """
 
 from __future__ import annotations
@@ -695,7 +695,7 @@ class HostPagePool:
     whole-checkpoint LRU eviction, and a :meth:`check` conservation audit
     mirroring :meth:`PageAllocator.check`. It is model-free. The storage
     half (a pinned host arena the pages are copied into) is not ported yet
-    (ROADMAP A11).
+    (ROADMAP A5).
 
     Unlike the device allocator there is no refcounting: a checkpoint's
     host pages have exactly one owner (sharing is a device-tier concept),

@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as jget_smoke
 from repro.core import ar_decode as JAR
@@ -46,6 +47,17 @@ from repro_torch.serve import ContinuousEngine, ServeRequest
 from repro_torch.serve.state import kv_page_bytes, pages_for
 
 LOGIT_TOL = 3e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The engines run thousands of small ops: on a machine shared by
+    several test workers, torch's thread pool spends more time waiting than
+    computing, so this module runs torch on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _Recording(ContinuousEngine):
@@ -129,8 +141,9 @@ def _check(world, jeng, jout, teng, tout, reqs):
     for name in ("step_compiles", "step_launches", "pages_reclaimed", "peak_pages_in_use",
                  "peak_bytes_in_use", "denoiser_passes", "tokens_emitted"):
         assert getattr(tm, name) == getattr(jm, name), name
-    assert teng.pages.n_free == teng.pages.num_pages
-    teng.pages.check()
+    if teng.pages is not None:
+        assert teng.pages.n_free == teng.pages.num_pages
+        teng.pages.check()
     assert sorted(tout) == sorted(jout)
     tol = LOGIT_TOL * (1.5 if teng.kv_dtype == "int8" else 1.0)
     compared = total = 0
@@ -255,14 +268,12 @@ def test_divergence_policy_switches_like_the_reference(world):
     assert teng.metrics.policy_switches == jeng.metrics.policy_switches > 0
 
 
-@pytest.mark.parametrize("kw", [dict(kv="slot"), dict(kv="paged", reservation="lazy"),
-                                dict(kv="paged", reservation="lazy", host_pool_bytes=1 << 20),
+@pytest.mark.parametrize("kw", [dict(kv="paged", reservation="lazy", host_pool_bytes=1 << 20),
                                 dict(kv="paged", reservation="lazy", prefix_cache="content"),
                                 dict(kv="paged", tick_mode="async", stop_on_eos=False),
                                 dict(kv="paged", mesh=object()),
                                 dict(kv="paged", pass_budget="auto")],
-                         ids=["slot", "lazy", "host_tier", "content_cache", "async", "mesh",
-                              "auto_budget"])
+                         ids=["host_tier", "content_cache", "async", "mesh", "auto_budget"])
 def test_out_of_slice_options_raise(world, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ContinuousEngine(world.model, world.cfg, **kw)
