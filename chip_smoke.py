@@ -83,13 +83,15 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 13. serve main path: ``ContinuousEngine`` on llama3.2-1b at full width and
    depth, 16 requests of 128 to 512 prompt tokens and 128 new tokens
    arriving two a tick, ragged bf16 (graphed) at f in {0, 0.2, 0.5} and at
-   f = 0.2 ragged int8 (graphed), signature bf16 and signature int8, and
-   ragged bf16 and int8 eager (``graphs=False``), each after a warm-up,
-   with exact launch counts of the paged kernels and RMSNorm's launches by
-   rows; graphed against eager on the same trace, ragged bf16 and int8 at
-   f = 0.2 (``[sgraphs]``): event streams equal, ``step_compiles`` 1 for
-   both, tokens equal up to the first step the two runs' logits do not
-   decide; then a steady tick of each of the four (graphed and eager,
+   f = 0.2 ragged int8, signature bf16 and signature int8 (graphed, a
+   capture a signature bucket), and the same four eager
+   (``graphs=False``), each after a warm-up, with exact launch counts of
+   the paged kernels and RMSNorm's launches by rows; graphed against eager
+   on the same trace at f = 0.2 (``[sgraphs]``), ragged bf16 and int8 at
+   full depth and signature bf16 and int8 on the first two layers: event
+   streams equal, ``step_compiles`` equal (1 for ragged), tokens equal up
+   to the first step the two runs' logits do not decide, launches exact;
+   then a steady tick of each of the four ragged (graphed and eager,
    bf16 and int8) under ``torch.profiler``: wall per tick, busy share,
    RMSNorm's and the paged kernel's shares;
 14. training kernels vs plain: B6 (bf16 x at 2048 and 16 rows of 2048,
@@ -121,8 +123,11 @@ Phases, each of which ends the script with a non-zero exit if it fails:
 18. B5's per-row form, the slot arena's step (a position and a cache row
    a query row), against its plain version at the slot shape (8 rows of a 9-row pool of capacity
    640, positions over [512, 639], in order and permuted with a padding
-   row on the spare, bf16 and float32, window None/256), timed beside its
-   bound, its plain version and SDPA with a per-row mask (``[slotkern]``);
+   row on the spare, bf16 and float32, window None/256), and its
+   ring-a-row form, a windowed slot arena's (8 rows of a pool of 9 rings
+   of 128 slots, h2o-danube-3-4b's heads, every ring wrapped, a padding
+   row on the empty spare), each timed beside its bound, its plain version
+   and SDPA with a per-row mask (``[slotkern]``);
 19. slot and lazy parity: the slot arena and lazy reservation (ragged bf16
    and int8, signature bf16; a pool the simulator sizes to preempt and
    copy on write) on llama3.2-1b at full width, 2 layers, CPU against GPU:
@@ -131,8 +136,12 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    simulator's (``[slotparity]``);
 20. the slot arena (the engine's default) at full width and depth: phase
    13's 16 requests padded to prompts of 512, 128 new tokens, 8 slots, f =
-   0.2, the signature step eager: wall, tokens/s, ticks, B5's per-row and
-   B4's launches exact (``[slotmain]``);
+   0.2; two requests graphed and eager with bit-equal logits, then the
+   trace with the signature step graphed (the default) and eager: wall,
+   tokens/s, ticks, each capture's ms and pool bytes, B5's per-row and
+   B4's launches exact, and a steady tick's busy share of each
+   (``[slotmain]``); then 8 requests at temperature 0.7, graphed and
+   eager: the host ms a tick spends drawing (``[slotdraw]``);
 21. lazy reservation at full width and depth: 16 requests from the port's
    ``poisson_arrivals`` (rate 1.0), prompts of 120/248/376/504 (each 8 short
    of phase 13's, so that a shared prefix ends inside a page of 16, where
@@ -141,7 +150,12 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    copy-on-write), bf16 and int8 with the ragged step graphed: counters and
    events equal the simulator's, TTFT/TPOT p50/p99 (``[lazymain]``);
 22. ``ServingEngine``: one ``generate`` of 8 requests at full depth, its
-   pass count exact (``[facade]``).
+   pass count exact (``[facade]``);
+23. a windowed model in the slot arena: h2o-danube-3-4b at full width, 2
+   layers, its window cut to 128 under prompts of 160 (a ring a row in
+   both pools), three requests, CPU against GPU (graphed): events equal,
+   tokens margin-guarded, every B5 launch the ring-a-row form's, one per
+   layer and decode forward (``[ringslot]``).
 
 Phases 18-22 run after phase 13, on its model.
 
@@ -1930,7 +1944,8 @@ def phase_serve_main():
     runs = [("ragged", "bf16", 0.0, None), ("ragged", "bf16", 0.2, None),
             ("ragged", "bf16", 0.5, None), ("ragged", "int8", 0.2, None),
             ("signature", "bf16", 0.2, None), ("signature", "int8", 0.2, None),
-            ("ragged", "bf16", 0.2, False), ("ragged", "int8", 0.2, False)]
+            ("ragged", "bf16", 0.2, False), ("ragged", "int8", 0.2, False),
+            ("signature", "bf16", 0.2, False), ("signature", "int8", 0.2, False)]
     totals, rows, census = {}, [], {}
     for step_mode, kv_dtype, f, graphs in runs:
         def engine():
@@ -1958,9 +1973,11 @@ def phase_serve_main():
         kern = _paged_kernel_of(step_mode, kv_dtype)
         want = cfg.num_layers * _decode_forwards(m, step_mode)
         others = sum(counts[n] for n in PAGED if n != kern)
-        if counts[kern] != want or others:
+        captures = len(eng._sig_graphs) + (eng._ragged_graph is not None)
+        if counts[kern] != want or others or captures != (m.step_compiles if eng.graphs else 0):
             fail(f"smain {what}: {kern} x{counts[kern]}, want {want} "
-                 f"(= {cfg.num_layers} layers x decode forwards); other paged kernels x{others}")
+                 f"(= {cfg.num_layers} layers x decode forwards); other paged kernels x{others}; "
+                 f"captures {captures} of {m.step_compiles} compiles")
         if graphs is None:        # the main path: the graphed default
             for k, v in counts.items():
                 totals[k] = totals.get(k, 0) + v
@@ -1979,10 +1996,10 @@ def phase_serve_main():
             f"{m.peak_pages_in_use}, peak bytes {m.peak_bytes_in_use}, step launches "
             f"{m.step_launches} (compiles {m.step_compiles}), launches "
             f"{ {k: v for k, v in counts.items() if v} }, peak device memory {peak:.2f} GB; "
-            f"first tokens {out['q0'][:6]}")
+            f"first tokens {out['q0'][:6]}" + (f"; {_graph_summary(eng)}" if eng.graphs else ""))
     if sum(census.values()) != totals["rmsnorm"]:
         fail(f"smain: rmsnorm census {census} against {totals['rmsnorm']} launches")
-    log(f"[smain] rmsnorm launches by rows x dim over the six graphed-default runs: "
+    log(f"[smain] rmsnorm launches by rows x dim over the six graphed runs: "
         f"{census_summary(census)}")
     return model, totals, rows
 
@@ -1998,34 +2015,57 @@ def _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs=None, cls=None, laz
         selective_fraction=f, step_mode=step_mode, kv_dtype=kv_dtype, graphs=graphs, **lazy)
 
 
+def _shallow(model, n: int):
+    """The first ``n`` layers of ``model`` as a model of their own, on the
+    same weight tensors (nothing copied)."""
+    import dataclasses
+
+    from repro_torch.models.transformer import Transformer
+    keep = {k: t for k, t in model.state_dict().items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+    return Transformer.from_state_dict(dataclasses.replace(model.cfg, num_layers=n), keep)
+
+
 def phase_serve_graphs(model) -> None:
-    """Graphed against eager on the serve main path's trace (full depth),
-    ragged bf16 and ragged int8 at f = 0.2: event streams equal,
-    ``step_compiles`` 1 for both, tokens equal up to the first step that
-    the two runs' logits do not decide (phase 12's guard), logits within
-    ``SERVE_LOGIT_TOL``."""
+    """Graphed against eager on the serve main path's trace at f = 0.2:
+    ragged bf16 and int8 at full depth, and the signature step bf16 and
+    int8 on the model's first two layers (phase 13 times both signature
+    runs at full depth): event streams equal, ``step_compiles`` equal (1
+    for ragged, a capture a signature bucket), tokens equal up to the first
+    step that the two runs' logits do not decide (phase 12's guard), logits
+    within ``SERVE_LOGIT_TOL``, the paged kernel's launches exact."""
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
 
     Recording = _recording_engine()
     arrivals = [i // 2 for i in range(16)]
-    for kv_dtype in ("bf16", "int8"):
+    small = _shallow(model, 2)
+    cases = [("ragged", "bf16", model), ("ragged", "int8", model),
+             ("signature", "bf16", small), ("signature", "int8", small)]
+    for step_mode, kv_dtype, m in cases:
         runs = {}
         for graphs in (False, None):
-            eng = _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, graphs, Recording)
+            eng = _serve_engine(m, m.cfg, step_mode, kv_dtype, 0.2, graphs, Recording)
+            reset_launches()
             out = eng.serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
             torch.cuda.synchronize()
-            runs[eng.graphs] = (eng, out)
-        (ee, eo), (ge, go) = runs[False], runs[True]
-        tag = f"sgraphs ragged {kv_dtype} f=0.2"
+            runs[eng.graphs] = (eng, out, launch_counts())
+        (ee, eo, el), (ge, go, gl) = runs[False], runs[True]
+        tag = f"sgraphs {step_mode} {kv_dtype} f=0.2 x{m.cfg.num_layers} layers"
+        kern = _paged_kernel_of(step_mode, kv_dtype)
+        want = m.cfg.num_layers * _decode_forwards(ge.metrics, step_mode)
         if ee.metrics.trace.keys() != ge.metrics.trace.keys():
             fail(f"{tag}: event streams differ")
-        if (ee.metrics.step_compiles, ge.metrics.step_compiles) != (1, 1):
-            fail(f"{tag}: step_compiles eager {ee.metrics.step_compiles}, graphed "
-                 f"{ge.metrics.step_compiles}; want 1")
-        log(f"[sgraphs] ragged {kv_dtype} f=0.2, graphed against eager: {len(eo)} requests, "
-            f"{ge.tick_count} ticks, events equal ({len(ge.metrics.trace.keys())}), "
-            f"step_compiles 1 and 1; " + _serve_margin(tag, ee, eo, ge, go))
+        compiles = (ee.metrics.step_compiles, ge.metrics.step_compiles)
+        captures = len(ge._sig_graphs) + (ge._ragged_graph is not None)
+        if compiles[0] != compiles[1] or (step_mode == "ragged" and compiles[0] != 1) \
+                or captures != compiles[1] or el[kern] != want or gl[kern] != want:
+            fail(f"{tag}: step_compiles eager/graphed {compiles}, captures {captures}, {kern} "
+                 f"x{el[kern]}/x{gl[kern]} (want {want})")
+        log(f"[sgraphs] {step_mode} {kv_dtype} f=0.2 x{m.cfg.num_layers} layers, graphed "
+            f"against eager: {len(eo)} requests, {ge.tick_count} ticks, events equal "
+            f"({len(ge.metrics.trace.keys())}), step_compiles {compiles[0]} and {compiles[1]}, "
+            f"{kern} x{want} both; " + _serve_margin(tag, ee, eo, ge, go))
         del runs, ee, ge
     torch.cuda.empty_cache()
 
@@ -2040,35 +2080,11 @@ def phase_serve_profile(model, step_mode: str = "ragged", kv_dtype: str = "bf16"
     device time over wall; B6's share and the paged kernel's."""
     import torch
     from repro_torch.configs.llama3_2_1b import CONFIG as cfg
-    from torch.profiler import ProfilerActivity, profile
 
     eng = _serve_engine(model, cfg, step_mode, kv_dtype, 0.2, graphs)
     what = f"{step_mode} {'graphed' if eng.graphs else 'eager'}"
-    reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
-    arrivals = [i // 2 for i in range(16)]
-    i = 0
-    while eng.tick_count < 40:
-        while i < len(reqs) and arrivals[i] <= eng.tick_count:
-            eng.submit(reqs[i])
-            i += 1
-        eng.tick()
-    torch.cuda.synchronize()
-    steady = eng.metrics.tick_timings[20:40]
-    wall = sum(t.duration_s for t in steady) / len(steady)
-    seg = {}
-    for t in steady:
-        for name, s in t.segment_s().items():
-            seg[name] = seg.get(name, 0.0) + s / len(steady)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            eng.tick()
-        torch.cuda.synchronize()
-    by_name, n = {}, 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            t_, k = by_name.get(e.name(), (0, 0))
-            by_name[e.name()] = (t_ + e.end_ns() - e.start_ns(), k + 1)
-            n += 1
+    wall, seg, by_name, n = _steady_ticks(eng, _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0),
+                                          [i // 2 for i in range(16)])
     total = sum(t_ for t_, _ in by_name.values())
     log(f"[sprofile] steady {what} tick ({kv_dtype}, f=0.2, 8 requests in flight): wall "
         f"{wall * 1e3:.3f} ms, of which " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in seg.items()))
@@ -2179,7 +2195,83 @@ def phase_slot_kernel() -> dict:
         f"(host {host_ms * 1e3:.2f} us/call), plain {plain_ms * 1e3:.2f} us, SDPA with a "
         f"per-row mask {lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}: {nbytes} B)")
     return {"decode_attention_rows": dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)}
+                                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err),
+            "decode_attention_ring_rows": _slot_ring_kernel(gen)}
+
+
+def _slot_ring_kernel(gen) -> dict:
+    """B5's ring-a-row form (a windowed slot arena's step: a ring, a
+    position and a cache row a query row) against its plain version at the
+    windowed slot phase's shape: 8 query rows on a pool of 9 rings (8 slots
+    and the spare) of ``RING_WINDOW`` slots, h2o-danube-3-4b's heads (H 32,
+    K 8, hd 120), positions spread over [RING_PROMPT, RING_PROMPT + 127]
+    (every ring wrapped, eight slots of each emptied), the rows in order and
+    permuted with a padding row on the empty spare ring, bf16 and float32;
+    timed (bf16, rows 0-7) beside its bound, its plain version and SDPA
+    with each row's ring mask. -> its kernel-line row"""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as KD
+
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    B, N, W, H, K, hd = 8, 9, RING_WINDOW, 32, 8, 120
+    pos = torch.linspace(RING_PROMPT, RING_PROMPT + W - 1, B, device=dev).round().to(
+        torch.int32)
+    slot_pos = torch.full((N, W), -1, dtype=torch.int32, device=dev)
+    for b in range(B):
+        slot_pos[b] = _ring_slots(W, int(pos[b]), gen)
+    in_order = torch.arange(B, dtype=torch.int32, device=dev)
+    permuted = torch.tensor([5, 0, 7, 2, 8, 3, 1, 6], dtype=torch.int32, device=dev)
+    err, worst = 0.0, {}
+    for dtype in (bf16, f32):
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(N, W, K, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(N, W, K, hd, generator=gen, device=dev).to(dtype)
+        for rows in (in_order, permuted):
+            # a padding row (on the spare) reads the spare's empty ring at pos 0
+            p = torch.where(rows == N - 1, 0, pos[rows.long().clamp(max=B - 1)]).to(torch.int32)
+            sp = slot_pos.clone()
+            sp[N - 1, 0] = 0            # as the step's write at pos 0 leaves it
+            reset_launches()
+            out = KD.decode_attention(q, k, v, p, window=W, slot_pos=sp, rows=rows)
+            r = rows.long()
+            ref = KD.decode_attention_plain(q, k[r], v[r], p,
+                                            valid=KD.ring_valid(sp[r], p[:, None], W))
+            tag = (f"ring rows B={B} of {N} rings of {W}, pos {p.tolist()} rows "
+                   f"{rows.tolist()} {str(dtype)[6:]}")
+            e = _err_ok("decode_attention_ring_rows", tag, out, ref,
+                        per_row=ATTN_BF16_STEPS * BF16_STEP if dtype == bf16 else 1e-5)
+            if KD.LAUNCH_FORMS != {"ring_rows": 1}:
+                fail(f"decode_attention_ring_rows {tag}: launches {KD.LAUNCH_FORMS}")
+            err = max(err, e[0])
+            worst[dtype] = max(worst.get(dtype, 0.0), e[1])
+    log(f"[slotkern] decode_attention_ring_rows: largest error over its row's max|out| "
+        f"bf16 {worst[bf16]:.3g} ({worst[bf16] / BF16_STEP:.2f} bf16 steps), f32 "
+        f"{worst[f32]:.3g}")
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf16)
+    k = torch.randn(N, W, K, hd, generator=gen, device=dev).to(bf16)
+    v = torch.randn(N, W, K, hd, generator=gen, device=dev).to(bf16)
+    kt, vt = k[:B].transpose(1, 2).contiguous(), v[:B].transpose(1, 2).contiguous()
+    valid = KD.ring_valid(slot_pos[:B], pos[:, None], W)
+    mask = valid[:, None, None, :]
+    r = in_order.long()
+    (ms, host_ms), (plain_ms, _) = (
+        time_ms(lambda: KD.decode_attention(q, k, v, pos, window=W, slot_pos=slot_pos,
+                                            rows=in_order)),
+        time_ms(lambda: KD.decode_attention_plain(
+            q, k[r], v[r], pos, valid=KD.ring_valid(slot_pos[r], pos[:, None], W))))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True))[0]
+    keys = int(valid.sum())
+    nbytes = 2 * (2 * B * H * hd + 2 * keys * K * hd) + 4 * B * W + 8 * B
+    b_ms, b_by = bound_ms(nbytes, 4 * H * hd * keys, H100_BF16_FLOPS)
+    log(f"[slotkern] decode_attention_ring_rows B={B} rows 0-7 of {N} rings of {W}, pos "
+        f"{pos.tolist()} ({keys} live keys), H={H} K={K} hd={hd} bf16: device time kernel "
+        f"{ms * 1e3:.2f} us (host {host_ms * 1e3:.2f} us/call), plain {plain_ms * 1e3:.2f} us, "
+        f"SDPA with each row's ring mask {lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us "
+        f"({b_by}: {nbytes} B)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=err)
 
 
 def _lazy_trace(cfg, lens, n: int, new: int, arrivals, seed: int):
@@ -2289,12 +2381,64 @@ def phase_slot_parity():
             f"pages); " + _serve_margin(f"slotparity {tag}", ce, co, ge, go))
 
 
+def _graph_summary(eng) -> str:
+    """An engine's captured steps: each capture's key, ms and pool bytes,
+    and their totals."""
+    graphs = dict(eng._sig_graphs)
+    if eng._ragged_graph is not None:
+        graphs[("rstep", eng.ragged_rows)] = eng._ragged_graph
+    each = ", ".join(f"{k} {g.capture_s * 1e3:.1f} ms {g.pool_bytes} B"
+                     for k, g in sorted(graphs.items()))
+    return (f"{len(graphs)} captures, {sum(g.capture_s for g in graphs.values()) * 1e3:.1f} ms "
+            f"and {sum(g.pool_bytes for g in graphs.values())} pool bytes in all ({each})")
+
+
+def _steady_ticks(eng, reqs, arrivals) -> tuple:
+    """A steady stretch of a 16-request trace (ticks 20-49: eight requests
+    in flight, no admissions): the wall a tick and its phases from the
+    engine's tick timer over ticks 20-39, then ticks 40-49 under
+    ``torch.profiler`` (a graph's replays included). -> (wall s a tick,
+    {phase: s}, {kernel name: (ns, launches)} over the 10 profiled ticks,
+    kernel launches)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    i = 0
+    while eng.tick_count < 40:
+        while i < len(reqs) and arrivals[i] <= eng.tick_count:
+            eng.submit(reqs[i])
+            i += 1
+        eng.tick()
+    torch.cuda.synchronize()
+    steady = eng.metrics.tick_timings[20:40]
+    wall = sum(t.duration_s for t in steady) / len(steady)
+    seg = {}
+    for t in steady:
+        for name, s in t.segment_s().items():
+            seg[name] = seg.get(name, 0.0) + s / len(steady)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            eng.tick()
+        torch.cuda.synchronize()
+    by_name, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t_, k = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t_ + e.end_ns() - e.start_ns(), k + 1)
+            n += 1
+    return wall, seg, by_name, n
+
+
 def phase_slot_main(model) -> dict:
     """The slot arena (the engine's default) on llama3.2-1b at full width
     and depth: phase 13's 16 requests, padded to prompts of 512, 128 new
     tokens, two arriving a tick, 8 slots, pass budget 16 (phase 13's), f =
-    0.2, the signature step eager; after a two-request warm-up. -> launches
-    per kernel."""
+    0.2. First two requests graphed and eager, their logits bit-equal (the
+    warm-up too); then the trace with the signature step graphed (the
+    default) and eager (``graphs=False``): wall, tokens/s, each capture's
+    ms and pool bytes, B5's per-row and B4's launches exact; then the busy
+    share of a steady tick of each; then the host's cost of the draws at
+    temperature 0.7 (``_draw_host``). -> launches per kernel of the graphed
+    run."""
     import dataclasses
 
     import torch
@@ -2308,47 +2452,183 @@ def phase_slot_main(model) -> dict:
         return [dataclasses.replace(r, prompt_len=None)
                 for r in _serve_requests(cfg, n, SERVE_LENS, SLOT_NEW, 0)]
 
-    def engine():
-        return ContinuousEngine(model, cfg, num_slots=8, pass_budget=16, prompt_len=SLOT_S,
-                                max_new=SLOT_NEW, stop_on_eos=False, prefills_per_tick=2,
-                                seed=0, selective_fraction=0.2)
-    engine().serve_trace(reqs(2), [0, 0])
-    eng = engine()
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    out = eng.serve_trace(reqs(16), arrivals)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts, forms = launch_counts(), dict(KD.LAUNCH_FORMS)
-    m = eng.metrics
-    tokens = sum(len(v) for v in out.values())
-    fwd = cfg.num_layers * _decode_forwards(m, "signature")
-    want = {"decode_attention": fwd, "flash_attention": 2 * cfg.num_layers * 16}
-    got = {k: counts[k] for k in want}
-    if len(out) != 16 or any(len(v) != SLOT_NEW for v in out.values()) or got != want \
-            or forms != {"rows": fwd} or any(counts[n] for n in PAGED):
-        fail(f"slotmain: {len(out)} results, launches {got} (want {want}), forms {forms}")
-    log(f"[slotmain] {cfg.name} slot arena, 8 slots, pass budget 16, prompt_len {SLOT_S}, "
-        f"{SLOT_NEW} new, f=0.2, signature step eager: wall {wall:.4f} s, {tokens / wall:.1f} tokens/s, "
-        f"ticks {m.ticks}, denoiser passes {m.denoiser_passes}, step launches {m.step_launches} "
-        f"(compiles {m.step_compiles}, shapes {sorted(k for k in eng._shapes if k[0] == 'step')}"
-        f"), B5 per-row launches {forms['rows']} (= {cfg.num_layers} layers x decode forwards), "
-        f"prefill B4 launches {counts['flash_attention']}, defrags "
-        f"{int(('defrag',) in eng._shapes)}, kv {eng.kv_hbm_bytes()}; first tokens "
-        f"{out['q0'][:6]}")
-    return _rows_form(counts)
+    def engine(graphs, cls=ContinuousEngine):
+        return cls(model, cfg, num_slots=8, pass_budget=16, prompt_len=SLOT_S,
+                   max_new=SLOT_NEW, stop_on_eos=False, prefills_per_tick=2, seed=0,
+                   selective_fraction=0.2, graphs=graphs)
+    Recording = _recording_engine()
+    runs = {}
+    for graphs in (None, False):
+        eng = engine(graphs, Recording)
+        out = eng.serve_trace(reqs(2), [0, 0])
+        torch.cuda.synchronize()
+        runs[eng.graphs] = (eng, out)
+    (ge, go), (ee, eo) = runs[True], runs[False]
+    bits = go == eo and ge.logits.keys() == ee.logits.keys() and all(
+        len(ge.logits[u]) == len(ee.logits[u])
+        and all(torch.equal(a, b) for a, b in zip(ge.logits[u], ee.logits[u])) for u in eo)
+    if ge.metrics.trace.keys() != ee.metrics.trace.keys() or not bits:
+        fail(f"slotmain: two requests graphed and eager differ (tokens equal {go == eo}, "
+             f"logits bit-equal {bits})")
+    log(f"[slotmain] two requests graphed and eager: events equal, tokens equal, logits "
+        f"bit-equal over {sum(len(v) for v in ge.logits.values())} samples; graphed "
+        f"{_graph_summary(ge)}")
+    del runs, ge, ee
+    totals, walls = None, {}
+    for graphs in (None, False):
+        eng = engine(graphs)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.serve_trace(reqs(16), arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, forms = launch_counts(), dict(KD.LAUNCH_FORMS)
+        m = eng.metrics
+        tokens = sum(len(v) for v in out.values())
+        fwd = cfg.num_layers * _decode_forwards(m, "signature")
+        want = {"decode_attention": fwd, "flash_attention": 2 * cfg.num_layers * 16}
+        got = {k: counts[k] for k in want}
+        what = "graphed" if eng.graphs else "eager"
+        if len(out) != 16 or any(len(v) != SLOT_NEW for v in out.values()) or got != want \
+                or forms != {"rows": fwd} or any(counts[n] for n in PAGED) \
+                or len(eng._sig_graphs) != (m.step_compiles if eng.graphs else 0):
+            fail(f"slotmain {what}: {len(out)} results, launches {got} (want {want}), forms "
+                 f"{forms}, captures {len(eng._sig_graphs)} of {m.step_compiles} compiles")
+        walls[what] = wall
+        log(f"[slotmain] {cfg.name} slot arena, 8 slots, pass budget 16, prompt_len {SLOT_S}, "
+            f"{SLOT_NEW} new, f=0.2, signature step {what}: wall {wall:.4f} s, "
+            f"{tokens / wall:.1f} tokens/s, ticks {m.ticks}, denoiser passes "
+            f"{m.denoiser_passes}, step launches {m.step_launches} (compiles "
+            f"{m.step_compiles}, shapes {sorted(k for k in eng._shapes if k[0] == 'step')}), "
+            f"B5 per-row launches {forms['rows']} (= {cfg.num_layers} layers x decode "
+            f"forwards), prefill B4 launches {counts['flash_attention']}, defrags "
+            f"{int(('defrag',) in eng._shapes)}, kv {eng.kv_hbm_bytes()}; first tokens "
+            f"{out['q0'][:6]}" + (f"; {_graph_summary(eng)}" if eng.graphs else ""))
+        if eng.graphs:
+            totals = _rows_form(counts)
+        del eng
+    log(f"[slotmain] graphed against eager: {walls['graphed']:.4f} against "
+        f"{walls['eager']:.4f} s, {walls['eager'] / walls['graphed']:.3f}x")
+    for graphs in (None, False):
+        eng = engine(graphs)
+        wall, seg, by_name, n = _steady_ticks(eng, reqs(16), arrivals)
+        kern_ms = sum(t for t, _ in by_name.values()) / 1e6 / 10
+        log(f"[slotmain] steady {'graphed' if eng.graphs else 'eager'} tick (8 requests in "
+            f"flight): wall {wall * 1e3:.3f} ms (" + ", ".join(
+                f"{k} {v * 1e3:.3f}" for k, v in seg.items()) + f"), {n / 10:.0f} kernels and "
+            f"{kern_ms:.3f} ms of kernel time a tick (profiled): busy share "
+            + (f"{kern_ms / (wall * 1e3):.4f}" if kern_ms else "not measured (no device time)"))
+        del eng
+    _draw_host(engine)
+    return totals
 
 
-def _rows_form(counts: dict) -> dict:
-    """A slot path's launch counts with B5's under its per-row form's name
-    (every B5 launch there is one, ``LAUNCH_FORMS`` says)."""
+def _draw_host(engine) -> None:
+    """The host's cost of sampling at temperature > 0: 8 requests of the
+    slot main path's trace at T = 0.7 (32 new tokens, all arriving at tick
+    0), graphed and eager; the wall of every ``_draw`` call (a generator
+    seeded per hot row, a softmax and a multinomial draw, all queued
+    without waiting) a tick, beside the tick's wall (the graphed run's
+    captures left out)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.serve import ContinuousEngine
+
+    class Timed(ContinuousEngine):
+        draw_s, draws = 0.0, 0
+
+        def _draw(self, nxt, logits, uids, temps, keys, steps):
+            t0 = time.perf_counter()
+            out = super()._draw(nxt, logits, uids, temps, keys, steps)
+            self.draw_s += time.perf_counter() - t0
+            self.draws += 1
+            return out
+    for graphs in (None, False):
+        eng = engine(graphs, Timed)
+        reqs = [dataclasses.replace(r, prompt_len=None, temperature=0.7, max_new_tokens=32)
+                for r in _serve_requests(eng.cfg, 8, SERVE_LENS, 32, 3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.serve_trace(reqs, [0] * 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if len(out) != 8 or any(len(v) != 32 for v in out.values()):
+            fail(f"draw host: {len(out)} results")
+        ticks = eng.metrics.ticks
+        wall -= sum(g.capture_s for g in eng._sig_graphs.values())
+        log(f"[slotdraw] T=0.7, 8 requests, 32 new, {'graphed' if eng.graphs else 'eager'}: "
+            f"{ticks} ticks, wall {wall * 1e3 / ticks:.3f} ms a tick (captures left out), of "
+            f"which _draw {eng.draw_s * 1e3 / ticks:.3f} ms a tick ({eng.draws} calls, "
+            f"{eng.draw_s / wall:.4f} of the wall)")
+
+
+def _rows_form(counts: dict, form: str = "rows") -> dict:
+    """A slot path's launch counts with B5's under its per-row form's name,
+    ``decode_attention_<form>`` (every B5 launch there is one,
+    ``LAUNCH_FORMS`` says)."""
     from repro_torch.kernels import decode_attention as KD
     out = dict(counts)
     n = out.pop("decode_attention")
-    if n != KD.LAUNCH_FORMS.get("rows", 0):
-        fail(f"B5 launches {n} on a slot path, per-row {KD.LAUNCH_FORMS}")
-    out["decode_attention_rows"] = n
+    if n != KD.LAUNCH_FORMS.get(form, 0):
+        fail(f"B5 launches {n} on a slot path, {form} {KD.LAUNCH_FORMS}")
+    out["decode_attention_" + form] = n
+    return out
+
+
+def phase_ring_slot() -> dict:
+    """A windowed model in the slot arena: h2o-danube-3-4b at full width
+    (d_model 3840, hd 120), 2 layers, its window cut to ``RING_WINDOW``
+    under prompts of ``RING_PROMPT``, so that every row of both pools is a
+    ring; three requests, 8 new tokens, f = 0.5, on the CPU (plain
+    versions) and the GPU (kernels, the signature step graphed): events
+    equal, tokens equal up to the first step the logits do not decide, and
+    every B5 launch the ring-a-row form's, one per layer and decode
+    forward. -> launches per kernel of the GPU run."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.h2o_danube3_4b import CONFIG
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(CONFIG, num_layers=2, sliding_window=RING_WINDOW)
+    t0 = time.perf_counter()
+    cpu = Transformer.init(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                           device="cpu")
+    gpu = Transformer.from_state_dict(cfg, {k: t.cuda() for k, t in cpu.state_dict().items()})
+    Recording = _recording_engine()
+    new, arrivals = 8, [0, 0, 1]
+    kw = dict(num_slots=4, pass_budget=4, prompt_len=RING_PROMPT, max_new=new,
+              stop_on_eos=False, prefills_per_tick=2, seed=0, selective_fraction=0.5)
+    runs = {}
+    for side, model in (("cpu", cpu), ("gpu", gpu)):
+        eng = Recording(model, cfg, **kw)
+        reset_launches()
+        out = eng.serve_trace(_serve_requests(cfg, len(arrivals), (RING_PROMPT,), new, 9),
+                              arrivals)
+        torch.cuda.synchronize()
+        runs[side] = (eng, out, launch_counts(), dict(KD.LAUNCH_FORMS))
+    (ce, co, cl, _), (ge, go, gl, gf) = runs["cpu"], runs["gpu"]
+    fwd = cfg.num_layers * _decode_forwards(ge.metrics, "signature")
+    rings = all("slot_pos" in layer and layer["k"].shape[1] == RING_WINDOW
+                for layer in ge._pool_c + ge._pool_u)
+    if ce.metrics.trace.keys() != ge.metrics.trace.keys():
+        fail("ringslot: event streams differ")
+    if not rings or not ge.graphs or sum(cl.values()) or gl["decode_attention"] != fwd \
+            or gf != {"ring_rows": fwd} or gl["flash_attention"] != 2 * cfg.num_layers * 3 \
+            or len(ge._sig_graphs) != ge.metrics.step_compiles:
+        fail(f"ringslot: rings {rings}, graphs {ge.graphs}, launches CPU {cl}, GPU {gl}, forms "
+             f"{gf}; want decode_attention x{fwd} all ring_rows")
+    log(f"[ringslot] {cfg.name} x{cfg.num_layers} layers, window {RING_WINDOW}, prompts "
+        f"{RING_PROMPT}, {new} new, 3 requests, slot arena graphed: rings of {RING_WINDOW} in "
+        f"every row, events equal ({len(ge.metrics.trace.keys())}), B5 ring-a-row launches "
+        f"{gf['ring_rows']} (= {cfg.num_layers} layers x decode forwards), "
+        f"{_graph_summary(ge)}; {time.perf_counter() - t0:.2f} s; "
+        + _serve_margin("ringslot", ce, co, ge, go))
+    out = dict(gl)
+    out["decode_attention_ring_rows"] = out.pop("decode_attention")
     return out
 
 
@@ -2979,8 +3259,9 @@ def main() -> None:
     t_slot = time.perf_counter()
     rows.update(phase_slot_kernel())
     phase_slot_parity()
-    slot_paths = (phase_slot_main(model), phase_lazy_main(model), phase_serving_facade(model))
-    log(f"[time] phases 18-22 {time.perf_counter() - t_slot:.1f} s, after "
+    slot_paths = (phase_slot_main(model), phase_lazy_main(model), phase_serving_facade(model),
+                  phase_ring_slot())
+    log(f"[time] phases 18-23 {time.perf_counter() - t_slot:.1f} s, after "
         f"{t_slot - t_start:.1f} s")
     del model
     torch.cuda.empty_cache()
@@ -2998,6 +3279,8 @@ def main() -> None:
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:69"),
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
         "decode_attention_rows": (
+            "decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
+        "decode_attention_ring_rows": (
             "decode_attention.cu", "src/repro/kernels/decode_attention.py:63"),
         "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:24"),
         "ragged_paged_decode_attention": (
@@ -3018,7 +3301,8 @@ def main() -> None:
         if sd + ar + sv + sl + cl + tr == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
-            f"{sv} in the paged serve runs', {sl} in the slot, lazy and facade runs', {cl} in "
+            f"{sv} in the paged serve runs', {sl} in the slot, lazy, facade and windowed slot "
+            f"runs', {cl} in "
             f"the claims' generates on the trained pipeline, {tr} in the timed LM training steps")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,

@@ -11,7 +11,10 @@
 // over its scalar-prefetch pos). With ``rows``, query row b reads cache row
 // rows[b] (a slot arena read in place), else row b. A ring cache (the
 // sliding-window decode cache) holds the position of slot s in
-// slot_pos[s] (-1: empty), and slot s is valid iff lo <= slot_pos[s] <= pos.
+// slot_pos[s] (-1: empty), and slot s is valid iff lo <= slot_pos[s] <= pos;
+// with ``rows`` every cache row is a ring of its own, slot_pos (N,S), and
+// query row b reads ring row rows[b]'s slot positions (a windowed slot
+// arena: the TPU kernel vmapped over rows, each with its slot_pos).
 //
 // pos is read from the device (one int32, the TPU kernel's scalar-prefetch
 // pos_ref), so that one launch, captured in a CUDA graph, serves every
@@ -203,11 +206,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const Split sp = block_split<TK>(pos_ptr + b * pos_stride, slot_pos != nullptr, window, span,
                                    rank, csize);
   const int pos = sp.pos, lo = sp.lo, t_begin = sp.t_begin, t_end = sp.t_end;
+  // this query row's ring: cache row cb's slot positions with ``rows``
+  const int* ring_pos = slot_pos == nullptr ? nullptr : slot_pos + (rows != nullptr ? cb * S : 0);
 
   // whether slot ``s`` holds a key this query attends to
   auto valid = [&](int s) {
     if (s >= S) return false;
-    const int kp = slot_pos != nullptr ? slot_pos[s] : s;
+    const int kp = ring_pos != nullptr ? ring_pos[s] : s;
     return kp >= lo && kp <= pos;
   };
 
@@ -428,10 +433,12 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const Split sp = block_split<TK>(pos_ptr + b * pos_stride, slot_pos != nullptr, window, span,
                                    rank, csize);
   const int pos = sp.pos, lo = sp.lo, t_begin = sp.t_begin, t_end = sp.t_end;
+  // this query row's ring: cache row cb's slot positions with ``rows``
+  const int* ring_pos = slot_pos == nullptr ? nullptr : slot_pos + (rows != nullptr ? cb * S : 0);
 
   auto valid = [&](int s) {
     if (s >= S) return false;
-    const int kp = slot_pos != nullptr ? slot_pos[s] : s;
+    const int kp = ring_pos != nullptr ? ring_pos[s] : s;
     return kp >= lo && kp <= pos;
   };
 
@@ -727,11 +734,12 @@ extern "C" {
 // q, out: (B,H,hd); k, v: (B,S,K,hd); all contiguous, k and v 16-byte
 // aligned; dtype 0 = float32 or 1 = bfloat16; H % K == 0 with H / K <= 32;
 // hd a multiple of 8, at most 256. slot_pos: null for a linear cache, else
-// (S,) int32 slot positions of a ring. pos: int32 on the device, the
-// query's position, one for the batch (pos_stride 0) or one a row
-// (pos_stride 1; the caller keeps a linear cache's in [0, S)). rows: null
-// (query row b reads k, v row b) or (B,) int32 cache rows, each in k's
-// rows; a ring takes neither rows nor pos_stride 1. window 0 for none. The
+// the (S,) int32 slot positions of a ring, or with rows (N,S), one ring a
+// cache row. pos: int32 on the device, the query's position, one for the
+// batch (pos_stride 0) or one a row (pos_stride 1; the caller keeps a
+// linear cache's in [0, S)). rows: null (query row b reads k, v row b) or
+// (B,) int32 cache rows, each in k's rows; a ring without rows takes one
+// position. window 0 for none. The
 // plan (span, cluster) is kernels/decode_attention.py
 // ``decode_launch_plan``'s, in tiles of 64 keys (bfloat16) or 32 (float32).
 int decode_attention(const void* q, const void* k, const void* v, void* out, const void* slot_pos,
@@ -742,7 +750,7 @@ int decode_attention(const void* q, const void* k, const void* v, void* out, con
   if (B <= 0) return (int)cudaGetLastError();
   if (K <= 0 || H % K != 0 || H / K > kMaxGroup || hd <= 0 || hd % 8 != 0 || hd > 256 ||
       S <= 0 || window < 0 || pos == nullptr || (pos_stride != 0 && pos_stride != 1) ||
-      (slot_pos != nullptr && (rows != nullptr || pos_stride != 0)))
+      (slot_pos != nullptr && rows == nullptr && pos_stride != 0))
     return (int)cudaErrorInvalidValue;
   const int* sp = static_cast<const int*>(slot_pos);
   const int* pp = static_cast<const int*>(pos);

@@ -15,9 +15,11 @@ its launch, depends on shapes alone, and ``decode_split_plan`` mirrors the
 split of the keys that each launch computes from ``pos``. A linear cache
 also takes a position per row, and ``rows``, the cache row each query row
 reads (the slot arena's step, rows read in place): the TPU kernel vmapped
-over its ``pos``. ``LAUNCHES`` counts kernel launches, and ``LAUNCH_FORMS``
-the same launches by form: ``"batch"`` (one position) or ``"rows"`` (one a
-row).
+over its ``pos``. With ``rows`` a ring cache is one ring a cache row,
+``slot_pos`` (N, S) (a windowed model's slot arena). ``LAUNCHES`` counts
+kernel launches, and ``LAUNCH_FORMS`` the same launches by form:
+``"batch"`` (one position), ``"rows"`` (one a row) or ``"ring_rows"`` (a
+ring a cache row).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import grouped_attention_plain
 
 LAUNCHES = {"decode_attention": 0}
-LAUNCH_FORMS: dict = {}   # "batch" or "rows" -> launches
+LAUNCH_FORMS: dict = {}   # "batch", "rows" or "ring_rows" -> launches
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32     # query heads per kv head; kMaxGroup in csrc/decode_attention.cu
 MAX_CLUSTER = 8    # blocks per (batch, kv head) cluster, the portable most; kMaxCluster
@@ -92,7 +94,8 @@ def decode_split_plan(S: int, pos: int, window: int | None = None, ring: bool = 
 
 def ring_valid(slot_pos, pos, window: int | None):
     """A ring's (S,) bool mask of the slots ``pos`` (an int or a
-    one-element tensor) attends to."""
+    one-element tensor) attends to; for rings a row, slot_pos (B, S) and
+    pos (B, 1) give (B, S)."""
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window is not None:
         valid = valid & (slot_pos > pos - window)
@@ -130,9 +133,9 @@ def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None, 
     launch serves every position), a (B,) int32 tensor there (one position
     a row) or a Python int, in [0, S) for a linear cache (staged to the
     device); ``rows`` None or (B,) int32 on the device, the cache row each
-    query row reads, each in [0, N); ``slot_pos`` None (a linear cache) or a
-    ring's (S,) int32 slot positions, with one position and no ``rows``
-    -> (B,H,hd). The kernel takes contiguous float32 or bfloat16, hd a
+    query row reads, each in [0, N); ``slot_pos`` None (a linear cache), a
+    ring's (S,) int32 slot positions (one position, no ``rows``) or with
+    ``rows`` (N, S), each cache row's ring -> (B,H,hd). The kernel takes contiguous float32 or bfloat16, hd a
     multiple of 8 up to ``MAX_HEAD_DIM`` and H/K up to ``MAX_GROUP``."""
     if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape \
             or (rows is None and k.shape[0] != q.shape[0]) \
@@ -145,22 +148,26 @@ def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None, 
         raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
     if window is not None and window < 1:
         raise ValueError(f"window {window} < 1")
-    if slot_pos is not None and (tuple(slot_pos.shape) != (k.shape[1],)
+    ring_shape = (k.shape[1],) if rows is None else (k.shape[0], k.shape[1])
+    if slot_pos is not None and (tuple(slot_pos.shape) != ring_shape
                                  or slot_pos.dtype != torch.int32):
         raise ValueError(f"slot_pos {tuple(slot_pos.shape)} {slot_pos.dtype}: need "
-                         f"({k.shape[1]},) int32")
+                         f"{ring_shape} int32")
     on_device = torch.is_tensor(pos)
     per_row = on_device and pos.numel() > 1
     if on_device and (pos.numel() not in (1, q.shape[0]) or pos.dtype != torch.int32):
         raise ValueError(f"pos {tuple(pos.shape)} {pos.dtype}: need one or one a row, int32")
-    if slot_pos is not None and (per_row or rows is not None):
-        raise ValueError("a ring cache takes one position and no rows")
+    if slot_pos is not None and per_row and rows is None:
+        raise ValueError("a ring cache takes one position, or rows and one a row")
     extra = tuple(t for t in (slot_pos, pos if on_device else None, rows) if t is not None)
     if not build.on_cuda(q, k, v, *extra):
         if rows is not None:
             k, v = k[rows.long()], v[rows.long()]
         if slot_pos is None:
             return decode_attention_plain(q, k, v, pos, window=window)
+        if rows is not None:
+            slot_pos = slot_pos[rows.long()]
+            pos = pos.reshape(-1, 1) if on_device else pos
         return decode_attention_plain(q, k, v, pos, valid=ring_valid(slot_pos, pos, window))
     build.check_inputs(q, k, v)
     build.check_aligned(k, v)
@@ -187,6 +194,7 @@ def decode_attention(q, k, v, pos, *, window: int | None = None, slot_pos=None, 
                                 build.stream(q))
     build.check(lib, "decode_attention", code)
     LAUNCHES["decode_attention"] += 1
-    form = "rows" if per_row or rows is not None else "batch"
+    form = "batch" if not (per_row or rows is not None) else \
+        "rows" if slot_pos is None else "ring_rows"
     LAUNCH_FORMS[form] = LAUNCH_FORMS.get(form, 0) + 1
     return out

@@ -14,7 +14,8 @@ caches. Counterpart of ``repro.models.attention``.
                          read and written in place);
 * ``attn_decode_ring``   one token vs a ring buffer of ``window`` slots,
                          written in place, then the flash-decode kernel's
-                         ring form (CUDA) or its plain version;
+                         ring form (CUDA) or its plain version; a position
+                         and a ring a row in a windowed slot arena;
 * ``attn_decode_paged``  one token per row vs the shared paged KV pool
                          through block tables, per-row positions, then the
                          paged/ragged decode kernels (CUDA) or their plain
@@ -159,30 +160,45 @@ def attn_decode(p, cfg, x, cache, pos, rope, *, window=None):
 def attn_decode_ring(p, cfg, x, cache, pos, rope, *, window: int):
     """One token vs a ring buffer {k, v (B,W,K,hd), slot_pos (W,) int32
     absolute positions, -1 = empty}, updated in place at slot pos % W,
-    computed on the device."""
+    computed on the device. In the per-row form (``decode_pos`` with rows:
+    a windowed slot arena) every cache row is a ring of its own, {k, v
+    (N,W,K,hd), slot_pos (N,W)}, and batch row b writes slot pos[b] % W of
+    ring row rows[b] and attends over that ring."""
     dp = decode_pos(pos, x.device)
-    if dp.rows is not None:
-        raise NotImplementedError("a ring cache with a position per row (a windowed slot "
-                                  "arena) is not ported yet (ROADMAP A4.1)")
     W = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, cfg, x, rope)
     slot = dp.index % W
-    cache["k"].index_copy_(1, slot, k_new)
-    cache["v"].index_copy_(1, slot, v_new)
-    cache["slot_pos"].index_copy_(0, slot, dp.pos)
+    if dp.rows is None:
+        cache["k"].index_copy_(1, slot, k_new)
+        cache["v"].index_copy_(1, slot, v_new)
+        cache["slot_pos"].index_copy_(0, slot, dp.pos)
+    else:
+        at = (dp.row_index, slot)
+        cache["k"].index_put_(at, k_new[:, 0])
+        cache["v"].index_put_(at, v_new[:, 0])
+        cache["slot_pos"].index_put_(at, dp.pos)
     ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], dp.pos, window=window,
-                              slot_pos=cache["slot_pos"])
+                              slot_pos=cache["slot_pos"], rows=dp.rows)
     return _out_proj(p, ctx[:, None]), cache
 
 
 def cache_spec(cfg, batch: int, capacity: int, *, dtype=torch.bfloat16, device=None):
     """A zero linear decode cache {k, v (batch, capacity, K, hd)} on
-    ``device`` (None: the GPU). (Ring caches come from
+    ``device`` (None: the GPU). (A decode's ring caches come from
     ``cache_from_prefill``.)"""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     device = resolve_device(device)
     return {"k": torch.zeros(batch, capacity, K, hd, dtype=dtype, device=device),
             "v": torch.zeros(batch, capacity, K, hd, dtype=dtype, device=device)}
+
+
+def ring_pool_spec(cfg, rows: int, window: int, *, dtype=torch.bfloat16, device=None):
+    """``rows`` empty rings of ``window`` slots, one a slot arena row:
+    {k, v (rows, window, K, hd), slot_pos (rows, window) int32, all -1}."""
+    pool = cache_spec(cfg, rows, window, dtype=dtype, device=device)
+    pool["slot_pos"] = torch.full((rows, window), -1, dtype=torch.int32,
+                                  device=pool["k"].device)
+    return pool
 
 
 def cache_from_prefill(kv, *, window: int | None, seq_len: int):

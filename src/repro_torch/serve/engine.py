@@ -12,12 +12,15 @@ the moment its plan crosses into the COND suffix.
 Two KV arenas (``kv``):
 
 * ``"slot"`` (the default) holds two pools, cond and uncond, of
-  ``num_slots`` linear caches of ``prompt_len + max_new`` positions a
-  layer; every request uses the engine-wide ``prompt_len``. Each admission
-  prefills its row; the step reads and writes the rows of its groups in
-  place through their slot indices, each row at its own position (B5's
-  per-row form). Holes left by departures are compacted (``_maybe_defrag``)
-  past ``defrag_threshold``.
+  ``num_slots`` rows a layer: linear caches of ``prompt_len + max_new``
+  positions, or, for a layer whose sliding window W is shorter, rings of W
+  slots with their slot positions (a ring a row, as the reference's
+  per-row decode caches); every request uses the engine-wide
+  ``prompt_len``. Each admission prefills its row; the step reads and
+  writes the rows of its groups in place through their slot indices, each
+  row at its own position (B5's per-row form, or its ring-a-row form).
+  Holes left by departures are compacted (``_maybe_defrag``) past
+  ``defrag_threshold``.
 * ``"paged"`` shares one page pool between both streams of every request
   through block tables. ``reservation="eager"`` grants each stream every
   page it can touch at admission; ``"lazy"`` grants the prompt's pages,
@@ -36,17 +39,21 @@ Two step modes:
   position and phase: FULL entries give a cond and an uncond row, COND
   entries one, the rest is phase-0 padding. The attention goes to the
   ragged paged kernels (B7 bf16, B8 int8). Its shape never changes, so it
-  is counted as one compile per model, under the key ``("rstep", R)``. On
-  a GPU it is a CUDA graph (``graphs``, on by default there), the
-  counterpart of the reference's jitted step: captured at that compile
-  (the forward over the pools, the combine, argmax and the divergence),
-  then each tick copies its staged rows into fixed device buffers and
-  replays it once; rows at temperature > 0 are drawn after the replay.
+  is counted as one compile per model, under the key ``("rstep", R)``.
 * ``"signature"`` (the slot arena's; opt-in on pages) runs the FULL and
   COND groups of the tick, each padded to a power of two; on pages through
   the per-row-position kernels (B9, B10), one compile counted per
   ``("pstep", n_full, n_cond)`` bucket, in the slot arena through B5 per
-  row, one per ``("step", n_full, n_cond)``. It runs eagerly.
+  row, one per ``("step", n_full, n_cond)``.
+
+On a GPU every step is a CUDA graph (``graphs``, on by default there), the
+counterpart of the reference's jitted steps: captured at the step's counted
+compile (the embedding, the forwards over the pools, the combine, the
+divergence and the argmax), one graph for the ragged step and one per
+signature bucket, all of a mode drawing on one memory pool; each tick
+writes its rows into a pinned host buffer, copies them into the step's
+fixed device buffers and replays the graph once; rows at temperature > 0
+are drawn after the replay from the graph's logits.
 
 ``kv_dtype="int8"`` stores the pool as int8 values with float32 scales per
 (position, kv head), quantized on write. The combine stage is Eq. 1 with a
@@ -65,9 +72,8 @@ step, not from jax's threefry keys, so sampled tokens differ from the
 reference's while greedy tokens are the parity contract.
 
 Options the port does not have yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item: a windowed (ring-cache) model in the slot arena,
-the host tier, the content prefix cache, async ticks, a mesh or sharding
-rules, and ``pass_budget="auto"``.
+their ``ROADMAP.md`` item: the host tier, the content prefix cache, async
+ticks and ``pass_budget="auto"`` (A5), a mesh or sharding rules (A8).
 """
 
 from __future__ import annotations
@@ -106,14 +112,15 @@ _bucket = bucket_pow2
 _RAGGED_INT = ("tok", "pos", "lstep", "u_idx", "phase")    # int32 rows after the tables
 
 
-def _ragged_views(ibuf, fbuf, R: int, nb: int) -> dict:
-    """Named views of the ragged step's two flat row buffers (numpy arrays
-    on the host, tensors on the device): block tables (R, nb), then R
-    int32 values per name of ``_RAGGED_INT``; scales and temperatures."""
-    views = {"bt": ibuf[:R * nb].reshape(R, nb), "scale": fbuf[:R], "temp": fbuf[R:]}
-    for i, name in enumerate(_RAGGED_INT):
-        views[name] = ibuf[R * (nb + i):R * (nb + i + 1)]
-    return views
+def _views(buf, layout) -> dict:
+    """Named views of a flat buffer (a numpy array on the host, a tensor on
+    the device), laid out in the order of ``layout``'s (name, shape)."""
+    out, at = {}, 0
+    for name, shape in layout:
+        n = int(np.prod(shape))
+        out[name] = buf[at:at + n].reshape(shape)
+        at += n
+    return out
 
 
 def _later(what: str, item: str):
@@ -268,10 +275,6 @@ class ContinuousEngine:
         if not 0.0 <= interval[0] < interval[1] <= 1.0:
             raise ValueError(f"interval {interval!r} must satisfy 0 <= start < stop <= 1")
         # what the port does not have yet
-        windows = [model._window(kind, False) for kind in cfg.blocks]
-        if kv == "slot" and any(w is not None and w < prompt_len + max_new for w in windows):
-            # a window under the row's capacity needs a ring a row
-            raise _later("a windowed model in the slot arena", "A4.1")
         if host_pool_bytes:
             raise _later("host_pool_bytes (the host tier)", "A5")
         if prefix_cache == "content":
@@ -290,10 +293,8 @@ class ContinuousEngine:
         self.device = next(model.parameters()).device
         if graphs and self.device.type != "cuda":
             raise ValueError("graphs=True needs a model on a CUDA device")
-        # the ragged step as a CUDA graph (a port option: None = on a GPU);
-        # signature steps run eagerly (ROADMAP A2.1)
-        self.graphs = step_mode == "ragged" and (
-            self.device.type == "cuda" if graphs is None else bool(graphs))
+        # every step as a CUDA graph (a port option: None = on a GPU)
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         self.num_slots = num_slots
         self.prompt_len = prompt_len           # engine-wide maximum
         self.max_new = max_new
@@ -351,6 +352,9 @@ class ContinuousEngine:
         self._pool_p = None                    # paged: one pool per layer
         self._staging = None                   # the ragged step's host and device rows
         self._ragged_graph = None              # the captured ragged step (graphs)
+        self._sig_stagings: dict = {}          # signature bucket key -> its rows
+        self._sig_graphs: dict = {}            # signature bucket key -> its captured step
+        self._sig_pool = None                  # the signature graphs' memory pool
 
     # -- public API --------------------------------------------------------
 
@@ -478,10 +482,14 @@ class ContinuousEngine:
                     "peak_in_use_bytes": self.metrics.peak_bytes_in_use,
                     "num_pages": self.num_pages,
                     "page_size": self.page_size}
-        # one stream's row: bf16 {k, v} (capacity, K, hd) a layer
+        # one stream's row a layer: bf16 {k, v} (capacity, K, hd), or a
+        # ring's (W, K, hd) and its int32 slot positions (W,)
         cfg = self.cfg
-        row_bytes = cfg.num_layers * 2 * self.capacity * cfg.num_kv_heads \
-            * cfg.resolved_head_dim * 2
+        row_bytes = 0
+        for W in self._rings():
+            slots = self.capacity if W is None else W
+            row_bytes += 2 * slots * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+            row_bytes += 0 if W is None else 4 * W
         peak_active = max((r.active for r in self.metrics.records), default=0)
         return {"kv": "slot", "reserved_bytes": 2 * self.num_slots * row_bytes,
                 "row_bytes": 2 * row_bytes,
@@ -619,19 +627,32 @@ class ContinuousEngine:
             state.generated.append(tok0)
             self.metrics.on_token(req.uid, now)       # TTFT: prefill emits
 
+    def _rings(self) -> list:
+        """Each layer's ring size in the slot arena: its window W where W is
+        under the row's capacity, else None (a linear row)."""
+        windows = (self.model._window(kind, False) for kind in self.cfg.blocks)
+        return [w if w is not None and w < self.capacity else None for w in windows]
+
     def _init_pools(self) -> None:
-        """The slot arena's cond and uncond pools: per layer {k, v}
-        (num_slots + 1, capacity, K, hd) bf16. Row ``num_slots`` is a spare
-        that a group's padding rows read and write (the reference's
-        out-of-range slot index: reads clamp, writes drop)."""
-        self._pool_c, self._pool_u = (
-            [A.cache_spec(self.cfg, self.num_slots + 1, self.capacity, device=self.device)
-             for _ in range(self.cfg.num_layers)] for _ in range(2))
+        """The slot arena's cond and uncond pools, per layer {k, v}
+        (num_slots + 1, capacity, K, hd) bf16, or for a windowed layer rings
+        {k, v (num_slots + 1, W, K, hd), slot_pos (num_slots + 1, W)}. Row
+        ``num_slots`` is a spare that a group's padding rows read and write
+        (the reference's out-of-range slot index: reads clamp, writes
+        drop)."""
+        def layer(W):
+            if W is None:
+                return A.cache_spec(self.cfg, self.num_slots + 1, self.capacity,
+                                    device=self.device)
+            return A.ring_pool_spec(self.cfg, self.num_slots + 1, W, device=self.device)
+        self._pool_c, self._pool_u = ([layer(W) for W in self._rings()] for _ in range(2))
 
     def _prefill_slot(self, req: ServeRequest, slot: int, key: int) -> int:
         """Both streams' prefill of one request into row ``slot`` of the two
-        pools (what the row holds past the prompt is never read: a step
-        writes each position before it attends to it); -> token 0."""
+        pools: a linear row's first ``prompt_len`` positions (what it holds
+        past them is never read: a step writes each position before it
+        attends to it), a ring row's last W positions and their slot
+        positions (``cache_from_prefill``); -> token 0."""
         S = self.prompt_len
         self._seen(("prefill", _bucket(S), 1), step=False)
         tok = self._dev(self._tokenize(req.prompt, S)[None], torch.long)
@@ -639,15 +660,22 @@ class ContinuousEngine:
         l_u, caches_u = AR.prefill(self.model, AR.null_prompt(tok))
         for pool, caches in ((self._pool_c, caches_c), (self._pool_u, caches_u)):
             for layer, c in zip(pool, caches):
+                n = S
+                if "slot_pos" in layer:
+                    n = layer["k"].shape[1]
+                    c = A.cache_from_prefill(c, window=n, seq_len=S)
+                    layer["slot_pos"][slot] = c["slot_pos"]
                 for name in ("k", "v"):
-                    layer[name][slot, :S] = c[name][0]
+                    layer[name][slot, :n] = c[name][0]
         scale = self._dev(np.asarray([self._eff_scale(req.uid, 0)], np.float32))
         logits = self._combine(l_u, l_c, scale)
         return int(self._sample(logits, [req.uid], [req.temperature], [key], [0])[0])
 
     def _maybe_defrag(self) -> None:
         """Compact the slot pools once holes pass ``defrag_threshold``: the
-        rows permuted in place, the host arrays and the scheduler re-slotted."""
+        rows (rings with their slot positions) permuted in place, so the
+        captured steps' addresses hold; the host arrays and the scheduler
+        re-slotted."""
         if self.pool.fragmentation() <= self.defrag_threshold:
             return
         src = self.pool.defrag_plan()
@@ -939,60 +967,90 @@ class ContinuousEngine:
             if step:
                 self.metrics.on_step_compile(self.tick_count)
 
-    def _paged_step(self, f: dict, c: dict):
+    def _signature_step(self, f: dict, c: dict):
         """Mixed-phase decode step for one occupancy signature: the FULL
-        group's two streams and the COND group's cond stream through their
-        block tables, per-row positions (B9/B10). -> (next tokens of each
+        group's two streams and the COND group's cond stream, each row at
+        its own position, read and written in place in its slot's row (B5
+        per row) or through its block tables (B9/B10). The groups' rows are
+        staged into the bucket's fixed device buffers; the step runs eagerly
+        without ``graphs``, else as the bucket's graph, captured at its first
+        use (the reference's compile) and replayed after, the rows at
+        temperature > 0 drawn after the replay. -> (next tokens of each
         group, FULL divergences), None for an empty group."""
-        n_full, n_cond = len(f["tok"]), len(c["tok"])
-        self._seen(("pstep", n_full, n_cond), step=True)
-        model = self.model
-        f_next = c_next = f_div = None
-        if n_full:
-            emb = model.embed_tokens(self._dev(f["tok"], torch.long)[:, None])
-            pos = self._dev(f["pos"])
-            h_c, _ = model.decode_step_paged(emb, self._pool_p, self._dev(f["btc"]), pos)
-            h_u, _ = model.decode_step_paged(emb, self._pool_p, self._dev(f["btu"]), pos)
-            l_c = model.unembed(h_c)[:, 0, :].float()
-            l_u = model.unembed(h_u)[:, 0, :].float()
-            logits = self._combine(l_u, l_c, self._dev(f["scale"]))
-            f_next = self._sample(logits, f["uids"], f["temp"], f["key"], 1 + f["lstep"])
-            f_div = torch.sqrt(((l_c - l_u) ** 2).sum(-1))
-        if n_cond:
-            emb = model.embed_tokens(self._dev(c["tok"], torch.long)[:, None])
-            h_c, _ = model.decode_step_paged(emb, self._pool_p, self._dev(c["btc"]),
-                                             self._dev(c["pos"]))
-            logits = model.unembed(h_c)[:, 0, :].float()
-            c_next = self._sample(logits, c["uids"], c["temp"], c["key"], 1 + c["lstep"])
-        return f_next, c_next, f_div
+        nf, nc = len(f["tok"]), len(c["tok"])
+        key = ("pstep" if self.kv == "paged" else "step", nf, nc)
+        self._seen(key, step=True)
+        st = self._sig_stagings.get(key)
+        if st is None:
+            st = self._sig_stagings[key] = self._new_staging(*self._signature_layout(nf, nc))
+        for name, view in st["host"].items():
+            group, field = name.split("_", 1)
+            view[...] = (f if group == "f" else c)[field]
+        self._upload(st)
+        if not self.graphs:
+            out = self._signature_forward(st["dev"], nf, nc)
+        elif key not in self._sig_graphs:
+            if self._sig_pool is None:
+                self._sig_pool = G.pool()
+            self._sig_graphs[key], out = G.capture(
+                lambda: self._signature_forward(st["dev"], nf, nc, argmax=True), self._sig_pool)
+        else:
+            out = self._sig_graphs[key].replay()
+        f_nxt, f_logits, f_div, c_nxt, c_logits = out
+        return (self._pick(f_nxt, f_logits, f) if nf else None,
+                self._pick(c_nxt, c_logits, c) if nc else None, f_div)
 
-    def _slot_step(self, f: dict, c: dict):
-        """Mixed-phase decode step of the slot arena for one occupancy
-        signature: the FULL group's two streams and the COND group's cond
-        stream, each row read and written in place in its slot's row at its
-        own position (B5 per row). -> (next tokens of each group, FULL
-        divergences), None for an empty group."""
-        n_full, n_cond = len(f["tok"]), len(c["tok"])
-        self._seen(("step", n_full, n_cond), step=True)
+    def _pick(self, nxt, logits, g: dict):
+        """A group's next tokens: sampled from its logits (eager), or the
+        graph's argmax with the hot rows drawn (graphed)."""
+        if not self.graphs:
+            return self._sample(logits, g["uids"], g["temp"], g["key"], 1 + g["lstep"])
+        return self._draw(nxt, logits, g["uids"], g["temp"], g["key"], 1 + g["lstep"])
+
+    def _signature_layout(self, nf: int, nc: int) -> tuple[list, list]:
+        """(int32, float32) layouts of one signature bucket's device rows:
+        each group's tokens, positions, and slot rows (slot arena) or block
+        tables (pages); the FULL group's scales."""
+        ints = []
+        for group, n, streams in (("f", nf, "cu"), ("c", nc, "c")):
+            if not n:
+                continue
+            ints += [(f"{group}_tok", (n,)), (f"{group}_pos", (n,))]
+            if self.kv == "slot":
+                ints.append((f"{group}_rows", (n,)))
+            else:
+                ints += [(f"{group}_bt{s}", (n, self.nb_max)) for s in streams]
+        return ints, [("f_scale", (nf,))] if nf else []
+
+    def _signature_forward(self, dev: dict, nf: int, nc: int, argmax: bool = False):
+        """The signature step on the device rows ``dev``. -> (FULL group's
+        argmax or None, combined logits (nf, V) float32, divergences; COND
+        group's argmax or None, logits), None for an empty group's."""
         model = self.model
-        f_next = c_next = f_div = None
-        if n_full:
-            emb = model.embed_tokens(self._dev(f["tok"], torch.long)[:, None])
-            pos, rows = self._dev(f["pos"]), self._dev(f["rows"])
-            h_c, _ = model.decode_step(emb, self._pool_c, pos, rows=rows)
-            h_u, _ = model.decode_step(emb, self._pool_u, pos, rows=rows)
+        out = [None] * 5
+        if nf:
+            emb = model.embed_tokens(dev["f_tok"].long()[:, None])
+            h_c, h_u = (self._decode_rows(emb, dev, "f", s) for s in "cu")
             l_c = model.unembed(h_c)[:, 0, :].float()
             l_u = model.unembed(h_u)[:, 0, :].float()
-            logits = self._combine(l_u, l_c, self._dev(f["scale"]))
-            f_next = self._sample(logits, f["uids"], f["temp"], f["key"], 1 + f["lstep"])
-            f_div = torch.sqrt(((l_c - l_u) ** 2).sum(-1))
-        if n_cond:
-            emb = model.embed_tokens(self._dev(c["tok"], torch.long)[:, None])
-            h_c, _ = model.decode_step(emb, self._pool_c, self._dev(c["pos"]),
-                                       rows=self._dev(c["rows"]))
-            logits = model.unembed(h_c)[:, 0, :].float()
-            c_next = self._sample(logits, c["uids"], c["temp"], c["key"], 1 + c["lstep"])
-        return f_next, c_next, f_div
+            logits = self._combine(l_u, l_c, dev["f_scale"])
+            out[:3] = (logits.argmax(dim=-1) if argmax else None, logits,
+                       torch.sqrt(((l_c - l_u) ** 2).sum(-1)))
+        if nc:
+            emb = model.embed_tokens(dev["c_tok"].long()[:, None])
+            logits = model.unembed(self._decode_rows(emb, dev, "c", "c"))[:, 0, :].float()
+            out[3:] = (logits.argmax(dim=-1) if argmax else None, logits)
+        return tuple(out)
+
+    def _decode_rows(self, emb, dev: dict, group: str, stream: str):
+        """One decode forward of ``group``'s rows on ``stream``'s KV. ->
+        hidden (n, 1, D)."""
+        pos = dev[f"{group}_pos"]
+        if self.kv == "slot":
+            pool = self._pool_c if stream == "c" else self._pool_u
+            return self.model.decode_step(emb, pool, pos, rows=dev[f"{group}_rows"])[0]
+        return self.model.decode_step_paged(emb, self._pool_p, dev[f"{group}_bt{stream}"],
+                                            pos)[0]
 
     def _ragged_step(self, st: dict, uids: list):
         """One fixed-shape decode step for the whole tick's flat pass list
@@ -1040,10 +1098,8 @@ class ContinuousEngine:
             return self._harvest_ragged(*self._dispatch_ragged(plan))
         nf_b = _bucket(plan.n_full) if self.bucket else plan.n_full
         nc_b = _bucket(plan.n_cond) if self.bucket else plan.n_cond
-        f = self._group(plan.full, nf_b, full=True)
-        c = self._group(plan.cond, nc_b, full=False)
-        step = self._paged_step if self.kv == "paged" else self._slot_step
-        f_next, c_next, f_div = step(f, c)
+        f_next, c_next, f_div = self._signature_step(self._group(plan.full, nf_b, full=True),
+                                                     self._group(plan.cond, nc_b, full=False))
         toks = [] if f_next is None else f_next[:plan.n_full].tolist()
         toks += [] if c_next is None else c_next[:plan.n_cond].tolist()
         divs = [] if f_div is None else f_div[:plan.n_full].tolist()
@@ -1078,22 +1134,37 @@ class ContinuousEngine:
             g["bt" + stream] = bt
         return g
 
+    def _new_staging(self, ints: list, floats: list) -> dict:
+        """A step's rows: one int32 and one float32 host buffer (pinned on a
+        GPU) laid out as ``ints`` and ``floats`` (``_views``), and the fixed
+        device buffers that each tick's rows are copied into (a captured
+        step reads them there), with named views of both."""
+        pin = self.device.type == "cuda"
+        bufs = {}
+        for name, layout, dtype in (("ibuf", ints, torch.int32), ("fbuf", floats, torch.float32)):
+            n = max(1, sum(int(np.prod(shape)) for _, shape in layout))
+            bufs[name] = torch.zeros(n, dtype=dtype, pin_memory=pin)
+            bufs["dev_" + name] = torch.zeros(n, dtype=dtype, device=self.device)
+        return dict(bufs, host={**_views(bufs["ibuf"].numpy(), ints),
+                                **_views(bufs["fbuf"].numpy(), floats)},
+                    dev={**_views(bufs["dev_ibuf"], ints), **_views(bufs["dev_fbuf"], floats)})
+
+    @staticmethod
+    def _upload(st: dict) -> None:
+        """The staged rows to the device: two copies that do not wait."""
+        st["dev_ibuf"].copy_(st["ibuf"], non_blocking=True)
+        st["dev_fbuf"].copy_(st["fbuf"], non_blocking=True)
+
     def _ragged_staging(self) -> dict:
-        """The ragged step's rows: one int32 and one float32 host buffer
-        (pinned on a GPU), named views into them, the sampling keys, and
-        the fixed device buffers that each tick's rows are copied into (the
-        captured step reads them there)."""
+        """The ragged step's rows: block tables (R, nb), R int32 values per
+        name of ``_RAGGED_INT``, scales and temperatures; the sampling keys
+        on the host alone."""
         if self._staging is None:
-            R, nb = self.ragged_rows, self.nb_max
-            pin = self.device.type == "cuda"
-            ibuf = torch.zeros(R * (nb + len(_RAGGED_INT)), dtype=torch.int32, pin_memory=pin)
-            fbuf = torch.zeros(2 * R, dtype=torch.float32, pin_memory=pin)
-            host = _ragged_views(ibuf.numpy(), fbuf.numpy(), R, nb)
-            host["rkey"] = np.zeros(R, np.uint32)
-            dev_i = torch.zeros(ibuf.shape, dtype=torch.int32, device=self.device)
-            dev_f = torch.zeros(fbuf.shape, dtype=torch.float32, device=self.device)
-            self._staging = {"ibuf": ibuf, "fbuf": fbuf, "host": host, "dev_ibuf": dev_i,
-                             "dev_fbuf": dev_f, "dev": _ragged_views(dev_i, dev_f, R, nb)}
+            R = self.ragged_rows
+            self._staging = self._new_staging(
+                [("bt", (R, self.nb_max))] + [(name, (R,)) for name in _RAGGED_INT],
+                [("scale", (R,)), ("temp", (R,))])
+            self._staging["host"]["rkey"] = np.zeros(R, np.uint32)
         return self._staging
 
     def _dispatch_ragged(self, plan: TickPlan) -> tuple:
@@ -1127,8 +1198,7 @@ class ContinuousEngine:
             h["lstep"][r] = self._slots.lstep[slot]
             h["phase"][r] = 1
         h["u_idx"][:plan.n_full] = n_out + np.arange(plan.n_full)
-        st["dev_ibuf"].copy_(st["ibuf"], non_blocking=True)
-        st["dev_fbuf"].copy_(st["fbuf"], non_blocking=True)
+        self._upload(st)
         uids = [pr.entry.uid for pr in rows[:n_out]]
         nxt, div = self._ragged_step(st, uids)
         return nxt, div, n_out

@@ -138,14 +138,20 @@ def test_slot_validation(world):
 
 
 def test_windowed_model_in_slot_arena_raises():
+    """A window under the row's capacity once raised (ROADMAP A4.1); it is
+    now served on a ring a row (``tests/test_torch_serve_ring.py`` holds
+    its tokens), and no option of the slot arena raises for it."""
     cfg = get_smoke_config("h2o-danube-3-4b")
     model = Transformer.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4.1"):
-        ContinuousEngine(model, cfg, prompt_len=cfg.sliding_window, max_new=4)
+    eng = ContinuousEngine(model, cfg, prompt_len=cfg.sliding_window, max_new=4, num_slots=2)
+    out = eng.serve([ServeRequest(uid="a", prompt="windowed", max_new_tokens=4)])
+    assert len(out["a"]) >= 1
+    assert all("slot_pos" in layer for layer in eng._pool_c + eng._pool_u)
     # a window no shorter than the row is a linear cache: served
     eng = ContinuousEngine(model, cfg, prompt_len=8, max_new=4, num_slots=2)
     out = eng.serve([ServeRequest(uid="a", prompt="short", max_new_tokens=4)])
     assert len(out["a"]) >= 1
+    assert not any("slot_pos" in layer for layer in eng._pool_c)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
