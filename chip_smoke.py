@@ -155,9 +155,25 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    layers, its window cut to 128 under prompts of 160 (a ring a row in
    both pools), three requests, CPU against GPU (graphed): events equal,
    tokens margin-guarded, every B5 launch the ring-a-row form's, one per
-   layer and decode forward (``[ringslot]``).
+   layer and decode forward (``[ringslot]``);
+24. the engine's last options (``[async]``, ``[tier]``, ``[content]``,
+   ``[fleet]``, ``[autotune]``): phase 13's trace ragged and graphed, bf16
+   and int8, sync then ``tick_mode="async"`` (tokens equal, events equal the
+   simulator's in each mode; with the 16 queued at tick 0 events, tokens
+   and logits equal, the overlap window under the sync debug mode
+   "error"; wall, tokens/s, busy share, each tick phase's host ms, a
+   replay's host launch ms); phase 21's lazy trace with a host tier both
+   preemptions swap through (engine == simulator, restored pages equal bit
+   for bit, tokens margin-guarded against recompute, the swaps' GB/s); 16
+   requests over 4 prompts of 512 with the content prefix cache against
+   the length-keyed one (engine == simulator, 12 hits, each hit's token 0
+   its founder's); ``ServeFleet`` of two 2-layer replicas, affinity
+   against random routing (per-replica events equal ``simulate_fleet``'s,
+   affinity strictly more hits and fewer passes); ``pass_budget="auto"``
+   (the roofline per pass beside a replay's device time over R, the
+   roofline no slower than the card, the budget, the swap break-even).
 
-Phases 18-22 run after phase 13, on its model.
+Phases 18-24 run after phase 13, on its model.
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -2004,15 +2020,19 @@ def phase_serve_main():
     return model, totals, rows
 
 
-def _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs=None, cls=None, lazy_pages=None):
+def _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs=None, cls=None, lazy_pages=None,
+                  **extra):
     """The serve main path's engine (phase 13's configuration); with
-    ``lazy_pages``, lazy reservation on a pool of that many pages."""
+    ``lazy_pages``, lazy reservation on a pool of that many pages; ``extra``
+    overrides or adds engine options."""
     from repro_torch.serve import ContinuousEngine
     lazy = {} if lazy_pages is None else dict(reservation="lazy", num_pages=lazy_pages)
-    return (cls or ContinuousEngine)(
-        model, cfg, kv="paged", page_size=SERVE_PS, num_slots=8, pass_budget=16,
-        prompt_len=512, max_new=SERVE_NEW, stop_on_eos=False, prefills_per_tick=2, seed=0,
-        selective_fraction=f, step_mode=step_mode, kv_dtype=kv_dtype, graphs=graphs, **lazy)
+    kw = dict(kv="paged", page_size=SERVE_PS, num_slots=8, pass_budget=16, prompt_len=512,
+              max_new=SERVE_NEW, stop_on_eos=False, prefills_per_tick=2, seed=0,
+              selective_fraction=f, step_mode=step_mode, kv_dtype=kv_dtype, graphs=graphs,
+              **lazy)
+    kw.update(extra)
+    return (cls or ContinuousEngine)(model, cfg, **kw)
 
 
 def _shallow(model, n: int):
@@ -2730,6 +2750,558 @@ def phase_serving_facade(model) -> dict:
     return _rows_form(counts)
 
 
+# -- the engine's host tier, content cache, async tick, fleet, autotune (phase 24) ---
+
+A5_PHASES = ("admit", "schedule", "step", "overlap", "finalize")
+
+
+def _phase_ms(timings) -> str:
+    """Mean host ms of each tick-timer phase over ``timings``."""
+    n = max(len(timings), 1)
+    seg = {}
+    for t in timings:
+        for name, s in t.segment_s().items():
+            seg[name] = seg.get(name, 0.0) + s / n
+    wall = sum(t.duration_s for t in timings) / n
+    return f"wall {wall * 1e3:.3f} ms (" + ", ".join(
+        f"{k} {seg[k] * 1e3:.3f}" for k in A5_PHASES if k in seg) + ")"
+
+
+def _add(totals: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def _launch_ms(step, n: int = 20) -> float:
+    """Median host ms of one ``replay()`` call of a captured step's graph
+    (the launch alone: the card is idle before each call)."""
+    import torch
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.graph.replay()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(ts)[n // 2] * 1e3
+
+
+def _replay_ms(step, n: int = 20) -> float:
+    """Device ms of one replay of a captured step's graph on its current
+    rows: CUDA events around ``n`` replays."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        step.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _a5_async(model, totals: dict) -> None:
+    """``[async]``: phase 13's 16 requests, ragged graphed, bf16 and int8,
+    sync and then async. On phase 13's arrivals (two a tick at ticks 0-7)
+    the pipeline admits each request a tick after sync does, so tokens are
+    held to sync's and each run's events to the port simulator's in its
+    tick mode; with the 16 queued at tick 0 the admissions are the same in
+    both modes, and events, tokens and logits must be equal, with the
+    overlap window under ``torch.cuda.set_sync_debug_mode("error")``.
+    Then a steady tick's phases and busy share, and one replay's host
+    launch ms; at temperature 0.7 the dispatch (its draws) and the window
+    under the same mode."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.serve import ContinuousEngine, SimRequest, simulate
+
+    cfg = model.cfg
+    arrivals = [i // 2 for i in range(16)]
+    plan = GuidancePlan.suffix(SERVE_NEW, 0.2, SERVE_SCALE)
+    Recording = _recording_engine()
+
+    class Watched(Recording):
+        """The overlap window's ``_admit_collect`` under the sync debug
+        mode: a call that waits for the device raises. The logits that the
+        window's prefills sample from are kept on the device and recorded
+        after it."""
+        windows = admitted = 0
+        held = None
+
+        def _draw(self, nxt, logits, uids, temps, keys, steps):
+            if self.held is None:
+                return super()._draw(nxt, logits, uids, temps, keys, steps)
+            self.held.append((logits[:len(uids)].float().clone(), list(uids)))
+            return super(Recording, self)._draw(nxt, logits, uids, temps, keys, steps)
+
+        def _admit_collect(self, now):
+            if now == self.tick_count:
+                return super()._admit_collect(now)
+            self.held = []
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                stash = super()._admit_collect(now)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            held, self.held = self.held, None
+            for logits, uids in held:
+                host = logits.cpu()
+                for i, uid in enumerate(uids):
+                    self.logits.setdefault(uid, []).append(host[i])
+            self.windows += 1
+            self.admitted += len(stash.batch) if stash is not None else 0
+            return stash
+
+    class Timed(ContinuousEngine):
+        """Host seconds of the admission's two halves on ticks 1-7."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.halves = {"collect": 0.0, "bookkeep": 0.0}
+
+        def _timed(self, half, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if 1 <= self.tick_count <= 7:
+                self.halves[half] += time.perf_counter() - t0
+            return out
+
+        def _admit_collect(self, now):
+            return self._timed("collect", super()._admit_collect, now)
+
+        def _admit_bookkeep(self, stash, now):
+            return self._timed("bookkeep", super()._admit_bookkeep, stash, now)
+
+    class Quiet(ContinuousEngine):
+        """The async tick at temperature > 0 with its dispatch (the draws
+        included, once the step is captured) and its overlap window under
+        the sync debug mode: a call that waits for the device raises."""
+        checked = 0
+
+        def _quiet(self, fn, *a):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        def _dispatch_ragged(self, plan):
+            if self._ragged_graph is None:
+                return super()._dispatch_ragged(plan)
+            self.checked += 1
+            return self._quiet(super()._dispatch_ragged, plan)
+
+        def _admit_collect(self, now):
+            if now == self.tick_count:
+                return super()._admit_collect(now)
+            return self._quiet(super()._admit_collect, now)
+
+    class Serial(Timed):
+        """The async tick with its overlap window opened only once the step
+        has finished: the window's host cost on an idle card."""
+
+        def _admit_collect(self, now):
+            if now > self.tick_count:
+                torch.cuda.synchronize()
+            return super()._admit_collect(now)
+
+    for kv_dtype in ("bf16", "int8"):
+        kern = _paged_kernel_of("ragged", kv_dtype)
+        sims = [SimRequest(r.uid, a, plan, prompt_len=r.prompt_len) for r, a in
+                zip(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)]
+        outs, rows = {}, {}
+        for mode in ("sync", "async"):
+            tag = f"async {kv_dtype} {mode}"
+
+            def engine(cls=None):
+                return _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, cls=cls, tick_mode=mode)
+            engine().serve_trace(_serve_requests(cfg, 4, SERVE_LENS, 8, 1), [0, 0, 1, 1])
+            eng = engine(Timed)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = eng.serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, m = launch_counts(), eng.metrics
+            sm = simulate(sims, num_slots=8, pass_budget=16, kv="paged", page_size=SERVE_PS,
+                          prefills_per_tick=2, step_mode="ragged",
+                          async_ticks=mode == "async").metrics
+            if m.trace.keys() != sm.trace.keys() or counts[kern] != cfg.num_layers * \
+                    m.step_launches or len(out) != 16:
+                fail(f"{tag}: events equal the simulator's {m.trace.keys() == sm.trace.keys()}, "
+                     f"{kern} x{counts[kern]} (want {cfg.num_layers} x {m.step_launches})")
+            _add(totals, counts)
+            outs[mode] = out
+            tokens = sum(len(v) for v in out.values())
+            admits = _phase_ms(m.tick_timings[1:8])
+            sw, seg, by_name, n = _steady_ticks(engine(), _serve_requests(
+                cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
+            kern_ms = sum(t_ for t_, _ in by_name.values()) / 1e6 / 10
+            busy = f"{kern_ms / (sw * 1e3):.4f}" if kern_ms else "not measured"
+            rows[mode] = (wall, sw)
+            log(f"[async] {kv_dtype} {mode}: wall {wall:.4f} s, {tokens / wall:.1f} tokens/s, "
+                f"ticks {m.ticks}, events equal the simulator's ({len(m.trace.keys())}, "
+                f"async_ticks={mode == 'async'}), {kern} x{counts[kern]}; a tick with "
+                f"admissions (ticks 1-7): {admits}, of which _admit_collect "
+                f"{eng.halves['collect'] / 7 * 1e3:.3f} and _admit_bookkeep "
+                f"{eng.halves['bookkeep'] / 7 * 1e3:.3f} ms a tick; a steady tick (8 in flight): "
+                f"wall {sw * 1e3:.3f} ms (" + ", ".join(
+                    f"{k} {seg[k] * 1e3:.3f}" for k in A5_PHASES if k in seg)
+                + f"), {n / 10:.0f} kernels and {kern_ms:.3f} ms of kernel time a tick "
+                f"(profiled), busy share {busy}")
+        if outs["sync"] != outs["async"]:
+            fail(f"async {kv_dtype}: tokens differ between sync and async")
+        eng = _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, cls=Serial, tick_mode="async")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if out != outs["async"]:
+            fail(f"async {kv_dtype}: the serial window changed the tokens")
+        log(f"[async] {kv_dtype} async with the window opened after the step (a synchronize "
+            f"first): wall {wall:.4f} s; a tick with admissions (ticks 1-7): "
+            f"{_phase_ms(eng.metrics.tick_timings[1:8])}, of which _admit_collect "
+            f"{eng.halves['collect'] / 7 * 1e3:.3f} ms a tick")
+        # the backlogged trace: the same admissions in both modes
+        runs = {}
+        for mode in ("sync", "async"):
+            eng = _serve_engine(model, cfg, "ragged", kv_dtype, 0.2,
+                                cls=Watched if mode == "async" else Recording, tick_mode=mode)
+            reset_launches()
+            out = eng.serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), [0] * 16)
+            torch.cuda.synchronize()
+            runs[mode] = (eng, out, launch_counts())
+        (se, so, sl), (ae, ao, al) = runs["sync"], runs["async"]
+        bits = all(len(se.logits[u]) == len(ae.logits[u]) and all(
+            torch.equal(a, b) for a, b in zip(se.logits[u], ae.logits[u])) for u in so)
+        want = cfg.num_layers * ae.metrics.step_launches
+        if se.metrics.trace.keys() != ae.metrics.trace.keys() or so != ao or not bits \
+                or not sl[kern] == al[kern] == want or not ae.admitted:
+            fail(f"async {kv_dtype} backlogged: events equal "
+                 f"{se.metrics.trace.keys() == ae.metrics.trace.keys()}, tokens equal "
+                 f"{so == ao}, logits bit-equal {bits}, {kern} x{sl[kern]}/x{al[kern]} (want "
+                 f"{want}), admitted in the window {ae.admitted}")
+        log(f"[async] {kv_dtype}, the 16 queued at tick 0: sync and async events equal "
+            f"({len(ae.metrics.trace.keys())}), tokens equal, logits bit-equal over "
+            f"{sum(len(v) for v in ae.logits.values())} samples, {kern} x{want} both; "
+            f"{ae.windows} overlap windows under sync debug mode 'error', {ae.admitted} "
+            f"admissions decided in them, no synchronizing call")
+        (sw_, ss), (aw, as_) = rows["sync"], rows["async"]
+        log(f"[async] {kv_dtype} sync against async: wall {sw_:.4f} against {aw:.4f} s "
+            f"({sw_ / aw:.3f}x); a steady tick {ss * 1e3:.3f} against {as_ * 1e3:.3f} ms; "
+            f"one replay of the ragged graph: host launch {_launch_ms(ae._ragged_graph):.3f} "
+            f"ms (median of 20), device {_replay_ms(ae._ragged_graph):.3f} ms (events)")
+        del runs, se, ae
+    # temperature 0.7: the draws after the replay must not wait either
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    probs = torch.softmax(torch.randn(64, cfg.vocab_size, device="cuda", generator=gen), -1)
+    same = all(torch.equal(
+        torch.multinomial(p, 1, generator=torch.Generator(device="cuda").manual_seed(k))[0],
+        (p / torch.empty_like(p).exponential_(
+            1, generator=torch.Generator(device="cuda").manual_seed(k))).argmax())
+        for k, p in enumerate(probs))
+    hot = [dataclasses.replace(r, temperature=0.7, max_new_tokens=32)
+           for r in _serve_requests(cfg, 8, SERVE_LENS, SERVE_NEW, 0)]
+    outs = {}
+    for mode, cls in (("sync", None), ("async", Quiet)):
+        eng = _serve_engine(model, cfg, "ragged", "bf16", 0.2, cls=cls, tick_mode=mode)
+        outs[mode] = eng.serve_trace([dataclasses.replace(r) for r in hot], [0] * 8)
+    if outs["sync"] != outs["async"] or not same or not eng.checked:
+        fail(f"async T=0.7: tokens equal {outs['sync'] == outs['async']}, the draw equals "
+             f"torch.multinomial's {same}, dispatches checked {eng.checked}")
+    log(f"[async] bf16 at temperature 0.7, 8 requests queued at tick 0, 32 new: sync and "
+        f"async tokens equal; {eng.checked} dispatches (their draws included) and every "
+        f"overlap window under sync debug mode 'error', no synchronizing call; the draw "
+        f"equals torch.multinomial's on 64 rows of {cfg.vocab_size}")
+
+
+def _a5_tier(model, totals: dict) -> None:
+    """``[tier]``: phase 21's lazy Poisson trace on its pool, bf16 and
+    int8, with a host tier of two whole checkpoints (both streams at
+    capacity), so that both preemptions swap out and restore: engine ==
+    simulator (``host_pages``) counters and events, every restored page
+    equal bit for bit to the page swapped out, tokens margin-guarded
+    against the recompute run (no host tier); the D2H and H2D rates of the
+    swaps (CUDA events around them) beside the roofline's host link."""
+    import torch
+    from repro_torch import roofline
+    from repro_torch.serve import poisson_arrivals, simulate
+    from repro_torch.serve.state import kv_page_bytes
+
+    cfg = model.cfg
+    arrivals = [int(a) for a in poisson_arrivals(LAZY_SEED, n=16, rate=LAZY_RATE)]
+    _, sims = _lazy_trace(cfg, LAZY_LENS, 16, SERVE_NEW, arrivals, 0)
+    sim_kw = dict(num_slots=8, pass_budget=16, page_size=SERVE_PS, prefills_per_tick=2,
+                  step_mode="ragged")
+    pages, _ = _lazy_pool(sims, 2 * 8 * SERVE_NB, 2, SERVE_PS, **sim_kw)
+    host_pages = 2 * 2 * SERVE_NB
+    Recording = _recording_engine()
+
+    class Tiered(Recording):
+        """Keeps each swapped-out page's rows and holds its restore to them;
+        times each swap by CUDA events."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.saved, self.copies, self.restored, self.differ = {}, [], 0, 0
+
+        def _swap_out(self, uid, swap, placed):
+            for s in sorted(swap):
+                idx = torch.tensor(self.pages.owned(uid, s), device=self.device)
+                self.saved[tuple(placed[s])] = [
+                    {n: t.index_select(0, idx).clone() for n, t in layer.items()}
+                    for layer in self._pool_p]
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            super()._swap_out(uid, swap, placed)
+            b.record()
+            self.copies.append(("D2H", sum(swap.values()), a, b))
+
+        def _restore_pages(self, host_slots, dev_pages):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            super()._restore_pages(host_slots, dev_pages)
+            b.record()
+            self.copies.append(("H2D", len(dev_pages), a, b))
+            idx = torch.tensor(dev_pages, device=self.device)
+            for layer, want in zip(self._pool_p, self.saved.pop(tuple(host_slots))):
+                for n, t in layer.items():
+                    self.restored += 1
+                    self.differ += not torch.equal(t.index_select(0, idx), want[n])
+
+    for kv_dtype in ("bf16", "int8"):
+        page_bytes = kv_page_bytes(cfg, SERVE_PS, kv_dtype)
+        sm = simulate(sims, num_pages=pages, reservation="lazy", kv="paged", kv_dtype=kv_dtype,
+                      host_pages=host_pages, **sim_kw).metrics
+        runs = {}
+        for host in (host_pages, 0):
+            eng = _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, lazy_pages=pages,
+                                cls=Tiered if host else Recording,
+                                host_pool_bytes=host * page_bytes)
+            reset_launches()
+            t0 = time.perf_counter()
+            out = eng.serve_trace(_lazy_trace(cfg, LAZY_LENS, 16, SERVE_NEW, arrivals, 0)[0],
+                                  arrivals)
+            torch.cuda.synchronize()
+            runs[host] = (eng, out, time.perf_counter() - t0)
+            if host:
+                _add(totals, launch_counts())
+        (te, to, tw), (re_, ro, rw) = runs[host_pages], runs[0]
+        m = te.metrics
+        tag = f"tier {kv_dtype}"
+        _engine_equals_sim(tag, m, sm)
+        diff = {k: (getattr(m, k), getattr(sm, k)) for k in
+                ("swap_outs", "swap_ins", "host_evictions", "recompute_passes_avoided")
+                if getattr(m, k) != getattr(sm, k)}
+        if diff or m.swap_outs < 2 or m.swap_ins != m.swap_outs or te.differ \
+                or not te.restored or te.saved or te._host.n_in_use:
+            fail(f"{tag}: engine != simulator {diff}, swaps out/in {m.swap_outs}/"
+                 f"{m.swap_ins}, restored leaves {te.restored} ({te.differ} differ), "
+                 f"unrestored {len(te.saved)}, host pages in use {te._host.n_in_use}")
+        rates = []
+        for kind, n, a, b in te.copies:
+            ms = a.elapsed_time(b)
+            rates.append(f"{kind} {n} pages {n * page_bytes} B in {ms:.3f} ms = "
+                         f"{n * page_bytes / ms / 1e6:.2f} GB/s")
+        log(f"[tier] {kv_dtype}: pool {pages} pages, host tier {host_pages} pages "
+            f"({host_pages * page_bytes} B); engine == simulator: preemptions {m.preemptions}, "
+            f"swap outs {m.swap_outs}, swap ins {m.swap_ins}, host evictions "
+            f"{m.host_evictions}, recompute passes avoided {m.recompute_passes_avoided}, "
+            f"prefill passes {m.prefill_passes} (recompute run {re_.metrics.prefill_passes}); "
+            f"{te.restored} restored leaves equal bit for bit; wall {tw:.4f} s against the "
+            f"recompute run's {rw:.4f} (both recording logits); swaps (events, gather or "
+            f"scatter included): " + "; ".join(rates)
+            + f"; roofline host link {roofline.H100_HOST_LINK_BYTES_S / 1e9:.0f} GB/s a "
+            f"direction; " + _serve_margin(tag, re_, ro, te, to))
+        del runs, te, re_
+    dev = torch.empty(32 << 20, dtype=torch.uint8, device="cuda")
+    host = torch.empty(32 << 20, dtype=torch.uint8, pin_memory=True)
+    rate = {}
+    for kind, dst, src in (("D2H", host, dev), ("H2D", dev, host)):
+        ts = []
+        for _ in range(5):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        rate[kind] = (32 << 20) / sorted(ts)[2] / 1e6
+    log(f"[tier] one pinned copy of 32 MiB (events, median of 5): D2H {rate['D2H']:.2f} GB/s, "
+        f"H2D {rate['H2D']:.2f} GB/s")
+
+
+def _a5_content(model, totals: dict) -> None:
+    """``[content]``: 16 requests over 4 distinct prompts of 512 (two
+    arriving a tick), lazy reservation on the default pool, with
+    ``prefix_cache="content"`` against ``"length"``: hits, passes and
+    events equal the simulator's; token 0 of each hit equals its
+    founder's; wall and passes of both."""
+    import numpy as np
+    import torch
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.serve import ServeRequest, SimRequest, simulate
+
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(4, cfg.vocab_size, 512).tolist() for _ in range(4)]
+    arrivals = [i // 2 for i in range(16)]
+
+    def reqs():
+        return [ServeRequest(uid=f"c{i}", prompt=prompts[i % 4], max_new_tokens=SERVE_NEW,
+                             guidance_scale=SERVE_SCALE, prompt_len=512) for i in range(16)]
+
+    plan = GuidancePlan.suffix(SERVE_NEW, 0.2, SERVE_SCALE)
+    res = {}
+    for cache in ("content", "length"):
+        eng = _serve_engine(model, cfg, "ragged", "bf16", 0.2, reservation="lazy",
+                            prefix_cache=cache)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = eng.serve_trace(reqs(), arrivals)
+        torch.cuda.synchronize()
+        res[cache] = (eng, out, time.perf_counter() - t0)
+        if cache == "content":
+            _add(totals, launch_counts())
+    (ce, co, cw), (_, lo, lw) = res["content"], res["length"]
+    sm = simulate([SimRequest(f"c{i}", a, plan, prompt_len=512, content=f"p{i % 4}")
+                   for i, a in enumerate(arrivals)], num_slots=8, pass_budget=16, kv="paged",
+                  page_size=SERVE_PS, prefills_per_tick=2, step_mode="ragged",
+                  reservation="lazy", prefix_cache="content").metrics
+    m = ce.metrics
+    _engine_equals_sim("content", m, sm)
+    hits = [ev.uid for ev in m.trace if ev.kind == "prefix_hit"]
+    t0_equal = all(co[u][0] == co[f"c{int(u[1:]) % 4}"][0] for u in hits)
+    if m.prefix_hits != sm.prefix_hits or not hits or not t0_equal:
+        fail(f"content: hits {m.prefix_hits} (simulator {sm.prefix_hits}), token 0 of every "
+             f"hit equal to its founder's {t0_equal}")
+    passes = {k: (e.metrics.prefill_passes, e.metrics.denoiser_passes)
+              for k, (e, _, _) in res.items()}
+    log(f"[content] 16 requests over 4 prompts of 512, {SERVE_NEW} new, two a tick: engine == "
+        f"simulator, prefix hits {m.prefix_hits}, misses {m.prefix_misses}, cache evictions "
+        f"{m.cache_evictions}, recompute passes avoided {m.recompute_passes_avoided}; token 0 "
+        f"of each hit equals its founder's; "
+        f"content: wall {cw:.4f} s, prefill/denoiser passes {passes['content']}; length: wall "
+        f"{lw:.4f} s, passes {passes['length']}; tokens equal between them on "
+        f"{sum(co[u] == lo[u] for u in co)} of 16 requests")
+
+
+def _a5_fleet(model, totals: dict) -> None:
+    """``[fleet]``: two replicas on the first two layers of the model (one
+    object, each engine its own pool and graphs), lazy with the content
+    cache, ``tests/test_fleet.py``'s Zipf trace of 16 over 3 prompts (here
+    of 128 tokens, 32 new): affinity against random routing; per-replica
+    events equal ``simulate_fleet``'s; affinity has strictly more hits and
+    fewer passes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.serve import (ContinuousEngine, ServeFleet, ServeRequest, SimRequest,
+                                   simulate_fleet)
+
+    small = _shallow(model, 2)
+    cfg = small.cfg
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(4, cfg.vocab_size, 128).tolist() for _ in range(3)]
+    zipf = np.random.default_rng(0)
+    p = 1.0 / np.arange(1, 4) ** 1.5
+    picks = [int(k) for k in zipf.choice(3, size=16, p=p / p.sum())]
+    plan = GuidancePlan.suffix(32, 0.5, SERVE_SCALE)
+    kw = dict(num_slots=6, pass_budget=12, kv="paged", page_size=SERVE_PS,
+              reservation="lazy", prefix_cache="content", prefills_per_tick=2)
+    hits, total, walls = {}, {}, {}
+    for pol in ("affinity", "random"):
+        fleet = ServeFleet([ContinuousEngine(small, cfg, prompt_len=128, max_new=32,
+                                             stop_on_eos=False, **kw) for _ in range(2)],
+                           policy=pol, seed=7)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fleet.serve_trace([ServeRequest(uid=f"f{i:02d}", prompt=prompts[picks[i]],
+                                              max_new_tokens=32, plan=plan, prompt_len=128)
+                                 for i in range(16)], list(range(16)))
+        torch.cuda.synchronize()
+        walls[pol] = time.perf_counter() - t0
+        _add(totals, launch_counts())
+        sim = simulate_fleet([SimRequest(f"f{i:02d}", i, plan, prompt_len=128,
+                                         content=f"p{picks[i]}") for i in range(16)], 2,
+                             policy=pol, seed=7, **kw)
+        if sim.assignments != fleet.assignments or len(out) != 16 or any(
+                fleet.engines[r].metrics.trace.keys() != sim.replicas[r].metrics.trace.keys()
+                for r in range(2)):
+            fail(f"fleet {pol}: placement equal {sim.assignments == fleet.assignments}, "
+                 f"per-replica events equal the simulator's: " + str([
+                     fleet.engines[r].metrics.trace.keys() == sim.replicas[r].metrics.trace.keys()
+                     for r in range(2)]))
+        s = fleet.summary()
+        hits[pol], total[pol] = s["prefix_hits"], s["prefill_passes"] + s["denoiser_passes"]
+        log(f"[fleet] {pol}: 2 replicas of {cfg.name} x{cfg.num_layers} layers, placement "
+            f"{[sum(1 for v in fleet.assignments.values() if v == r) for r in range(2)]} "
+            f"requests, per-replica events equal simulate_fleet's; prefix hits {hits[pol]}, "
+            f"prefill + denoiser passes {total[pol]}, wall {walls[pol]:.4f} s")
+    if not (hits["affinity"] > hits["random"] and total["affinity"] < total["random"]):
+        fail(f"fleet: affinity hits {hits['affinity']} against random {hits['random']}, passes "
+             f"{total['affinity']} against {total['random']}")
+    log(f"[fleet] affinity against random: hits {hits['affinity']} > {hits['random']}, passes "
+        f"{total['affinity']} < {total['random']}")
+
+
+def _a5_autotune(model, totals: dict) -> None:
+    """``[autotune]``: ``pass_budget="auto"`` at ``target_tick_s`` 50 ms on
+    phase 13's engine (R 16), ragged bf16 and int8: the roofline's per-pass
+    seconds beside one replay's device time (CUDA events over 20 replays
+    of the graph on a steady tick's rows) over R; a roofline slower than
+    the card fails; the budget and ``swap_break_even_pages``."""
+    cfg = model.cfg
+    arrivals = [i // 2 for i in range(16)]
+    for kv_dtype in ("bf16", "int8"):
+        eng = _serve_engine(model, cfg, "ragged", kv_dtype, 0.2, pass_budget="auto",
+                            target_tick_s=50e-3)
+        reset_launches()
+        rep = eng.autotune_budget()
+        reqs, i = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), 0
+        while eng.tick_count < 20:
+            while i < len(reqs) and arrivals[i] <= eng.tick_count:
+                eng.submit(reqs[i])
+                i += 1
+            eng.tick()
+        _add(totals, launch_counts())
+        replay_ms = _replay_ms(eng._ragged_graph)
+        R = eng.ragged_rows
+        per_pass = rep["worst_per_pass_s"]
+        cost = eng.step_roofline((R,), R)
+        if per_pass * R * 1e3 > replay_ms or not isinstance(eng.pass_budget, int):
+            fail(f"autotune {kv_dtype}: the roofline {per_pass * R * 1e3:.4f} ms a step exceeds "
+                 f"the measured replay {replay_ms:.4f} ms")
+        log(f"[autotune] ragged {kv_dtype}, target 50 ms, R {R}: roofline {per_pass * 1e3:.5f} "
+            f"ms a pass ({per_pass * R * 1e3:.4f} ms a step: compute "
+            f"{cost.compute_s * 1e3:.4f}, memory {cost.memory_s * 1e3:.4f}; {cost.bytes:.4g} B, "
+            f"{cost.flops:.4g} FLOP) against one replay {replay_ms:.4f} ms on the device / R = "
+            f"{replay_ms / R:.5f} ms a pass ({per_pass * R * 1e3 / replay_ms:.4f} of it); "
+            f"budget {eng.pass_budget} (envelope violated {rep['envelope_violated']}, predicted "
+            f"tick {rep['predicted_tick_s'] * 1e3:.4f} ms); swap_break_even_pages "
+            f"{eng._autotuner.swap_break_even_pages(eng.page_bytes, kv_dtype=kv_dtype)} at "
+            f"{eng.page_bytes} B a page")
+        del eng
+
+
+def phase_a5(model) -> dict:
+    """Phase 24 on phase 13's model: ``[async]``, ``[tier]``, ``[content]``,
+    ``[fleet]``, ``[autotune]``. -> launches per kernel of its runs."""
+    import torch
+    totals: dict = {}
+    for part in (_a5_async, _a5_tier, _a5_content, _a5_fleet, _a5_autotune):
+        t0 = time.perf_counter()
+        part(model, totals)
+        torch.cuda.empty_cache()
+        log(f"[time] {part.__name__[1:]} {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 # -- training ----------------------------------------------------------------------
 
 TRAIN_LM_B, TRAIN_LM_S = 4, 512      # llama3.2-1b training batch and sequence
@@ -3263,6 +3835,9 @@ def main() -> None:
                   phase_ring_slot())
     log(f"[time] phases 18-23 {time.perf_counter() - t_slot:.1f} s, after "
         f"{t_slot - t_start:.1f} s")
+    t_a5 = time.perf_counter()
+    a5_launches = phase_a5(model)
+    log(f"[time] phase 24 {time.perf_counter() - t_a5:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -3297,16 +3872,17 @@ def main() -> None:
         sd, ar = sd_launches.get(name, 0), ar_launches.get(name, 0)
         sv = serve_launches.get(name, 0)
         sl = sum(d.get(name, 0) for d in slot_paths)
+        a5 = a5_launches.get(name, 0)
         cl, tr = claims_launches.get(name, 0), train_launches.get(name, 0)
-        if sd + ar + sv + sl + cl + tr == 0:
+        if sd + ar + sv + sl + a5 + cl + tr == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
             f"{sv} in the paged serve runs', {sl} in the slot, lazy, facade and windowed slot "
-            f"runs', {cl} in "
+            f"runs', {a5} in phase 24's (async, tier, content, fleet, autotune), {cl} in "
             f"the claims' generates on the trained pipeline, {tr} in the timed LM training steps")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar + sv + sl + cl + tr, **r))
+                        launches=sd + ar + sv + sl + a5 + cl + tr, **r))
     log(f"[time] the whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -1,14 +1,16 @@
 """The serve stack of the port: the continuous-batching engine over the slot
-or paged KV arena (eager or lazy reservation), the framework-free copies
-(queue, scheduler, page allocator, metrics and the event trace), the
-offline simulator, the fleet router and simulator, and the Chrome-trace
-export. Counterpart of ``repro.serve``; the host tier, the content prefix
-cache, async ticks, ``ServeFleet`` and the autotuner are not ported yet
-(ROADMAP A5), nor the sharding helpers (A8)."""
+or paged KV arena (eager or lazy reservation, the host tier, the content
+prefix cache, sync or async ticks, ``pass_budget="auto"``), the
+framework-free copies (queue, scheduler, page allocator, metrics and the
+event trace), the budget autotuner, the offline simulator, ``ServeFleet``
+with the fleet router and simulator, and the Chrome-trace export.
+Counterpart of ``repro.serve``; the sharding helpers are not ported
+(ROADMAP A8)."""
 
+from repro_torch.serve.autotune import BudgetAutotuner
 from repro_torch.serve.engine import COMBINE_MODES, TICK_MODES, ContinuousEngine
 from repro_torch.serve.fleet import (FLEET_COUNTERS, ROUTE_POLICIES, FleetReport,
-                                     FleetRouter, fleet_summary, simulate_fleet)
+                                     FleetRouter, ServeFleet, fleet_summary, simulate_fleet)
 from repro_torch.serve.metrics import RequestTimeline, ServeMetrics, TickRecord
 from repro_torch.serve.obs import (Event, EventTrace, Log2Histogram, TickTimer, TickTiming,
                                    fleet_chrome_trace, fold_counters, to_chrome_trace,
@@ -25,10 +27,10 @@ from repro_torch.serve.state import (ContentPrefixRegistry, HostPagePool, PageAl
                                      plan_swap_out, resume_lazy_needs, stream_page_needs)
 
 __all__ = [
-    "ArrivalQueue", "COMBINE_MODES", "ContentPrefixRegistry", "ContinuousEngine", "Event",
+    "ArrivalQueue", "BudgetAutotuner", "COMBINE_MODES", "ContentPrefixRegistry", "ContinuousEngine", "Event",
     "EventTrace", "FLEET_COUNTERS", "FleetReport", "FleetRouter", "HostPagePool",
     "Log2Histogram", "PageAllocator", "PassRow", "PrefixShareRegistry", "ROUTE_POLICIES",
-    "RequestTimeline", "Scheduler", "ServeMetrics", "ServeRequest", "SimRequest", "StatePool",
+    "RequestTimeline", "Scheduler", "ServeFleet", "ServeMetrics", "ServeRequest", "SimRequest", "StatePool",
     "TICK_MODES", "TickPlan", "TickRecord", "TickTimer", "TickTiming", "admission_cutoff",
     "bucket_pow2", "compare_policies", "content_key", "fleet_chrome_trace", "fleet_summary",
     "fold_counters", "fresh_lazy_needs", "host_pages_for_bytes", "kv_page_bytes",

@@ -1,6 +1,5 @@
 """Continuous-batching serve engine over a slot or paged KV arena.
-Counterpart of ``repro.serve.engine.ContinuousEngine`` with synchronous
-ticks.
+Counterpart of ``repro.serve.engine.ContinuousEngine``.
 
 Requests join and leave mid-flight. Each tick expires queued requests past
 their deadline, admits new ones, asks the :class:`Scheduler` to pack the
@@ -32,6 +31,20 @@ Two KV arenas (``kv``):
   its KV, so the resumed tokens are those of an uninterrupted run. The
   prefills of one tick are batched per pow2 length bucket.
 
+Two tiers beside lazy reservation:
+
+* ``host_pool_bytes`` buys a host tier (``HostPagePool``, pinned beside a
+  GPU pool): a preemption victim's pages are copied out (``_swap_out``)
+  unless ``plan_swap_out`` says recompute (``swap_min_pages``, an int or
+  ``"auto"``: the roofline break-even), and its resume copies them back
+  (``_restore_pages``) with no forward; the least recently stored
+  checkpoint goes first when the tier is full, and an expired request's
+  checkpoint goes with it.
+* ``prefix_cache="content"`` keeps the cond prompt pages of each distinct
+  prompt (``ContentPrefixRegistry``): a later identical prompt shares them
+  and replays token 0 from the founder's cached pre-combine logits (kept
+  on the device) with its own scale, key and temperature, at no pass.
+
 Two step modes:
 
 * ``"ragged"`` (the default) runs the whole tick as one step of
@@ -53,7 +66,21 @@ divergence and the argmax), one graph for the ragged step and one per
 signature bucket, all of a mode drawing on one memory pool; each tick
 writes its rows into a pinned host buffer, copies them into the step's
 fixed device buffers and replays the graph once; rows at temperature > 0
-are drawn after the replay from the graph's logits.
+are drawn after the replay from the graph's logits. Every host array the
+device reads goes up from pinned memory without waiting.
+
+``tick_mode="async"`` pipelines the ragged paged tick (``_tick_async``):
+the step is dispatched, the structural finalize runs, and while the device
+works the next tick's expiries and admissions are decided
+(``_admit_collect``: slots, pages and prefills dispatched, nothing waited
+for), their events captured and replayed next tick in the synchronous
+order; only the harvest waits. Tokens, counters and events equal a sync
+engine's.
+
+``pass_budget="auto"`` derives the budget from the roofline of the step
+the engine runs (``repro_torch.roofline``, H100 constants; the ragged
+step's R rows, or the signature steps (1, 0) and (0, 1)) against
+``target_tick_s`` (``serve/autotune.py``), capturing or warming that step.
 
 ``kv_dtype="int8"`` stores the pool as int8 values with float32 scales per
 (position, kv head), quantized on write. The combine stage is Eq. 1 with a
@@ -66,14 +93,15 @@ engine takes the port's ``Transformer`` where the reference takes params;
 the pool lives on the model's device and is updated in place; there is no
 jit, so the first use of a step shape counts as the compile the reference
 would pay, under the reference's keys (``step_compiles`` and
-``step_launches`` fold to the reference's values); and randomness for
+``step_launches`` fold to the reference's values); randomness for
 temperature > 0 comes from a ``torch.Generator`` seeded per request and
 step, not from jax's threefry keys, so sampled tokens differ from the
-reference's while greedy tokens are the parity contract.
+reference's while greedy tokens are the parity contract; the roofline is
+counted, not read off a compiled executable, and the autotuner's budget
+rounding is fixed (ROADMAP C).
 
-Options the port does not have yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item: the host tier, the content prefix cache, async
-ticks and ``pass_budget="auto"`` (A5), a mesh or sharding rules (A8).
+A mesh or sharding rules (``mesh``, ``rules``) raise ``NotImplementedError``
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -81,6 +109,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import roofline
 from repro_torch.core import ar_decode as AR
 from repro_torch.core import graphs as G
 from repro_torch.core.guidance import apg_combine, cfg_combine_rowscale
@@ -90,13 +119,17 @@ from repro_torch.core.selective import GuidancePlan, Mode, PlanCursor, round_hal
 from repro_torch.data.tokenizer import EOS, PAD, encode
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
+from repro_torch.serve.autotune import BudgetAutotuner
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.obs import TickTimer
 from repro_torch.serve.queue import ArrivalQueue, ServeRequest
-from repro_torch.serve.scheduler import Scheduler, TickPlan, bucket_pow2, provision_growth
-from repro_torch.serve.state import (PageAllocator, PrefixShareRegistry, StatePool,
-                                     fresh_lazy_needs, kv_page_bytes, pages_for,
-                                     resume_lazy_needs, stream_page_needs)
+from repro_torch.serve.scheduler import (Scheduler, TickPlan, admission_cutoff, bucket_pow2,
+                                         provision_growth)
+from repro_torch.serve.state import (ContentPrefixRegistry, HostPagePool, PageAllocator,
+                                     PrefixShareRegistry, StatePool, content_key,
+                                     fresh_lazy_needs, host_pages_for_bytes, kv_page_bytes,
+                                     pages_for, plan_swap_out, resume_lazy_needs,
+                                     stream_page_needs)
 
 KV_MODES = ("slot", "paged")
 KV_DTYPES = ("bf16", "int8")
@@ -123,8 +156,10 @@ def _views(buf, layout) -> dict:
     return out
 
 
-def _later(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+def _by_slot(slots: list[int], pages: list[int]) -> tuple[list[int], list[int]]:
+    """Host slots and the device pages paired with them, in slot order."""
+    pairs = sorted(zip(slots, pages))
+    return [s for s, _ in pairs], [p for _, p in pairs]
 
 
 class _SlotArrays:
@@ -176,12 +211,16 @@ class _ResumeState:
 
 class _PrefillItem:
     """One admission, normalized for the batched bucketed prefill: a fresh
-    one (eager or lazy; a prefix sharer's uncond writes masked) or a resume
-    (prompt + generated tokens, no token emitted)."""
+    one (eager or lazy; a prefix sharer's uncond writes masked), a resume
+    (prompt + generated tokens, no token emitted), a resume from the host
+    tier (``restore`` pages copied back, no forward) or a content-cache hit
+    (``cached`` logits, no forward)."""
 
     def __init__(self, req: ServeRequest, slot: int, tokens: np.ndarray, true_len: int,
                  key: int, *, u_mask_below: int | None = 0, emit: bool = True,
-                 u_tokens: np.ndarray | None = None, shared_pages: int = 0):
+                 u_tokens: np.ndarray | None = None, shared_pages: int = 0,
+                 restore: int = 0, cached: tuple | None = None, hit_pages: int = 0,
+                 miss: bool = False, publish_key: str | None = None):
         self.req = req
         self.slot = slot
         self.tokens = tokens              # (true_len,) int32
@@ -192,6 +231,47 @@ class _PrefillItem:
         self.emit = emit
         self.u_tokens = u_tokens          # the uncond row; None: all PAD
         self.shared_pages = shared_pages  # uncond prefix pages shared
+        self.restore = restore            # pages restored from the host tier
+        self.cached = cached              # a hit: the founder's (l_u, l_c)
+        self.hit_pages = hit_pages        # cond prompt pages shared on a hit
+        self.miss = miss                  # the content lookup ran and missed
+        self.publish_key = publish_key    # this prefill's logits become the
+                                          # content entry's payload
+
+
+class _DeferredMetrics:
+    """Records the metric calls made in the async overlap window: tick t+1's
+    admissions are decided while tick t's step runs, but their events
+    belong after tick t's token events. ``replay`` re-issues the calls in
+    decision order at tick t+1's admit phase, the order a synchronous
+    engine (and the simulator) emits."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, tuple, dict]] = []
+
+    def __getattr__(self, name: str):
+        if not name.startswith("on_"):
+            raise AttributeError(name)
+
+        def record(*args, **kwargs):
+            self.calls.append((name, args, kwargs))
+
+        return record
+
+    def replay(self, metrics) -> None:
+        for name, args, kwargs in self.calls:
+            getattr(metrics, name)(*args, **kwargs)
+
+
+class _AdmitStash:
+    """One tick's admission decisions (``_admit_collect``) awaiting their
+    bookkeeping (``_admit_bookkeep``): the batch in queue order and, per
+    length bucket, (emitting items, token 0, l_c, l_u) as device tensors
+    not yet waited for."""
+
+    def __init__(self, batch: list[_PrefillItem], groups: list[tuple]):
+        self.batch = batch
+        self.groups = groups
 
 
 class ContinuousEngine:
@@ -238,6 +318,18 @@ class ContinuousEngine:
             raise ValueError(f"step_mode {step_mode!r} not in {STEP_MODES}")
         if tick_mode not in TICK_MODES:
             raise ValueError(f"tick_mode {tick_mode!r} not in {TICK_MODES}")
+        if tick_mode == "async":
+            if kv != "paged" or step_mode != "ragged":
+                raise ValueError('tick_mode="async" requires kv="paged" and '
+                                 'step_mode="ragged" (the pipeline overlaps the ragged step)')
+            if stop_on_eos:
+                raise ValueError('tick_mode="async" requires stop_on_eos=False: completion '
+                                 "must be cursor-driven so tick t+1's admission can be "
+                                 "decided before tick t's tokens are harvested")
+            if guidance_policy != "static":
+                raise ValueError('tick_mode="async" requires guidance_policy="static": a '
+                                 "dynamic switch reads tick t's divergence, not yet "
+                                 "harvested when t+1 is decided")
         if step_mode == "ragged" and kv != "paged":
             raise ValueError('step_mode="ragged" requires kv="paged" (the '
                              "flat pass list addresses KV through block tables)")
@@ -274,17 +366,8 @@ class ContinuousEngine:
             raise ValueError(f"combine {combine!r} not in {COMBINE_MODES}")
         if not 0.0 <= interval[0] < interval[1] <= 1.0:
             raise ValueError(f"interval {interval!r} must satisfy 0 <= start < stop <= 1")
-        # what the port does not have yet
-        if host_pool_bytes:
-            raise _later("host_pool_bytes (the host tier)", "A5")
-        if prefix_cache == "content":
-            raise _later('prefix_cache="content"', "A5")
-        if tick_mode == "async":
-            raise _later('tick_mode="async"', "A5")
         if mesh is not None or rules is not None:
-            raise _later("a mesh or sharding rules", "A8")
-        if pass_budget == "auto":
-            raise _later('pass_budget="auto" (the roofline autotuner)', "A5")
+            raise NotImplementedError("a mesh or sharding rules are not ported yet (ROADMAP A8)")
         if guidance_policy == "interval" and combine == "cfg":
             # the interval policy's semantics live in the combine stage
             combine = "interval"
@@ -316,10 +399,18 @@ class ContinuousEngine:
         self.kv_dtype = kv_dtype
         self.page_size = page_size
         self.nb_max = pages_for(self.capacity, page_size)
-        self.pass_budget = pass_budget if pass_budget is not None else num_slots
+        self._budget_auto = pass_budget == "auto"
+        self._autotuner = None
+        if self._budget_auto:
+            self.pass_budget = max(2, num_slots)          # provisional until tuned
+            self._autotuner = BudgetAutotuner(target_tick_s, min_budget=2,
+                                              max_budget=2 * num_slots)
+        else:
+            self.pass_budget = pass_budget if pass_budget is not None else num_slots
         self.step_mode = step_mode
         # the ragged step's fixed row count: every tick fits
-        self.ragged_rows = min(self.pass_budget, 2 * num_slots)
+        self.ragged_rows = 2 * num_slots if self._budget_auto \
+            else min(self.pass_budget, 2 * num_slots)
         self.reservation = reservation
         self.queue = ArrivalQueue(max_depth=queue_depth)
         self.pool = StatePool(num_slots)       # slot rows
@@ -335,9 +426,22 @@ class ContinuousEngine:
             self.pages = PageAllocator(self.num_pages, page_size, kv_dtype=kv_dtype)
             if reservation == "lazy":
                 self._prefix = PrefixShareRegistry(self.pages)
+        self.prefix_cache = prefix_cache
+        self._content = ContentPrefixRegistry(self.pages) if prefix_cache == "content" \
+            else None
         self.scheduler = Scheduler(self.pass_budget, policy=policy,
                                    starvation_limit=starvation_limit)
         self.metrics = ServeMetrics()
+        # the host tier: the byte budget in whole pages at the pool's price
+        self.host_pool_bytes = host_pool_bytes
+        host_pages = host_pages_for_bytes(host_pool_bytes, self.page_bytes)
+        if host_pool_bytes and not host_pages:
+            raise ValueError(f"host_pool_bytes={host_pool_bytes} affords no whole page "
+                             f"(page_bytes={self.page_bytes})")
+        self._host = HostPagePool(host_pages, page_bytes=self.page_bytes) if host_pages \
+            else None
+        self._swap_min_auto = swap_min_pages == "auto"
+        self._swap_min = 0 if self._swap_min_auto else int(swap_min_pages)
         self.metrics.page_bytes = self.page_bytes
         self.results: dict[str, list[int]] = {}
         self.tick_count = 0
@@ -355,6 +459,9 @@ class ContinuousEngine:
         self._sig_stagings: dict = {}          # signature bucket key -> its rows
         self._sig_graphs: dict = {}            # signature bucket key -> its captured step
         self._sig_pool = None                  # the signature graphs' memory pool
+        # async: (tick, deferred metric calls, admissions) decided in the
+        # previous tick's overlap window
+        self._stash: tuple | None = None
 
     # -- public API --------------------------------------------------------
 
@@ -379,9 +486,18 @@ class ContinuousEngine:
             self.metrics.on_reject(req.uid, self.tick_count)
         return ok
 
+    @property
+    def _has_pending(self) -> bool:
+        """Async: the previous tick's overlap window left events or
+        admissions that replay next tick."""
+        if self._stash is None:
+            return False
+        _, rec, stash = self._stash
+        return bool(rec.calls) or stash is not None
+
     def drain(self, max_ticks: int = 100_000) -> None:
         """Tick until queue and slots are empty."""
-        while len(self.queue) or self.scheduler.n_active:
+        while len(self.queue) or self.scheduler.n_active or self._has_pending:
             if self.tick_count >= max_ticks:
                 raise RuntimeError(f"engine did not drain in {max_ticks} ticks")
             self.tick()
@@ -397,7 +513,8 @@ class ContinuousEngine:
         elapsed; drains and returns uid -> generated tokens."""
         start = self.tick_count
         i = 0
-        while i < len(requests) or self.scheduler.n_active or len(self.queue):
+        while i < len(requests) or self.scheduler.n_active or len(self.queue) \
+                or self._has_pending:
             if self.tick_count - start >= max_ticks:
                 raise RuntimeError(f"trace did not drain in {max_ticks} ticks")
             while i < len(requests) and start + int(arrivals[i]) <= self.tick_count:
@@ -408,6 +525,8 @@ class ContinuousEngine:
 
     @torch.no_grad()
     def tick(self) -> TickPlan:
+        if self.tick_mode == "async":
+            return self._tick_async()
         timer = TickTimer(self.tick_count)
         now = self.tick_count
         # metrics objects are replaceable (benchmarks reset them between
@@ -415,6 +534,8 @@ class ContinuousEngine:
         self.metrics.page_bytes = self.page_bytes
         with timer.phase("admit"):
             self._expire_queue(now)
+            if self._autotuner is not None and not self._autotuner.per_pass_s:
+                self.autotune_budget()
             if self.kv == "paged":
                 self._admit_paged(now)
                 self.metrics.note_pages(self.pages.n_in_use, now)
@@ -422,16 +543,7 @@ class ContinuousEngine:
                 self._admit(now)
                 self._maybe_defrag()
         with timer.phase("schedule"):
-            plan = self.scheduler.plan_tick()
-            if self.reservation == "lazy" and plan.in_flight:
-                # on-demand growth, copy-on-write and priority preemption:
-                # the decision procedure the simulator replays
-                plan = provision_growth(
-                    plan, self.scheduler, self.pages, page_size=self.page_size,
-                    pos_of=lambda uid: int(self._slots.pos[self._states[uid].slot]),
-                    metrics=self.metrics, preempt=lambda uid: self._preempt(uid, now),
-                    copy_page=self._copy_page, reclaim_cache=self._reclaim_cache, now=now)
-                self.metrics.note_pages(self.pages.n_in_use, now)
+            plan = self._schedule(now)
         with timer.phase("step"):
             sampled, divs = self._execute(plan) if plan.in_flight else ([], [])
         with timer.phase("finalize"):
@@ -472,6 +584,109 @@ class ContinuousEngine:
         self.tick_count += 1
         return plan
 
+    def _schedule(self, now: int) -> TickPlan:
+        """The tick's plan; under lazy reservation with on-demand growth,
+        copy-on-write and priority preemption, the decision procedure the
+        simulator replays."""
+        plan = self.scheduler.plan_tick()
+        if self.reservation == "lazy" and plan.in_flight:
+            plan = provision_growth(
+                plan, self.scheduler, self.pages, page_size=self.page_size,
+                pos_of=lambda uid: int(self._slots.pos[self._states[uid].slot]),
+                metrics=self.metrics, preempt=lambda uid: self._preempt(uid, now),
+                copy_page=self._copy_page, reclaim_cache=self._reclaim_cache, now=now)
+            self.metrics.note_pages(self.pages.n_in_use, now)
+        return plan
+
+    def _tick_async(self) -> TickPlan:
+        """One pipelined tick. Tick ``now``'s admissions were decided in
+        tick ``now - 1``'s overlap window (the stash): their deferred
+        events replay and their bookkeeping runs; the ragged step is
+        scheduled and dispatched without waiting; the structural finalize
+        runs; then, while the device works, tick ``now + 1``'s expiries and
+        admissions are decided under a recorder of their events. Only the
+        harvest waits for the step. The decisions are the sync tick's own
+        procedures, and every event is emitted in the sync order, so
+        tokens, counters and events equal ``tick_mode="sync"``'s."""
+        timer = TickTimer(self.tick_count)
+        now = self.tick_count
+        self.metrics.page_bytes = self.page_bytes
+        with timer.phase("admit"):
+            if self._autotuner is not None and not self._autotuner.per_pass_s:
+                self.autotune_budget()
+            if self._stash is not None:
+                stamp, rec, stash = self._stash
+                self._stash = None
+                assert stamp == now, (stamp, now)
+                rec.replay(self.metrics)
+                if stash is not None:
+                    self._admit_bookkeep(stash, now)
+            elif admission_cutoff(now, pipelined=True) == now:
+                # tick 0: no earlier overlap window; the pipeline fills inline
+                self._expire_queue(now)
+                stash = self._admit_collect(now)
+                if stash is not None:
+                    self._admit_bookkeep(stash, now)
+            self.metrics.note_pages(self.pages.n_in_use, now)
+        with timer.phase("schedule"):
+            plan = self._schedule(now)
+        with timer.phase("step"):
+            handles = None
+            if plan.in_flight:
+                self.metrics.on_step_launch(self.tick_count)
+                handles = self._dispatch_ragged(plan)
+        with timer.phase("finalize"):
+            # the structural finalize, before the overlap window, so that
+            # tick now + 1's admissions see the pages a sync tick would have
+            # freed; no token value is needed (stop_on_eos is off and the
+            # policy static)
+            pending = []
+            for ev in self.scheduler.commit(plan):
+                state = self._states[ev.uid]
+                if ev.done:
+                    passes = state.cursor.passes_executed
+                    self._finalize_state(ev.uid)
+                    pending.append(("done", ev.uid, passes))
+                    continue
+                freed = None
+                cursor = state.cursor
+                if not state.uncond_dead and not cursor.done and cursor.mode is Mode.COND:
+                    state.uncond_dead = True
+                    freed = self._release_uncond(ev.uid)
+                pending.append(("tok", ev.uid, state.slot, ev.mode, freed))
+            # the sync end-of-tick state, before the overlap changes it
+            snap = (self.scheduler.n_active, len(self.queue), self.pages.n_in_use)
+        with timer.phase("overlap"):
+            rec = _DeferredMetrics()
+            real, self.metrics = self.metrics, rec
+            try:
+                self._expire_queue(now + 1)
+                stash = self._admit_collect(now + 1)
+            finally:
+                self.metrics = real
+            self._stash = (now + 1, rec, stash)
+        with timer.phase("finalize"):
+            sampled = self._harvest_ragged(*handles)[0] if handles is not None else []
+            for info, nxt in zip(pending, sampled):
+                if info[0] == "done":
+                    self.metrics.on_complete(info[1], now, info[2])
+                    continue
+                _, uid, slot, mode, freed = info
+                self._states[uid].generated.append(int(nxt))
+                self._slots.tok[slot] = nxt
+                self._slots.pos[slot] += 1
+                self._slots.lstep[slot] += 1
+                self.metrics.on_token(uid, now, cond=mode is Mode.COND)
+                if freed is not None:
+                    self.metrics.on_phase_transition(uid, now)
+                    self.metrics.on_reclaim(uid, now, freed)
+            self.metrics.record_tick(now, n_full=plan.n_full, n_cond=plan.n_cond,
+                                     budget=plan.budget, active=snap[0], queue_depth=snap[1],
+                                     pages_in_use=snap[2])
+        self.metrics.on_tick_timing(timer.finish())
+        self.tick_count += 1
+        return plan
+
     def kv_hbm_bytes(self) -> dict:
         """Reserved vs peak-in-use KV arena bytes, from the page price or the
         row's shape alone (asking never allocates the pool)."""
@@ -497,14 +712,72 @@ class ContinuousEngine:
                 "num_slots": self.num_slots}
 
     def autotune_budget(self) -> dict:
-        raise _later('pass_budget="auto" (the roofline autotuner)', "A5")
+        """Derive ``pass_budget`` from the roofline of the step the engine
+        runs: the ragged step's R rows priced at full packing, or the
+        signature steps (1, 0) and (0, 1); each is captured (graphs) or run
+        once (eager) on padding rows, as the reference warms its jit cache,
+        and its compile counted. Installs the largest budget whose predicted
+        tick fits ``target_tick_s`` at the pool's dtype (at most R in ragged
+        mode) and, with ``swap_min_pages="auto"``, the restore-vs-recompute
+        break-even on the H100's host link. Runs on the first tick under
+        ``pass_budget="auto"``. -> the autotuner's report."""
+        if self._autotuner is None:
+            raise ValueError('autotuning requires pass_budget="auto"')
+        if self.kv == "paged":
+            if self._pool_p is None:
+                self._init_paged_pool()
+        elif self._pool_c is None:
+            self._init_pools()
+        if self.step_mode == "ragged":
+            R = self.ragged_rows
+            self._autotuner.observe_ragged(R, self.step_roofline((R,), R).seconds,
+                                           kv_dtype=self.kv_dtype)
+            self._ragged_step(self._stage_ragged([], 0), [])
+        else:
+            for nf, nc in ((1, 0), (0, 1)):
+                forwards = (nf, nf) if nf else (nc,)
+                self._autotuner.observe((nf, nc), self.step_roofline(forwards, nf + nc).seconds,
+                                        kv_dtype=self.kv_dtype)
+                self._signature_step(self._group([], nf, full=True),
+                                     self._group([], nc, full=False))
+        budget = self._autotuner.budget(self.kv_dtype)
+        if self.step_mode == "ragged":
+            budget = min(budget, self.ragged_rows)
+        self.pass_budget = budget
+        self.scheduler.pass_budget = budget
+        self.metrics.on_autotune(self.tick_count, budget)
+        if self._swap_min_auto and self._host is not None:
+            self._swap_min = self._autotuner.swap_break_even_pages(self.page_bytes,
+                                                                   kv_dtype=self.kv_dtype)
+        return self._autotuner.report(self.kv_dtype)
+
+    def step_roofline(self, forwards: tuple[int, ...], out_rows: int) -> roofline.StepCost:
+        """The roofline of a decode step of this engine: ``forwards`` rows
+        per decode forward, each row attending its block table's (or slot
+        row's) whole capacity, ``out_rows`` combined rows; the weights at
+        their dtype, the embedding table once where it is tied, else only
+        the unembedding's."""
+        weight_bytes = sum(p.numel() * p.element_size() for p in self.model.parameters())
+        if not self.cfg.tie_embeddings:
+            table = self.model.embed.table
+            weight_bytes -= table.numel() * table.element_size()
+        tokens = self.nb_max * self.page_size if self.kv == "paged" else self.capacity
+        return roofline.decode_step(self.cfg, forwards=forwards, kv_tokens=tokens,
+                                    weight_bytes=weight_bytes, out_rows=out_rows,
+                                    kv_dtype=self.kv_dtype)
 
     # -- admission ---------------------------------------------------------
 
     def _expire_queue(self, now: int) -> None:
+        """Expire queued requests past their deadline; a preempted one's
+        host checkpoint goes with it."""
         for dead in self.queue.expire(now):
-            self._resume.pop(dead.uid, None)
+            had_ckpt = self._resume.pop(dead.uid, None) is not None
             self.metrics.on_expire(dead.uid, now)
+            if had_ckpt and self._host is not None:
+                freed = self._host.drop(dead.uid)
+                if freed:
+                    self.metrics.on_host_evict(dead.uid, now, freed)
 
     def _plan_for(self, req: ServeRequest) -> GuidancePlan:
         if req.plan is not None:
@@ -569,7 +842,10 @@ class ContinuousEngine:
     def _draw(self, nxt, logits, uids, temps, keys, steps):
         """``nxt`` (the argmax of each row of ``logits``) with the rows at
         temperature > 0 drawn from a generator seeded by the request's key
-        and ``steps[i]``, as the reference folds its key with the step."""
+        and ``steps[i]``, as the reference folds its key with the step.
+        The draw is ``torch.multinomial(probs, 1)``'s own one-sample form,
+        argmax(probs / q) with q ~ Exp(1) from the generator, without its
+        checks of the probabilities, which wait for the device."""
         rows = np.flatnonzero(np.asarray(temps[:len(uids)]) > 0)
         if len(rows):
             nxt = nxt.clone()
@@ -577,7 +853,7 @@ class ContinuousEngine:
             gen = torch.Generator(device=logits.device)
             gen.manual_seed((int(keys[i]) << 24) + int(steps[i]))
             probs = torch.softmax(logits[i] / float(temps[i]), dim=-1)
-            nxt[i] = torch.multinomial(probs, 1, generator=gen)[0]
+            nxt[i] = (probs / torch.empty_like(probs).exponential_(1, generator=gen)).argmax()
         return nxt
 
     def _prompt_len_for(self, req: ServeRequest) -> int:
@@ -693,13 +969,23 @@ class ContinuousEngine:
             self.scheduler.reslot(uid, slot)
 
     def _admit_paged(self, now: int) -> None:
-        """Pop admissible requests, prefill them in per-length-bucket
-        batches (one forward serves k > 1 admissions of a bucket), then emit
-        the admission events in queue order. Eager reservation needs the
-        full worst-case page span of both streams; lazy the prompt's pages
-        (a shared uncond prefix needs none), and a preempted request
-        re-admits through the same prefill, its KV rebuilt from prompt +
-        generated tokens, emitting no token."""
+        """Sync admission: decide and prefill, then the bookkeeping, in one
+        tick. The async tick runs the same two halves a tick apart."""
+        stash = self._admit_collect(now)
+        if stash is not None:
+            self._admit_bookkeep(stash, now)
+
+    def _admit_collect(self, now: int) -> _AdmitStash | None:
+        """The decision half: pop admissible requests, claim their slots
+        and pages, and dispatch their prefills in per-length-bucket batches
+        (one forward serves k > 1 admissions of a bucket); nothing here
+        waits for the device. Eager reservation needs the full worst-case
+        page span of both streams; lazy the prompt's pages (a shared uncond
+        prefix needs none; a content-cache hit none at all), and a
+        preempted request re-admits by copying its pages back from the host
+        tier, or through the same prefill, its KV rebuilt from prompt +
+        generated tokens, emitting no token. -> the stash for
+        ``_admit_bookkeep``, None when nothing was admitted."""
         quota = min(self.scheduler.admission_quota(self.pool.n_free),
                     self.prefills_per_tick)
         batch: list[_PrefillItem] = []
@@ -710,41 +996,64 @@ class ContinuousEngine:
                 break
             plan, S = self._plan_for(req), self._prompt_len_for(req)
             if lazy and req.uid in self._resume:
-                item = self._try_admit_resume(req, plan, S)
+                item = self._try_admit_resume(req, plan, S, now)
             elif lazy:
-                item = self._try_admit_lazy(req, plan, S)
+                item = self._try_admit_lazy(req, plan, S, now)
             else:
                 item = self._try_admit_eager(req, plan, S)
             if item is None:
                 break                         # head-of-line waits for pages
             batch.append(item)
         if not batch:
-            return
+            return None
         if self._pool_p is None:
-            self._pool_p = T.paged_cache_specs(self.cfg, self.num_pages, self.page_size,
-                                               kv_dtype=self.kv_dtype, device=self.device)
+            self._init_paged_pool()
         groups: dict[int, list] = {}
         for item in batch:
-            groups.setdefault(_bucket(item.true_len), []).append(item)
+            if not item.restore and item.cached is None:   # those run no forward
+                groups.setdefault(_bucket(item.true_len), []).append(item)
+        return _AdmitStash(batch, [self._prefill_paged_group(Sb, groups[Sb])
+                                   for Sb in sorted(groups)])
+
+    def _admit_bookkeep(self, stash: _AdmitStash, now: int) -> None:
+        """The bookkeeping half: harvest token 0 of the stashed prefills
+        (where the host first waits for them), install the founders'
+        pre-combine logits as content entries' payloads, replay each hit's
+        token 0, and emit the admission events in queue order: share ->
+        hit/miss -> admit -> first token, or share -> swap-in -> resume, a
+        request at a time, as the simulator does."""
         tok0_of: dict[str, int] = {}
-        for Sb in sorted(groups):
-            items = groups[Sb]
-            tok0_of.update(self._prefill_paged_group(Sb, items))
-        # bookkeeping in queue order, not bucket order: share -> admit ->
-        # first token, or share -> resume, a request at a time
-        for it in batch:
+        for items, tok0, l_c, l_u in stash.groups:
+            if self._content is not None:
+                for i, it in enumerate(items):
+                    if it.publish_key:
+                        # a hit is ready only on a later tick than the
+                        # publish, so installing here never races a lookup
+                        self._content.set_payload(it.publish_key,
+                                                  (l_u[i].clone(), l_c[i].clone()))
+            tok0_of.update(zip((it.req.uid for it in items), tok0.tolist()))
+        for it in stash.batch:
+            if it.cached is not None:
+                tok0_of[it.req.uid] = int(self._hit_sample(it)[0])
+        for it in stash.batch:
             uid = it.req.uid
             if it.shared_pages:
                 self.metrics.on_share(uid, now, it.shared_pages)
+            if it.hit_pages:
+                self.metrics.on_prefix_hit(uid, now, it.hit_pages)
+            elif it.miss:
+                self.metrics.on_prefix_miss(uid, now)
             state = self._states[uid]
-            if not it.emit:
+            if not it.emit:                   # a resume: KV rebuilt, no token
+                if it.restore:
+                    self.metrics.on_swap_in(uid, now, it.restore)
                 self.metrics.on_resume(uid, now, full=int(state.cursor.mode is Mode.FULL),
-                                       from_host=False)
+                                       from_host=bool(it.restore))
                 continue
             plan = state.cursor.plan
             self.metrics.on_admit(uid, now, total_steps=plan.total_steps,
                                   full_steps=plan.denoiser_passes() - plan.total_steps,
-                                  cached=False)
+                                  cached=it.cached is not None)
             t0 = tok0_of[uid]
             if self.stop_on_eos and t0 == EOS:
                 self._finalize(uid, now)
@@ -752,6 +1061,18 @@ class ContinuousEngine:
             self._slots.tok[it.slot] = t0
             state.generated.append(t0)
             self.metrics.on_token(uid, now)           # TTFT: prefill emits
+
+    def _free_for_admission(self, n: int, uid: str, now: int) -> bool:
+        """Make ``n`` pages free for a blocked admission by evicting content
+        entries: they outlive their users, so an idle pool can be all cache
+        with nothing in flight to trigger ``provision_growth``'s reclaim.
+        The length-keyed uncond registry is left alone (its entries die
+        with their users)."""
+        while self.pages.n_free < n:
+            if self._content is None or not self._content.evict_under_pressure():
+                return False
+            self.metrics.on_cache_evict(uid, now)
+        return True
 
     def _admit_common(self, req: ServeRequest, cursor: PlanCursor, pos: int) -> int:
         """Claim a slot, admit to the scheduler, set the slot's scalars."""
@@ -780,11 +1101,18 @@ class ContinuousEngine:
         self._slots.key[slot] = key
         return _PrefillItem(req, slot, self._tokenize(req.prompt, S), S, key)
 
-    def _try_admit_lazy(self, req: ServeRequest, plan: GuidancePlan,
-                        S: int) -> _PrefillItem | None:
+    def _try_admit_lazy(self, req: ServeRequest, plan: GuidancePlan, S: int,
+                        now: int) -> _PrefillItem | None:
         shared = self._prefix.lookup(S) is not None
         need_c, need_u, wants_u = fresh_lazy_needs(plan, S, self.page_size, shared=shared)
-        if self.pages.n_free < need_c + need_u:
+        tokens = self._tokenize(req.prompt, S)
+        ckey = content_key(tokens) if self._content is not None else None
+        if ckey is not None and self._content.ready(ckey, now) \
+                and self._content.matches(ckey, tokens) and (not wants_u or shared):
+            # the founder's prefill has run and the uncond side (if any) is
+            # servable from the length registry: admit with no forward
+            return self._admit_prefix_hit(req, plan, S, tokens, ckey, wants_u)
+        if not self._free_for_admission(need_c + need_u, req.uid, now):
             return None
         self.queue.pop()
         self.pages.alloc(req.uid, "c", need_c)
@@ -800,34 +1128,76 @@ class ContinuousEngine:
         key = self._fresh_key()
         self._slots.lstep[slot] = 0
         self._slots.key[slot] = key
-        return _PrefillItem(req, slot, self._tokenize(req.prompt, S), S, key,
-                            u_mask_below=u_mask, shared_pages=n_share)
+        publish_key = None
+        if ckey is not None and self._content.lookup(ckey) is None:
+            # the cache was cold for this prompt: this prefill's cond prompt
+            # pages become its entry, hittable from the next tick
+            self._content.publish(ckey, req.uid, ids=tokens, tick=now)
+            publish_key = ckey
+        return _PrefillItem(req, slot, tokens, S, key, u_mask_below=u_mask,
+                            shared_pages=n_share, miss=ckey is not None,
+                            publish_key=publish_key)
 
-    def _try_admit_resume(self, req: ServeRequest, plan: GuidancePlan,
-                          S: int) -> _PrefillItem | None:
-        """Re-admit a preempted request by recompute: its pages granted
-        afresh (the whole-page uncond prompt prefix shared where a canonical
-        copy exists), its KV rebuilt by one prefill over prompt + generated
-        tokens, its checkpoint restored."""
-        rs = self._resume[req.uid]
-        shared = self._prefix.lookup(S) is not None
-        need_c, need_u, wants_u, n_share = resume_lazy_needs(
-            plan, rs.step, S, self.page_size, shared=shared, switch_step=rs.switch_step)
-        if self.pages.n_free < need_c + need_u:
-            return None
+    def _admit_prefix_hit(self, req: ServeRequest, plan: GuidancePlan, S: int,
+                          tokens: np.ndarray, ckey: str, wants_u: bool) -> _PrefillItem:
+        """A content-cache hit: share the entry's cond prompt pages (and the
+        length-keyed uncond prefix where the plan has a FULL phase); token
+        0 replays from the founder's logits, so the admission costs no
+        denoiser pass."""
         self.queue.pop()
-        del self._resume[req.uid]
-        self.pages.alloc(req.uid, "c", need_c)
-        u_mask: int | None = None
-        if wants_u:
-            if n_share:
-                self._prefix.acquire(S, req.uid, count=n_share)
-                if need_u:
-                    self.pages.grow(req.uid, "u", need_u)
-                u_mask = n_share               # write only the private tail
-            else:
-                self.pages.alloc(req.uid, "u", need_u)
-                u_mask = 0
+        got = self._content.acquire(ckey, req.uid)
+        n_share = len(self._prefix.acquire(S, req.uid)) if wants_u else 0
+        slot = self._admit_common(req, self._cursor_for(plan), S)
+        key = self._fresh_key()
+        self._slots.lstep[slot] = 0
+        self._slots.key[slot] = key
+        payload = self._content.payload(ckey)
+        assert payload is not None             # ready() waits for the founder's tick
+        return _PrefillItem(req, slot, tokens, S, key, u_mask_below=None,
+                            shared_pages=n_share, hit_pages=len(got), cached=payload)
+
+    def _try_admit_resume(self, req: ServeRequest, plan: GuidancePlan, S: int,
+                          now: int) -> _PrefillItem | None:
+        """Re-admit a preempted request: by copying its checkpoint's pages
+        back from the host tier where it still holds them (no forward), else
+        by recompute: its pages granted afresh (the whole-page uncond prompt
+        prefix shared where a canonical copy exists), its KV rebuilt by one
+        prefill over prompt + generated tokens. Its checkpoint is
+        restored."""
+        rs = self._resume[req.uid]
+        restore = 0
+        if self._host is not None and self._host.holds(req.uid):
+            held = self._host.pages_of(req.uid)
+            restore = sum(len(v) for v in held.values())
+            if not self._free_for_admission(restore, req.uid, now):
+                return None
+            self.queue.pop()
+            del self._resume[req.uid]
+            if self._pool_p is None:
+                self._init_paged_pool()
+            for stream in sorted(held):
+                self._restore_pages(held[stream],
+                                    self.pages.alloc(req.uid, stream, len(held[stream])))
+            self._host.drop(req.uid)
+        else:
+            shared = self._prefix.lookup(S) is not None
+            need_c, need_u, wants_u, n_share = resume_lazy_needs(
+                plan, rs.step, S, self.page_size, shared=shared, switch_step=rs.switch_step)
+            if not self._free_for_admission(need_c + need_u, req.uid, now):
+                return None
+            self.queue.pop()
+            del self._resume[req.uid]
+            self.pages.alloc(req.uid, "c", need_c)
+            u_mask: int | None = None
+            if wants_u:
+                if n_share:
+                    self._prefix.acquire(S, req.uid, count=n_share)
+                    if need_u:
+                        self.pages.grow(req.uid, "u", need_u)
+                    u_mask = n_share           # write only the private tail
+                else:
+                    self.pages.alloc(req.uid, "u", need_u)
+                    u_mask = 0
         L = S + rs.step
         cursor = self._cursor_for(plan, step=rs.step, passes=rs.passes,
                                   switch_step=rs.switch_step, ema=rs.ema)
@@ -838,6 +1208,9 @@ class ContinuousEngine:
         self._slots.tok[slot] = rs.generated[-1]
         self._slots.lstep[slot] = rs.step
         self._slots.key[slot] = rs.key
+        if restore:
+            return _PrefillItem(req, slot, np.zeros(0, np.int32), L, rs.key,
+                                u_mask_below=None, emit=False, restore=restore)
         row = np.concatenate([self._tokenize(req.prompt, S),
                               np.asarray(rs.generated[:-1], np.int32)])
         # the uncond stream consumed the sampled tokens during decode: null
@@ -852,12 +1225,15 @@ class ContinuousEngine:
         self._req_seq += 1
         return key
 
-    def _prefill_paged_group(self, Sb: int, items: list[_PrefillItem]) -> dict[str, int]:
+    def _prefill_paged_group(self, Sb: int, items: list[_PrefillItem]) -> tuple:
         """Both streams' prefill of one length bucket, padded to a pow2
         count of rows: the forwards, token 0 from each emitting row's last
         position, and the KV scattered through the rows' block tables
-        (padding, masked uncond columns and uncovered positions drop).
-        -> uid -> token 0 of the emitting rows."""
+        (padding, masked uncond columns and uncovered positions drop). The
+        inputs go up from pinned memory without waiting, and nothing is
+        brought back: -> (the emitting items, their token 0 (n,), and the
+        last position's cond and uncond logits (n, V) float32), device
+        tensors not yet waited for."""
         kb = _bucket(len(items))
         self._seen(("prefill", Sb, kb), step=False)
         nb_pre = pages_for(Sb, self.page_size)
@@ -886,18 +1262,30 @@ class ContinuousEngine:
             A.paged_scatter_prefill(pool, cc, pages_c, offs)
             A.paged_scatter_prefill(pool, cu, pages_u, offs)
         emit = [i for i, it in enumerate(items) if it.emit]
+        out = [items[i] for i in emit]
         if not emit:
-            return {}
+            empty = torch.zeros(0, device=self.device)
+            return out, empty.long(), empty, empty
         rows = self._dev(np.asarray(emit))
         last = self._dev(true_len[emit] - 1)
         l_c = model.unembed(h_c[rows, last][:, None])[:, 0].float()
         l_u = model.unembed(h_u[rows, last][:, None])[:, 0].float()
-        scales = np.asarray([self._eff_scale(items[i].req.uid, 0) for i in emit], np.float32)
+        scales = np.asarray([self._eff_scale(it.req.uid, 0) for it in out], np.float32)
         logits = self._combine(l_u, l_c, self._dev(scales))
-        tok0 = self._sample(logits, [items[i].req.uid for i in emit],
-                            [items[i].req.temperature for i in emit],
-                            [items[i].key for i in emit], np.zeros(len(emit), np.int64))
-        return dict(zip((items[i].req.uid for i in emit), tok0.tolist()))
+        tok0 = self._sample(logits, [it.req.uid for it in out],
+                            [it.req.temperature for it in out], [it.key for it in out],
+                            np.zeros(len(out), np.int64))
+        return out, tok0, l_c, l_u
+
+    def _hit_sample(self, it: _PrefillItem):
+        """Token 0 of a content-cache hit: the configured combine over the
+        founder's cached pre-combine logits with the hit's own scale, then
+        the hit's own draw at step 0, as its cold prefill would take it. ->
+        (1,) on the device."""
+        l_u, l_c = it.cached
+        scale = self._dev(np.asarray([self._eff_scale(it.req.uid, 0)], np.float32))
+        logits = self._combine(l_u[None], l_c[None], scale)
+        return self._sample(logits, [it.req.uid], [it.req.temperature], [it.key], [0])
 
     def _release_uncond(self, uid: str) -> int:
         """Free a request's unconditional pages at the COND transition, and
@@ -909,13 +1297,20 @@ class ContinuousEngine:
         return freed
 
     def _reclaim_cache(self) -> bool:
-        """Pool pressure: evict a length-keyed uncond prefix entry."""
+        """Pool pressure: evict a cache entry, the content tier first (its
+        entries are pure cache, recomputable from the prompt), then a
+        length-keyed uncond prefix entry."""
+        if self._content is not None and self._content.evict_under_pressure():
+            return True
         return self._prefix.evict_under_pressure()
 
     def _preempt(self, uid: str, now: int) -> None:
         """Evict ``uid`` back to the front of the queue: its pages freed for
         the preemptor, its cursor, tokens and key checkpointed, so that its
-        resume is token-identical to an uninterrupted run."""
+        resume is token-identical to an uninterrupted run. With a host tier
+        its pages are copied out first, unless ``plan_swap_out`` says
+        recompute (events: preempt -> host_evict* -> swap_out, as the
+        simulator replays them)."""
         state = self._states.pop(uid)
         self._resume[uid] = _ResumeState(
             step=state.cursor.step, passes=state.cursor.passes_executed,
@@ -924,8 +1319,17 @@ class ContinuousEngine:
             ema=getattr(state.cursor, "ema", 0.0), uncond_dead=state.uncond_dead)
         self.pool.free(state.slot)
         self.metrics.on_preempt(uid, now)
+        swap = plan_swap_out(self.pages, self._host, uid, min_pages=self._swap_min)
+        if swap is not None:
+            placed, evicted = self._host.put(uid, swap)     # plan_swap_out checked the fit
+            for euid, n_freed in evicted:
+                self.metrics.on_host_evict(euid, now, n_freed)
+            self._swap_out(uid, swap, placed)
+            self.metrics.on_swap_out(uid, now, sum(swap.values()))
         self.pages.free_all(uid)
         self._prefix.release(uid)
+        if self._content is not None:
+            self._content.release(uid)
         self.scheduler.release(uid)
         self.queue.requeue(state.req)
 
@@ -936,15 +1340,53 @@ class ContinuousEngine:
             for t in pool.values():
                 t[dst] = t[src]
 
+    def _swap_out(self, uid: str, swap: dict[str, int], placed: dict[str, list[int]]) -> None:
+        """Copy a preemption victim's pages into its host slots, stream by
+        stream: one gather a leaf of the stream's pages in the order of
+        their host slots (so that consecutive slots take one copy), padded
+        to a pow2 count with page 0 (values and int8 scales through the
+        same indices), then the copies into the arena, none waited for."""
+        for stream in sorted(swap):
+            slots, pages = _by_slot(placed[stream], self.pages.owned(uid, stream))
+            n, nb = len(pages), _bucket(len(pages))
+            self._seen(("hgather", nb), step=False)
+            idx = np.zeros(nb, np.int64)
+            idx[:n] = pages
+            idx = self._dev(idx)
+            rows = [{name: t.index_select(0, idx) for name, t in layer.items()}
+                    for layer in self._pool_p]
+            self._host.store(slots, rows)
+
+    def _restore_pages(self, host_slots: list[int], dev_pages: list[int]) -> None:
+        """Copy host-tier page rows into freshly granted device pages, read
+        in the order of their host slots: one scatter a leaf, padded to a
+        pow2 count of rows addressed at the spare page (the out-of-range
+        index: the writes drop)."""
+        host_slots, dev_pages = _by_slot(host_slots, dev_pages)
+        n, nb = len(dev_pages), _bucket(len(dev_pages))
+        self._seen(("hscatter", nb), step=False)
+        idx = np.full(nb, self.num_pages, np.int64)
+        idx[:n] = dev_pages
+        idx = self._dev(idx)
+        for layer, rows in zip(self._pool_p, self._host.load(host_slots, self.device)):
+            for name, t in layer.items():
+                src = rows[name]
+                if nb > n:
+                    src = torch.cat([src, src.new_zeros((nb - n,) + src.shape[1:])])
+                t.index_copy_(0, idx, src)
+
     def _finalize_state(self, uid: str) -> _RequestState:
-        """Free the slot, pages and registry membership and publish the
-        result."""
+        """The structural half of completion: free the slot, pages and
+        registry memberships and publish the result. The async tick runs it
+        before its overlap window and emits ``complete`` at the harvest."""
         state = self._states.pop(uid)
         self.pool.free(state.slot)
         if self.pages is not None:
             self.pages.free_all(uid)
             if self._prefix is not None:
                 self._prefix.release(uid)
+            if self._content is not None:
+                self._content.release(uid)
         self.scheduler.release(uid)
         self.results[uid] = state.generated
         return state
@@ -956,8 +1398,21 @@ class ContinuousEngine:
     # -- step functions ------------------------------------------------------
 
     def _dev(self, a, dtype=None):
-        """A host array on the engine's device."""
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype=dtype)
+        """A host array on the engine's device: on a GPU through a pinned
+        copy, uploaded without waiting (the host allocator keeps the pinned
+        block until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device, dtype=dtype)
+
+    def _init_paged_pool(self) -> None:
+        """The page pool, and the host tier's arena beside it (pinned for a
+        GPU pool: allocated here, not in the tick that first swaps)."""
+        self._pool_p = T.paged_cache_specs(self.cfg, self.num_pages, self.page_size,
+                                           kv_dtype=self.kv_dtype, device=self.device)
+        if self._host is not None:
+            self._host.attach(self._pool_p)
 
     def _seen(self, key: tuple, *, step: bool) -> None:
         """Note the first use of a step shape: what the reference counts as
@@ -1167,19 +1622,15 @@ class ContinuousEngine:
             self._staging["host"]["rkey"] = np.zeros(R, np.uint32)
         return self._staging
 
-    def _dispatch_ragged(self, plan: TickPlan) -> tuple:
-        """Stage the tick's rows and launch the ragged step. Row layout
-        (``plan.pass_rows()``): rows [0, in_flight) are the output rows,
-        every entry's cond pass in ``plan.full + plan.cond`` order; rows
-        [in_flight, in_flight + n_full) the FULL entries' uncond passes;
-        the rest padding (phase 0, out-of-range tables). The rows go to the
-        fixed device buffers in two copies; nothing here waits for the
-        device.
-        -> (next tokens, divergences, n_out), device tensors unforced."""
+    def _stage_ragged(self, rows: list, n_full: int) -> dict:
+        """Write a tick's pass rows into the ragged step's staging and copy
+        them up, without waiting. Row layout (``TickPlan.pass_rows``): the
+        output rows first, every entry's cond pass in ``plan.full +
+        plan.cond`` order, then the FULL entries' uncond passes; the rest
+        padding (phase 0, out-of-range tables). -> the staging."""
         R = self.ragged_rows
-        rows = plan.pass_rows()
         assert len(rows) <= R, (len(rows), R)
-        n_out = plan.in_flight
+        n_out = len(rows) - n_full
         st = self._ragged_staging()
         h = st["host"]
         h["bt"].fill(self.num_pages)
@@ -1197,10 +1648,18 @@ class ContinuousEngine:
             h["rkey"][r] = self._slots.key[slot]
             h["lstep"][r] = self._slots.lstep[slot]
             h["phase"][r] = 1
-        h["u_idx"][:plan.n_full] = n_out + np.arange(plan.n_full)
+        h["u_idx"][:n_full] = n_out + np.arange(n_full)
         self._upload(st)
-        uids = [pr.entry.uid for pr in rows[:n_out]]
-        nxt, div = self._ragged_step(st, uids)
+        return st
+
+    def _dispatch_ragged(self, plan: TickPlan) -> tuple:
+        """Stage the tick's rows and launch the ragged step; nothing here
+        waits for the device. -> (next tokens, divergences, n_out), device
+        tensors not yet waited for."""
+        rows = plan.pass_rows()
+        st = self._stage_ragged(rows, plan.n_full)
+        n_out = plan.in_flight
+        nxt, div = self._ragged_step(st, [pr.entry.uid for pr in rows[:n_out]])
         return nxt, div, n_out
 
     def _harvest_ragged(self, nxt, div, n_out: int) -> tuple:

@@ -1,6 +1,5 @@
-# Copy of repro/serve/fleet.py (framework-free): the router, the fleet
-# simulator and the summary. ``ServeFleet``, which drives engines, is not
-# ported yet (ROADMAP A5).
+# Copy of repro/serve/fleet.py: the router, ``ServeFleet`` over the port's
+# engines, the fleet simulator and the summary.
 """Fleet tier: N engine replicas behind a prefix-affinity router.
 
 The ROADMAP's "millions of users" item (DESIGN.md §16). One engine —
@@ -44,7 +43,7 @@ import numpy as np
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.obs.hist import default_histograms
 from repro_torch.serve.sim import SimReport, SimRequest, simulate
-from repro_torch.serve.state import stream_page_needs
+from repro_torch.serve.state import content_key, stream_page_needs
 
 ROUTE_POLICIES = ("affinity", "random")
 
@@ -99,6 +98,62 @@ class FleetRouter:
         self.assigned_bytes[rid] += nbytes
         self.assigned_count[rid] += 1
         return rid
+
+
+class ServeFleet:
+    """N real engines behind one :class:`FleetRouter`.
+
+    Replicas are fully independent (disjoint arenas, caches and metric
+    streams; on one GPU they may share one model object, each engine with
+    its own pool and graph pool); the fleet routes each request once, then
+    drives every replica's sub-trace through the single-engine
+    ``serve_trace``. The byte cost the router balances on is the request's
+    worst-case KV page need priced at the replica page size — known at
+    routing time, before any device work.
+    """
+
+    def __init__(self, engines: list, *, policy: str = "affinity",
+                 seed: int = 0):
+        if not engines:
+            raise ValueError("a fleet needs at least one engine")
+        self.engines = list(engines)
+        self.router = FleetRouter(len(engines), policy=policy, seed=seed)
+        self.assignments: dict[str, int] = {}
+
+    def route_request(self, req) -> int:
+        """Route one request (and record the assignment)."""
+        eng = self.engines[0]     # replicas share model geometry
+        plan = eng._plan_for(req)
+        S = eng._prompt_len_for(req)
+        ckey = None
+        if eng._content is not None:
+            ckey = content_key(eng._tokenize(req.prompt, S))
+        need = sum(stream_page_needs(plan, S, eng.page_size))
+        rid = self.router.route(ckey, need * eng.page_bytes)
+        self.assignments[req.uid] = rid
+        return rid
+
+    def serve_trace(self, requests: list, arrivals,
+                    max_ticks: int = 100_000) -> dict[str, list[int]]:
+        """Route the whole trace in arrival order, then drain each
+        replica's sub-trace; returns the merged uid -> tokens map."""
+        subs = [([], []) for _ in self.engines]
+        for req, arr in zip(requests, arrivals):
+            rid = self.route_request(req)
+            subs[rid][0].append(req)
+            subs[rid][1].append(arr)
+        out: dict[str, list[int]] = {}
+        for eng, (reqs, arrs) in zip(self.engines, subs):
+            if reqs:
+                out.update(eng.serve_trace(reqs, arrs, max_ticks=max_ticks))
+        return out
+
+    @property
+    def metrics(self) -> list[ServeMetrics]:
+        return [e.metrics for e in self.engines]
+
+    def summary(self) -> dict:
+        return fleet_summary(self.metrics)
 
 
 @dataclass

@@ -5,14 +5,15 @@ Copy of the framework-free part of ``repro/serve/state.py``:
 ``StatePool``, ``pages_for``, ``page_nbytes``, ``kv_page_bytes`` (computed
 from the config here, not from abstract specs), ``pages_for_pool_bytes``,
 the eager and lazy page needs, ``PageAllocator`` with the share registries
-and ``content_key``, and the bookkeeping half of ``HostPagePool`` with
-``plan_swap_out``. The host tier's storage arena and the sharding helpers
-are not ported (ROADMAP A5, A8).
+and ``content_key``, ``HostPagePool`` (its bookkeeping, and its storage
+arena on torch tensors, pinned beside a GPU pool) with ``plan_swap_out``.
+The sharding helpers are not ported (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.selective import Mode, PlanCursor
 
@@ -690,12 +691,15 @@ def host_pages_for_bytes(host_bytes: int, page_bytes: int) -> int:
 class HostPagePool:
     """Byte-budgeted host tier for preemption-victim KV pages.
 
-    The bookkeeping half of the reference's pool: a slot allocator over
-    ``num_pages`` host pages with per-``(uid, stream)`` ownership,
-    whole-checkpoint LRU eviction, and a :meth:`check` conservation audit
-    mirroring :meth:`PageAllocator.check`. It is model-free. The storage
-    half (a pinned host arena the pages are copied into) is not ported yet
-    (ROADMAP A5).
+    A slot allocator over ``num_pages`` host pages with per-``(uid,
+    stream)`` ownership, whole-checkpoint LRU eviction, and a :meth:`check`
+    conservation audit mirroring :meth:`PageAllocator.check`; that half is
+    model-free (the simulator uses it alone). The engine also
+    :meth:`attach`es a storage arena that mirrors its page pool and copies
+    pages in (:meth:`store`) and out (:meth:`load`). Beside a CUDA pool the
+    arena is pinned host memory and both copies are ``non_blocking`` on the
+    current stream: the host never reads the stored bytes, so stream order
+    alone keeps a load behind the store it reads.
 
     Unlike the device allocator there is no refcounting: a checkpoint's
     host pages have exactly one owner (sharing is a device-tier concept),
@@ -808,6 +812,62 @@ class HostPagePool:
         assert {u for u, _ in self._owned} == set(self._lru)
         assert 0 <= self.n_in_use <= self.num_pages
 
+    # -- storage (engine-side; the simulator never attaches) ---------------
+
+    arena = None
+
+    def attach(self, template) -> None:
+        """Allocate the host arena mirroring ``template`` (the engine's pool:
+        a list per layer of ``{name: (P + 1, ...)}`` tensors, values and
+        int8 scales alike), each leaf's pages axis (0) resized to the host
+        tier's ``num_pages``; pinned when the pool is on a GPU."""
+        def mirror(t):
+            return torch.zeros((self.num_pages,) + tuple(t.shape[1:]), dtype=t.dtype,
+                               pin_memory=t.device.type == "cuda")
+
+        self.arena = [{name: mirror(t) for name, t in layer.items()} for layer in template]
+
+    def store(self, slots: list[int], rows) -> None:
+        """Write gathered page rows into host slots: ``rows`` mirrors the
+        arena, each leaf's first ``len(slots)`` entries along the pages
+        axis going to ``slots`` (the rest, gather padding, is ignored). One
+        copy per leaf and run of consecutive slots, ``non_blocking``."""
+        for dst_layer, src_layer in zip(self.arena, rows):
+            for name, dst in dst_layer.items():
+                src = src_layer[name]
+                for at, slot, n in _runs(slots):
+                    dst[slot:slot + n].copy_(src[at:at + n], non_blocking=True)
+
+    def load(self, slots: list[int], device=None):
+        """Read host slots back as page rows mirroring the arena, on
+        ``device`` (None: the host, a copy): one ``non_blocking`` copy per
+        leaf and run of consecutive slots."""
+        device = torch.device("cpu") if device is None else torch.device(device)
+        out = []
+        for layer in self.arena:
+            rows = {}
+            for name, src in layer.items():
+                dst = torch.empty((len(slots),) + tuple(src.shape[1:]), dtype=src.dtype,
+                                  device=device)
+                for at, slot, n in _runs(slots):
+                    dst[at:at + n].copy_(src[slot:slot + n], non_blocking=True)
+                rows[name] = dst
+            out.append(rows)
+        return out
+
+
+def _runs(slots: list[int]) -> list[tuple[int, int, int]]:
+    """``slots`` as runs of consecutive slots: (index in ``slots``, first
+    slot, length) each."""
+    out: list[tuple[int, int, int]] = []
+    for i, s in enumerate(slots):
+        s = int(s)
+        if out and out[-1][1] + out[-1][2] == s:
+            at, first, n = out[-1]
+            out[-1] = (at, first, n + 1)
+        else:
+            out.append((i, s, 1))
+    return out
 
 
 def plan_swap_out(pages: PageAllocator, host: HostPagePool | None, uid: str,
