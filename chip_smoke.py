@@ -26,7 +26,11 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    that lead one generate under ``torch.profiler``;
 7. attention and norm kernels vs plain: the flash-prefill, flash-decode and
    RMSNorm kernels against their plain versions at every dense decoder's
-   head dim and group (hd 64/120/128, H/K 4/5/8), the prefill at S 77 to
+   head dim and group (hd 64/120/128, H/K 4/5/8) and at the other
+   families' (recurrentgemma-9b's hd 256, 16:1, window 2048; hubert-xlarge's
+   hd 80, 16:16, non-causal, prefill only; chameleon-34b's hd 128, 64:8;
+   mixtral-8x7b's hd 128, 32:8, window 4096), RMSNorm also at D 512 and 1024
+   and chameleon's q/k-norm rows, the prefill at S 77 to
    2048 and a serve bucket (B 2, S 128), the decode with its position a
    device tensor at capacity 768 (pos 0, TK - 1, TK, 384, 767; TK the
    dtype's tile) and 4096 (pos 0, 511, 4095), with and without a window,
@@ -52,6 +56,12 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    window cut to 128 under a 160-token prompt, so that every decode step
    attends through a ring cache (the flash-decode kernel's ring form),
    graphed on the GPU: every traced decode attention call is the ring's;
+   then ``[fparity]``: the same CPU-against-GPU run for each decoder family
+   of phase 25 at full width, cut to 2 or 3 layers (xlstm to one mLSTM and
+   one sLSTM block, also on float32 weights and stream), B = 2 prompts of
+   32 tokens, 8 new (on the MoE stacks the routings recorded on both
+   sides: each flip must be one rounding explains, and the steps it moves
+   are not held);
 10. decode main path: ``guided_decode`` on llama3.2-1b at full width and
    depth (random bf16 weights from a seed), B = 4 prompts of 512 tokens, 256
    new tokens, graphed (the default), with exact launch counts (RMSNorm's
@@ -171,9 +181,25 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    against random routing (per-replica events equal ``simulate_fleet``'s,
    affinity strictly more hits and fewer passes); ``pass_budget="auto"``
    (the roofline per pass beside a replay's device time over R, the
-   roofline no slower than the card, the budget, the swap break-even).
+   roofline no slower than the card, the budget, the swap break-even);
+25. the other model families (``[families]``), each at full width with
+   random bf16 weights from a seed: deepseek-v2-lite-16b at full depth
+   (MLA + MoE), mixtral-8x7b (4 of 32 layers), recurrentgemma-9b (6 of
+   38), xlstm-350m (full depth) and chameleon-34b (4 of 48), each first
+   held to its own teacher-forced forward (prefill plus three decode
+   steps, float32 activations), then ``guided_decode`` on B = 4 prompts of
+   512 tokens, 64 new, graphed at f in {0, 0.2} (and 1 on deepseek, with
+   its apg and interval combines), eager at f = 0 (f = 1 on deepseek,
+   none on xlstm),
+   launches exact, graphed and eager teacher-forced logits on the graphed
+   tokens bit-equal at f = 0.2: seconds per generate,
+   tokens/s, the saving, both prefills' wall, FULL and COND device ms
+   (replays timed by events and one profiled, with its leading kernels),
+   a generate's busy share and peak memory; then hubert-xlarge at full
+   depth: a forward over 4 x 512 frames and masked-prediction AdamW steps
+   with float32 parameters.
 
-Phases 18-24 run after phase 13, on its model.
+Phases 18-24 run after phase 13, on its model; phase 25 runs last.
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -192,6 +218,8 @@ Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -751,24 +779,40 @@ def phase_attn_kernels():
         errs[name] = max(errs[name], e[0])
         worst[name, dtype] = max(worst.get((name, dtype), 0.0), e[1])
     # every dense decoder's (hd, rep): llama3.2-1b (64, 4), qwen3-14b (128, 5),
-    # h2o-danube-3-4b (120, 4), yi-9b (128, 8)
-    for hd, H, K in ((64, 32, 8), (128, 40, 8), (120, 32, 8), (128, 32, 4)):
-        for B, S in ((1, 77), (1, 512), (1, 2048), (4, 77), (4, 512), (4, 2048), (2, 128)):
+    # h2o-danube-3-4b (120, 4), yi-9b (128, 8), causal and not, windows
+    # None/256; then the other families' heads on the masks their layers
+    # give B4 and B5: recurrentgemma-9b's local attention (hd 256, MQA 16:1,
+    # window 2048, also at S 4096 where it binds), hubert-xlarge's encoder
+    # (hd 80, 16:16, non-causal; it never decodes), chameleon-34b (hd 128,
+    # 64:8) and mixtral-8x7b (hd 128, 32:8, window 4096)
+    both = ((True, None), (True, 256), (False, None), (False, 256))
+    shapes = ((64, 32, 8, both), (128, 40, 8, both), (120, 32, 8, both), (128, 32, 4, both),
+              (256, 16, 1, ((True, None), (True, 256), (True, 2048))),
+              (80, 16, 16, ((False, None),)),
+              (128, 64, 8, ((True, None),)),
+              (128, 32, 8, ((True, None), (True, 4096))))
+    for hd, H, K, masks in shapes:
+        decodes = any(causal for causal, _ in masks)
+        windows = sorted({w for _, w in masks} | {None}, key=lambda w: w or 0)
+        sizes = ((1, 77), (1, 512), (1, 2048), (4, 77), (4, 512), (4, 2048), (2, 128)) + \
+            (((1, 4096),) if 2048 in windows else ())
+        for B, S in sizes:
             for dtype in (bf16, f32):
                 q, k, v = rnd(B, S, H, hd, dtype=dtype), rnd(B, S, K, hd, dtype=dtype), \
                     rnd(B, S, K, hd, dtype=dtype)
-                for causal in (True, False):
-                    for window in (None, 256):
-                        tag = (f"hd={hd} H={H} K={K} B={B} S={S} {str(dtype)[6:]} "
-                               f"causal={causal} window={window}")
-                        e = _err_ok("flash_attention", tag,
-                                    KF.flash_attention(q, k, v, causal=causal, window=window),
-                                    KF.flash_attention_plain(q, k, v, causal=causal,
-                                                             window=window),
-                                    per_row=tol(dtype))
-                        note("flash_attention", dtype, e)
-        log(f"[attn] flash_attention hd={hd} H/K={H}/{K}: (B, S) in (1|4, 77|512|2048) and "
-            f"(2, 128) x causal/non-causal x window None/256 x bf16/f32 within tolerance")
+                for causal, window in masks:
+                    tag = (f"hd={hd} H={H} K={K} B={B} S={S} {str(dtype)[6:]} "
+                           f"causal={causal} window={window}")
+                    e = _err_ok("flash_attention", tag,
+                                KF.flash_attention(q, k, v, causal=causal, window=window),
+                                KF.flash_attention_plain(q, k, v, causal=causal, window=window),
+                                per_row=tol(dtype))
+                    note("flash_attention", dtype, e)
+        log(f"[attn] flash_attention hd={hd} H/K={H}/{K}: (B, S) in "
+            f"{', '.join(f'({b}, {s_})' for b, s_ in sizes)} x (causal, window) in {masks} "
+            f"x bf16/f32 within tolerance")
+        if not decodes:
+            continue
         # B5 reads its position from the device: pos as a one-element int32
         # tensor, at 0, the last key of the first tile, the first of the
         # second, the middle and the last slot, and capacity 4096 at 511
@@ -781,8 +825,9 @@ def phase_attn_kernels():
                     rnd(B, cap, K, hd, dtype=dtype)
                 for pos in positions:
                     pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
-                    for window in (None, 256):
-                        tag = f"hd={hd} B={B} S={cap} pos={pos} window={window} {str(dtype)[6:]}"
+                    for window in windows:
+                        tag = (f"hd={hd} H={H} K={K} B={B} S={cap} pos={pos} window={window} "
+                               f"{str(dtype)[6:]}")
                         e = _err_ok("decode_attention", tag,
                                     KD.decode_attention(q, k, v, pos_t, window=window),
                                     KD.decode_attention_plain(q, k, v, pos_t, window=window),
@@ -808,10 +853,14 @@ def phase_attn_kernels():
                     note("decode_attention", dtype, e)
         log(f"[attn] decode_attention hd={hd} H/K={H}/{K}, pos a device tensor: capacity 768 at "
             f"pos 0, TK-1, TK, 384, 767 (TK 64 bf16, 32 f32) x B in (1, 4), capacity 4096 at pos "
-            f"0, 511, 4095, x window None/256; ring of {W} slots at pos 150/1000 x window "
+            f"0, 511, 4095, x window in {windows}; ring of {W} slots at pos 150/1000 x window "
             f"64/256; bf16/f32 within tolerance")
     _captured_decode(rnd, tol, note)
-    for rows, D in ((4, 2048), (2048, 2048), (4 * 32, 64)):
+    # llama3.2-1b's model and q/k norms; deepseek's MLA kv_norm (D 512) and
+    # xlstm-350m's block norms (D 1024) at decode and prefill rows; chameleon-34b's
+    # q/k norms at prefill (B 4 x S 512 x 64 heads at hd 128)
+    for rows, D in ((4, 2048), (2048, 2048), (4 * 32, 64), (4, 512), (2048, 512), (4, 1024),
+                    (2048, 1024), (4 * 512 * 64, 128)):
         for xdt, sdt in ((bf16, bf16), (bf16, f32), (f32, f32)):
             x, sc = rnd(rows, D, dtype=xdt) * 3, rnd(D, dtype=sdt)
             out, ref = KR.rmsnorm(x, sc, 1e-5), KR.rmsnorm_plain(x, sc, 1e-5)
@@ -821,8 +870,9 @@ def phase_attn_kernels():
             else:
                 e = _err_ok("rmsnorm", tag, out, ref, rel_to_max=1e-5)
             note("rmsnorm", xdt, e)
-    log("[attn] rmsnorm rows x D in (4, 2048), (2048, 2048), (128, 64), x/scale bf16/bf16, "
-        "bf16/f32, f32/f32: bf16 within one bf16 step of each value, f32 within 1e-5")
+    log("[attn] rmsnorm rows x D in (4, 2048), (2048, 2048), (128, 64), (4, 512), (2048, 512), "
+        "(4, 1024), (2048, 1024), (131072, 128), x/scale bf16/bf16, bf16/f32, f32/f32: bf16 "
+        "within one bf16 step of each value, f32 within 1e-5")
     for (name, dtype), w in worst.items():
         yard = "its row's max|out|" if name != "rmsnorm" else "max|out|"
         log(f"[attn] {name} {str(dtype)[6:]}: largest error over the sweep {w:.3g} of {yard} "
@@ -1180,17 +1230,27 @@ def _planted_faults(rnd) -> None:
             f"8 steps of the whole tensor's max|out| would {'pass' if old_ok else 'reject'} it")
 
 
-def _expected_launches(L: int, plan, combine_kernel: str) -> dict:
-    """Exact kernel launches of one ``guided_decode``: 2 prefills and
-    ``plan.total_steps`` decode steps (FULL: two forwards, COND: one)."""
+def _expected_launches(cfg, plan, kernel: str = "cfg_combine") -> dict:
+    """Exact kernel launches of one ``guided_decode`` of any decoder (2
+    prefills and ``plan.total_steps`` decode steps, FULL two forwards and
+    COND one): B4 once a GQA layer and prefill, B5 once a GQA layer and
+    decode forward, B6 per forward once a norm of each block (norm1, norm2
+    where the block has an FFN, q and k norms, MLA's ``kv_norm``) and the
+    final norm, and the combine once a FULL step and once for the
+    prefill's logits."""
+    attn = ("attn", "swa")
     n_cond = plan.optimized_steps
     n_full = plan.total_steps - n_cond
     forwards = 2 + 2 * n_full + n_cond
+    gqa = 0 if cfg.mla is not None else sum(k in attn for k in cfg.blocks)
+    norms = 1 + sum(1 + (k in attn + ("rglru",) and cfg.d_ff > 0)
+                    + 2 * (k in attn and cfg.qk_norm and cfg.mla is None)
+                    + (k in attn and cfg.mla is not None) for k in cfg.blocks)
     want = {k: 0 for k in launch_counts()}
-    want.update(flash_attention=2 * L, decode_attention=L * (forwards - 2),
-                rmsnorm=(2 * L + 1) * forwards)
-    if combine_kernel != "cfg_combine" or plan.guidance_scale != 1.0:
-        want[combine_kernel] = 1 + n_full
+    want.update(flash_attention=2 * gqa, decode_attention=gqa * (forwards - 2),
+                rmsnorm=norms * forwards)
+    if kernel != "cfg_combine" or plan.guidance_scale != 1.0:
+        want[kernel] = 1 + n_full
     return want
 
 
@@ -1199,17 +1259,25 @@ COMBINE_MODES = {"cfg": ("cfg_combine", {}),
                  "interval": ("cfg_combine_rowscale", dict(interval=(0.25, 0.75)))}
 
 
-def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None) -> str:
-    """The same ``guided_decode`` on the CPU (plain versions) and the GPU
-    (kernels, graphed, inside the context ``around_gpu()`` if given): the
-    GPU run's launch counts must equal ``want`` and ``_margin_guard`` hold.
-    -> the log's summary."""
+def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None, routes=False) -> str:
+    """The same greedy ``guided_decode`` on the CPU (plain versions: its
+    logits by ``teacher_forced_logits(tokens=None)``, its tokens their
+    argmax) and the GPU (kernels, graphed, inside the context
+    ``around_gpu()`` if given): the GPU run's launch counts must equal
+    ``want`` and ``_margin_guard`` hold.
+    ``routes`` (MoE stacks): the GPU's teacher-forced run is repeated eagerly,
+    bit-equal to the graphed one, with both sides' routings recorded, and
+    the steps that a routing flip between them moves are not held
+    (``_routing_moves``). -> the log's summary."""
     import contextlib
 
     import torch
     from repro_torch.core import ar_decode as AR
 
-    a, _ = AR.guided_decode(cpu, toks, plan, **kw)
+    rec_a, rec_b = [], []
+    with _recording_routes(rec_a) if routes else contextlib.nullcontext():
+        la = AR.teacher_forced_logits(cpu, toks, plan, None, **kw)    # the greedy decode's
+    a = la.argmax(-1)
     reset_launches()
     with (around_gpu or contextlib.nullcontext)():
         b, _ = AR.guided_decode(gpu, toks.cuda(), plan, **kw)
@@ -1217,21 +1285,101 @@ def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None) -> str:
     counts = launch_counts()
     if counts != want:
         fail(f"{tag}: launches {counts}, want {want}")
-    la = AR.teacher_forced_logits(cpu, toks, plan, a, **kw)
     lb = AR.teacher_forced_logits(gpu, toks.cuda(), plan, a.cuda(), **kw).cpu()
-    return f"launches {want}; " + _margin_guard(tag, a, b.cpu(), la, lb)
+    moved = None
+    if routes:
+        with _recording_routes(rec_b):
+            le = AR.teacher_forced_logits(gpu, toks.cuda(), plan, a.cuda(), graphs=False, **kw)
+        if not torch.equal(le.cpu(), lb):
+            fail(f"{tag}: the eager teacher-forced logits differ from the graphed ones")
+        moved = _routing_moves(tag, cpu.cfg, plan, rec_a, rec_b)
+    return f"launches {want}; " + _margin_guard(tag, a, b.cpu(), la, lb, moved)
 
 
-def _margin_guard(tag, a, b, la, lb) -> str:
+@contextlib.contextmanager
+def _recording_routes(rec: list):
+    """Appends each MoE routing's (top-k ids, router probabilities, kept
+    pairs), on the CPU, to ``rec`` in call order."""
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+
+    def recorded(p, cfg, x, C):
+        r = route(p, cfg, x, C)
+        rec.append((r.ids.cpu(), r.probs.cpu(), r.keep.cpu()))
+        return r
+
+    MOE.route = recorded
+    try:
+        yield rec
+    finally:
+        MOE.route = route
+
+
+def _routing_moves(tag, cfg, plan, rec_a, rec_b):
+    """The teacher-forced steps (B, n) that the routings two runs recorded
+    (``_recording_routes``: per forward, prefills then decode steps, each MoE
+    layer in order) may move apart. A flip is a token whose top-k set
+    differs; rounding must explain each (run a's k-th router probability
+    within twice the largest probability difference of its (k+1)-th),
+    every changed capacity drop must sit in a forward with a flip, the
+    router probabilities must agree within ``LOGIT_TOL``, and at most a
+    quarter of the steps may move, or the check fails. A flip or drop in a
+    layer before the last moves every later step of its row; in the last
+    layer only the step its position's logits give."""
+    import torch
+    from repro_torch.core.selective import Mode
+
+    n, k = plan.total_steps, cfg.moe.top_k
+    layers = [i for i in range(cfg.num_layers) if i >= cfg.moe.first_k_dense]
+    steps = [0, 0] + [i + 1 for i, m in enumerate(plan.modes())
+                      for _ in range(2 if m is Mode.FULL else 1)]
+    if not len(rec_a) == len(rec_b) == len(steps) * len(layers):
+        fail(f"{tag}: {len(rec_a)} and {len(rec_b)} routings recorded, want "
+             f"{len(steps) * len(layers)}")
+    moved = torch.zeros(rec_a[0][0].shape[0], n, dtype=torch.bool)
+    n_flips = 0
+    for j, ((ia, pa, ka), (ib, pb, kb)) in enumerate(zip(rec_a, rec_b)):
+        step, layer = steps[j // len(layers)], layers[j % len(layers)]
+        flip = (ia.sort(-1).values != ib.sort(-1).values).any(-1)            # (B, S)
+        drop = (ka != kb).any(-1) & ~flip
+        top = pa.sort(-1, descending=True).values
+        unexplained = flip & (top[..., k - 1] - top[..., k] > 2 * (pa - pb).abs().amax(-1))
+        if bool(unexplained.any()) or bool((drop.any(-1) & ~flip.any(-1)).any()):
+            fail(f"{tag}: routing call {j} (layer {layer}, step {step}) differs beyond rounding: "
+                 f"flips {flip.nonzero().tolist()}, unexplained "
+                 f"{unexplained.nonzero().tolist()}, drops {drop.nonzero().tolist()}")
+        if (pa - pb).abs().max().item() > LOGIT_TOL:
+            fail(f"{tag}: routing call {j} (layer {layer}, step {step}): router probabilities "
+                 f"differ by {(pa - pb).abs().max().item():.3g} > {LOGIT_TOL}")
+        n_flips += int(flip.sum())
+        for b, pos in (flip | drop).nonzero().tolist():
+            if step >= n:
+                continue
+            if layer != cfg.num_layers - 1:
+                moved[b, step:] = True
+            elif pos == flip.shape[1] - 1:
+                moved[b, step] = True
+    log(f"[fparity] {tag}: {n_flips} routing flips CPU against GPU over {len(rec_a)} routings, "
+        f"each within rounding; {int(moved.sum())} of {moved.numel()} steps moved by them")
+    if 4 * int(moved.sum()) > moved.numel():
+        fail(f"{tag}: routing flips move {int(moved.sum())} of {moved.numel()} steps, more than "
+             f"a quarter")
+    return moved
+
+
+def _margin_guard(tag, a, b, la, lb, moved=None) -> str:
     """Tokens ``a`` and ``b`` (B, n) of two runs, ``la`` and ``lb`` their
     float32 logits teacher-forced on ``a``: the logits within ``LOGIT_TOL``
     of max|la|, the tokens equal up to each row's first step that the
     logits do not decide, where ``a``'s margin of its top token over some
-    other token is no larger than the two logits' differences. -> the log's
+    other token is no larger than the two logits' differences. Steps that
+    ``moved`` (B, n) marks are neither held nor decided. -> the log's
     summary."""
     import torch
     big = la.abs().max().item()
     err = (lb - la).abs()
+    if moved is not None:
+        err = err.masked_fill(moved[..., None], 0.0)
     if not err.max().item() <= LOGIT_TOL * big:
         fail(f"{tag}: teacher-forced logits rel err {err.max().item() / big:.3g} > {LOGIT_TOL}")
     top = la.argmax(-1, keepdim=True)
@@ -1239,6 +1387,8 @@ def _margin_guard(tag, a, b, la, lb) -> str:
     slack = err.gather(-1, top) + err
     other = torch.arange(la.shape[-1], device=la.device) != top
     undecided = ((gap <= slack) & other).any(-1).cpu()          # (B, n_new)
+    if moved is not None:
+        undecided |= moved
     a, b = a.cpu(), b.cpu()
     compared = 0
     for r in range(a.shape[0]):
@@ -1248,9 +1398,10 @@ def _margin_guard(tag, a, b, la, lb) -> str:
             fail(f"{tag}: row {r} tokens differ before step {upto}: "
                  f"{a[r].tolist()} vs {b[r].tolist()}")
         compared += upto
-    return (f"teacher-forced logits rel err {err.max().item() / big:.3g} (tol {LOGIT_TOL}, "
-            f"max|logit| {big:.3g}); tokens equal on the {compared} of {a.numel()} decided "
-            f"steps, {int((a == b).sum())} equal overall")
+    held = "" if moved is None else f" on the {int((~moved).sum())} steps no flip moved"
+    return (f"teacher-forced logits rel err {err.max().item() / big:.3g}{held} (tol "
+            f"{LOGIT_TOL}, max|logit| {big:.3g}); tokens equal on the {compared} of {a.numel()} "
+            f"decided steps, {int((a == b).sum())} equal overall")
 
 
 def phase_decode_parity():
@@ -1279,7 +1430,7 @@ def phase_decode_parity():
         f"set-up {time.perf_counter() - t0:.2f} s")
     for mode, (kernel, kw) in COMBINE_MODES.items():
         summary = _decode_pair(f"dparity {mode}", cpu, gpu, toks, plan, dict(kw, combine=mode),
-                               _expected_launches(cfg.num_layers, plan, kernel))
+                               _expected_launches(cfg, plan, kernel))
         log(f"[dparity] {mode}: {summary}")
 
 
@@ -1312,7 +1463,7 @@ def phase_ring_parity():
     prompts = [" ".join(PAPER_PROMPTS[i::2]) for i in range(2)]
     toks = torch.from_numpy(encode_batch(prompts, cfg.vocab_size, RING_PROMPT)).long()
     plan = GuidancePlan.suffix(16, 0.25, DECODE_SCALE)
-    want = _expected_launches(cfg.num_layers, plan, "cfg_combine")
+    want = _expected_launches(cfg, plan, "cfg_combine")
     calls = {"ring": 0, "linear": 0}
     ring, linear = A.attn_decode_ring, A.attn_decode
 
@@ -1341,6 +1492,97 @@ def phase_ring_parity():
         f"({calls['ring']} traced calls, none linear) and the replays launch decode_attention "
         f"{want['decode_attention']} times (layers x decode forwards); set-up "
         f"{time.perf_counter() - t0:.2f} s; {summary}")
+
+
+# each decoder family cut to its first block pattern (deepseek: the dense
+# layer and one MoE layer; recurrentgemma: rglru, rglru, swa), xlstm to one
+# mLSTM and one sLSTM block: its bf16 stream drifts from a float32 one
+# faster with depth than the other stacks', the CPU's and the GPU's alike
+# (its 4-layer stack's CPU and GPU bf16 logits differed by 0.0256 of
+# max|logit|), so a float32-stream pair holds its code to 1e-4 besides
+FAMILY_PARITY = (   # arch, layers, block pattern (None: the arch's), a float32 pair
+    ("deepseek-v2-lite-16b", 2, None, False), ("mixtral-8x7b", 2, None, False),
+    ("recurrentgemma-9b", 3, None, False), ("xlstm-350m", 2, ("mlstm", "slstm"), True),
+    ("chameleon-34b", 2, None, False))
+
+
+@contextlib.contextmanager
+def _float32_stream():
+    """``Transformer.embed_tokens`` in the table's dtype instead of bf16: a
+    model of float32 weights then runs a float32 stream."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import Transformer
+    embed = Transformer.embed_tokens
+    Transformer.embed_tokens = lambda self, tokens: L.embed(self.embed.table, tokens,
+                                                            dtype=self.embed.table.dtype)
+    try:
+        yield
+    finally:
+        Transformer.embed_tokens = embed
+
+
+def phase_family_parity():
+    """``[fparity]``: the same ``guided_decode`` on the CPU (plain versions)
+    and the GPU (kernels, graphed) for every decoder family of phase 25, as
+    ``[dparity]`` does for llama3.2-1b: full width, ``FAMILY_PARITY``'s
+    depths, bf16 weights from seed 0 (made on the card and copied to the
+    CPU), B = 2, prompts of 32 tokens, 8 new tokens at f = 0.25; launches
+    exact, teacher-forced logits within ``LOGIT_TOL``, tokens equal where
+    the logits decide them. On the MoE stacks bf16 router probabilities tie
+    or nearly tie, and the CPU and the GPU break a few such ties apart (a
+    flipped expert moved one step's logits by 0.072 of max|logit| on a
+    2-layer deepseek): there each flip must be one rounding explains, and
+    the steps it moves are not held (``_routing_moves``). xlstm also runs
+    the pair on float32 weights and a float32 stream, held within 1e-4."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ar_decode as AR
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.data.prompts import PAPER_PROMPTS
+    from repro_torch.data.tokenizer import encode_batch
+    from repro_torch.models.transformer import Transformer
+
+    prompts = [" ".join(PAPER_PROMPTS[i::2]) for i in range(2)]
+    plan = GuidancePlan.suffix(8, 0.25, DECODE_SCALE)
+    for arch, n, pattern, f32 in FAMILY_PARITY:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=n)
+        if pattern:
+            cfg = dataclasses.replace(cfg, block_pattern=pattern)
+        gpu = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               dtype=torch.bfloat16)
+        cpu = Transformer.from_state_dict(cfg, {k: t.cpu() for k, t in gpu.state_dict().items()})
+        toks = torch.from_numpy(encode_batch(prompts, cfg.vocab_size, 32)).long()
+        summary = _decode_pair(f"fparity {arch}", cpu, gpu, toks, plan, dict(combine="cfg"),
+                               _expected_launches(cfg, plan, "cfg_combine"),
+                               routes=cfg.moe is not None)
+        if f32:
+            with _float32_stream():
+                c32 = Transformer.from_state_dict(
+                    cfg, {k: t.float() for k, t in cpu.state_dict().items()})
+                g32 = Transformer.from_state_dict(
+                    cfg, {k: t.cuda() for k, t in c32.state_dict().items()})
+                la = AR.teacher_forced_logits(c32, toks, plan, None)
+                a = la.argmax(-1)
+                lb = AR.teacher_forced_logits(g32, toks.cuda(), plan, a.cuda()).cpu()
+            big = la.abs().max().item()
+            rel = (lb - la).abs().max().item() / big
+            if not rel <= 1e-4:
+                fail(f"fparity {arch}: float32 teacher-forced logits rel err {rel:.3g} > 1e-4")
+            drift = [(AR.teacher_forced_logits(m, t, plan, a.to(t.device)).cpu() - la).abs().max()
+                     .item() / big for m, t in ((cpu, toks), (gpu, toks.cuda()))]
+            summary += (f"; float32 weights and stream: logits rel err {rel:.3g} (tol 1e-4); the "
+                        f"bf16 runs fed its tokens differ from it by {drift[0]:.3g} (CPU) and "
+                        f"{drift[1]:.3g} (GPU)")
+            del c32, g32
+        log(f"[fparity] {arch} x{n} layers {list(cfg.blocks)}, B=2 S=32, 8 new tokens "
+            f"({plan.total_steps - plan.optimized_steps} FULL + {plan.optimized_steps} COND), "
+            f"{time.perf_counter() - t0:.1f} s: {summary}")
+        del cpu, gpu
+        gc.collect()              # the model and its decode loops hold each other
+        torch.cuda.empty_cache()
 
 
 def _decode_model():
@@ -1417,7 +1659,7 @@ def phase_decode_main():
     for mode, (kernel, kw) in COMBINE_MODES.items():
         reset_launches()
         out, dt = run(plan, combine=mode, **kw)       # graphed: captures FULL and COND
-        counts, want = launch_counts(), _expected_launches(cfg.num_layers, plan, kernel)
+        counts, want = launch_counts(), _expected_launches(cfg, plan, kernel)
         census = norm_census()
         if sum(census.values()) != counts["rmsnorm"]:
             fail(f"dmain combine={mode}: rmsnorm census {census} against "
@@ -1440,7 +1682,7 @@ def phase_decode_main():
         reset_launches()
         times = [run(plan, graphs=graphs)[1] for _ in range(4)][1:]
         counts = {k: v / 4 for k, v in launch_counts().items()}
-        want = _expected_launches(cfg.num_layers, plan, "cfg_combine")
+        want = _expected_launches(cfg, plan, "cfg_combine")
         if counts != want:
             fail(f"dmain f={f} graphs={graphs}: launches per generate {counts}, want {want}")
         forwards = 2 + 2 * (DECODE_NEW - plan.optimized_steps) + plan.optimized_steps
@@ -3788,6 +4030,318 @@ def phase_train_main() -> dict:
     return lm_launches
 
 
+# -- the other model families (phase 25) ----------------------------------------------
+
+FAMILY_B, FAMILY_S, FAMILY_NEW = 4, 512, 64       # guided_decode's shape on every decoder
+# arch, layers kept (None: full depth), COND fractions, the fractions with a
+# timed eager generate besides f = 0.2's eager teacher-forced run (deepseek's
+# eager f = 0 generate, 12.6 s, and xlstm's, 7.0 s, are left out)
+FAMILIES = (
+    ("deepseek-v2-lite-16b", None, (0.0, 0.2, 1.0), (1.0,)),
+    ("mixtral-8x7b", 4, (0.0, 0.2), (0.0,)),
+    ("recurrentgemma-9b", 6, (0.0, 0.2), (0.0,)),
+    ("xlstm-350m", None, (0.0, 0.2), ()),
+    ("chameleon-34b", 4, (0.0, 0.2), (0.0,)),
+)
+FAMILY_TEACHER_S = 128    # the teacher-forced consistency check's prompt
+ENCODER_B, ENCODER_S = 4, 512
+
+
+def _family_consistency(model, tag: str) -> str:
+    """The teacher-forced forward against prefill plus three decode steps on
+    the card, within the reference's own tolerance
+    (``tests/test_models_smoke.py``: 5e-2 relative, 1e-1 absolute), MoE
+    capacity raised so that no prefill token drops, as there: a capacity
+    factor of E, so that C = S (at full depth the random stacks' tokens
+    crowd onto a few experts, and the reference test's factor of 8 drops
+    the last positions). The activations run in float32 on the bf16
+    weights (a twin of the model fed the token embeddings): in bf16, 26
+    MoE layers of top-6 routing turn the stream's rounding into routing
+    flips between the two paths, which no tolerance covers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(model.cfg, embedding_inputs=True, tie_embeddings=False)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    state = {k: v for k, v in model.state_dict().items() if not k.startswith("embed.")}
+    if model.cfg.tie_embeddings:
+        state["lm_head"] = model.embed.table.T
+    twin = Transformer.from_state_dict(cfg, state)
+    S, ext = FAMILY_TEACHER_S, 3
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, S + ext))).long().cuda()
+    emb = model.embed.table[toks].float()
+    worst = 0.0
+    with torch.no_grad():
+        h, _, _ = twin(emb)
+        full = twin.unembed(h[:, S:].contiguous()).float()
+        _, caches, _ = twin(emb[:, :S].contiguous(), want_caches=True)
+        caches = twin.prepare_decode_caches(caches, seq_len=S, capacity=S + ext)
+        for i in range(ext):
+            step, caches = twin.decode_step(emb[:, S + i:S + i + 1].contiguous(), caches, S + i)
+            got, want = twin.unembed(step)[:, 0].float(), full[:, i]
+            err = (got - want).abs()
+            if not bool(torch.isfinite(got).all()) or \
+                    not bool((err <= 1e-1 + 5e-2 * want.abs()).all()):
+                fail(f"{tag}: decode step {i} against the teacher-forced forward: max err "
+                     f"{err.max().item():.4g} of max|logit| {want.abs().max().item():.4g}")
+            worst = max(worst, err.max().item() / want.abs().max().item())
+    return (f"teacher-forced = prefill + {ext} decode steps, float32 activations (rel err "
+            f"{worst:.3g})")
+
+
+def _family_decoder(arch: str, layers, fracs, eager_fracs, totals: dict, smi: str) -> None:
+    """One decoder family at full width: init, the consistency check,
+    ``guided_decode`` graphed at each COND fraction (captures, then one
+    timed run) and eager at ``eager_fracs``, with exact launches; at f = 0.2
+    the eager and graphed teacher-forced runs on the graphed tokens, their
+    logits bit-equal; the
+    FULL and COND steps' device time (graph replays, CUDA events and a
+    profiled replay), a generate's busy share, and deepseek's apg and
+    interval combines."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import ar_decode as AR
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.models.transformer import Transformer
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    full_cfg = get_config(arch)
+    cfg = dataclasses.replace(full_cfg, num_layers=layers) if layers else full_cfg
+    torch.cuda.reset_peak_memory_stats()
+    model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (FAMILY_B, FAMILY_S))).long().cuda()
+    torch.cuda.synchronize()
+    tag = f"families {arch}"
+    log(f"[families] {arch} ({smi}): {cfg.num_layers} of {full_cfg.num_layers} layers "
+        f"{'(full depth)' if not layers else '(depth cut)'}, d_model {cfg.d_model}, blocks "
+        f"{sorted(set(cfg.blocks))}, {n_params} params in bf16 ({n_params * 2 / 1e9:.2f} GB), "
+        f"init {time.perf_counter() - t0:.2f} s; {_family_consistency(model, tag)}")
+    laps = {"init and consistency": time.perf_counter() - t0}
+
+    def run(plan, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, end = AR.guided_decode(model, toks, plan, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        if tuple(out.shape) != (FAMILY_B, FAMILY_NEW) or end != FAMILY_S + FAMILY_NEW or \
+                not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            fail(f"{tag}: tokens {tuple(out.shape)} end {end} out of range")
+        return out, dt
+
+    def counted(plan, kernel="cfg_combine", **kw):
+        reset_launches()
+        out, dt = run(plan, **kw)
+        counts, want = launch_counts(), _expected_launches(cfg, plan, kernel)
+        if counts != want:
+            fail(f"{tag} f={plan.optimized_steps / FAMILY_NEW:.2f} {kw}: launches {counts}, "
+                 f"want {want}")
+        _add(totals, counts)
+        return out, dt
+
+    def teacher_forced(plan, tokens, **kw):
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits = AR.teacher_forced_logits(model, toks, plan, tokens, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        if launch_counts() != _expected_launches(cfg, plan):
+            fail(f"{tag}: teacher-forced launches {launch_counts()}")
+        _add(totals, launch_counts())
+        return logits, dt
+
+    t1 = time.perf_counter()
+    rows = {}
+    for f in fracs:
+        plan = GuidancePlan.suffix(FAMILY_NEW, f, DECODE_SCALE)
+        out, first = counted(plan)                      # captures FULL and/or COND
+        graphed = counted(plan)[1]
+        eager, how = None, "an eager generate"
+        if f == 0.2:
+            # eager and graphed fed the graphed run's tokens: bit-equal logits,
+            # and the eager run picks the token it is fed at every step, so it
+            # does an eager generate's work and keeps each step's (B, V) float32
+            # logits besides
+            la, eager = teacher_forced(plan, out, graphs=False)
+            lb, _ = teacher_forced(plan, out)
+            if not torch.equal(la, lb):
+                fail(f"{tag}: graphed teacher-forced logits differ from eager's by "
+                     f"{(la - lb).abs().max().item():.4g}")
+            if not torch.equal(la.argmax(-1), out):
+                fail(f"{tag}: the eager logits do not choose the graphed run's tokens")
+            del la, lb
+            how = "the eager teacher-forced run on the graphed tokens"
+        elif f in eager_fracs:
+            eager = counted(plan, graphs=False)[1]
+        rows[f] = dict(first=first, graphed=graphed, eager=eager, how=how)
+    for f, r in rows.items():
+        r["saving"] = 1.0 - r["graphed"] / rows[0.0]["graphed"]
+        eager = "not run" if r["eager"] is None else \
+            f"{r['eager']:.4f} s ({r['eager'] / r['graphed']:.2f}x; {r['how']})"
+        log(f"[families] {arch} f={f}: graphed {r['graphed']:.4f} s a generate (after one of "
+            f"{r['first']:.3f} s with any captures), "
+            f"{FAMILY_B * FAMILY_NEW / r['graphed']:.1f} tokens/s, saving 1 - t_f/t_0 "
+            f"{r['saving']:.4f}; eager {eager}; launches exact; at f=0.2 graphed logits "
+            f"bit-equal to eager")
+    if arch == "deepseek-v2-lite-16b":
+        plan = GuidancePlan.suffix(FAMILY_NEW, 0.2, DECODE_SCALE)
+        for mode, (kernel, kw) in COMBINE_MODES.items():
+            if mode != "cfg":
+                _, dt = counted(plan, kernel, combine=mode, **kw)
+                log(f"[families] {arch} combine={mode} f=0.2 graphed: {dt:.4f} s with its "
+                    f"FULL capture, {kernel} x{1 + FAMILY_NEW - plan.optimized_steps} exact")
+
+    laps["generates"] = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    with torch.no_grad():          # the generates above warmed the prefill
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        AR.prefill(model, toks)
+        AR.prefill(model, AR.null_prompt(toks))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+    # the steps' device time: replays of the captured graphs from position S
+    loop = next(iter(model._decode_loops.values()))
+    full_key = next(k for k in loop.graphs if k[0] == "full" and k[1] == "cfg")
+    step_ms = {}
+    for name, key in (("FULL", full_key), ("COND", ("cond",))):
+        g = loop.graphs[key]
+        loop.ctr.fill_(0)
+        loop.ctr[0].fill_(FAMILY_S)
+        events = _replay_ms(g, n=16)
+        loop.ctr[0].fill_(FAMILY_S)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            g.graph.replay()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                t, k = by_name.get(e.name(), (0, 0))
+                by_name[e.name()] = (t + e.end_ns() - e.start_ns(), k + 1)
+        kernel_ms = sum(t for t, _ in by_name.values()) / 1e6
+        step_ms[name] = (events, kernel_ms)
+        if name == "FULL" and kernel_ms:
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+            log(f"[families] {arch} FULL replay: {sum(k for _, k in by_name.values())} kernels; "
+                + "; ".join(f"{t / 1e6 / kernel_ms:.3f} {k}x {n[:60]}" for n, (t, k) in top))
+    laps["prefills and steps"] = time.perf_counter() - t2
+    t2 = time.perf_counter()
+    plan = GuidancePlan.suffix(FAMILY_NEW, 0.2, DECODE_SCALE)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        AR.guided_decode(model, toks, plan)
+        torch.cuda.synchronize()
+    kernel_s = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e9
+    laps["profiled generate"] = time.perf_counter() - t2
+    (fe, fk), (ce, ck) = step_ms["FULL"], step_ms["COND"]
+    log(f"[families] {arch} ({smi}): FULL step {fe:.3f} ms by events over 16 replays, "
+        f"{fk:.3f} ms of kernels in a profiled replay; COND {ce:.3f} ms, {ck:.3f} ms; COND/FULL "
+        f"{ce / fe:.3f}; both prefills {prefill_s:.4f} s; a graphed f=0.2 generate: kernel "
+        f"time {kernel_s:.4f} s of a {rows[0.2]['graphed']:.4f} s wall, busy share "
+        f"{kernel_s / rows[0.2]['graphed']:.4f}; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} "
+        f"s for the family ({', '.join(f'{k} {v:.1f} s' for k, v in laps.items())})")
+    del model, loop
+    gc.collect()                  # the model and its decode loops hold each other
+    torch.cuda.empty_cache()
+
+
+def _family_encoder(totals: dict, smi: str) -> None:
+    """hubert-xlarge at full depth: a forward over synthetic frames and
+    masked-prediction AdamW steps with float32 parameters, B4 non-causal at
+    hd 80."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models.frontends import synthetic_audio_frames
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+    t0 = time.perf_counter()
+    cfg = get_config("hubert-xlarge")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = Transformer.init(cfg, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = synthetic_audio_frames(gen, ENCODER_B, ENCODER_S, cfg.d_model)
+    with torch.no_grad():
+        model(frames)
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h, _, _ = model(frames)
+        logits = model.unembed(h)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t1) * 1e3
+    counts = launch_counts()
+    want = dict({k: 0 for k in counts}, flash_attention=cfg.num_layers)
+    if counts != want or tuple(logits.shape) != (ENCODER_B, ENCODER_S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"families hubert forward: launches {counts} want {want}, logits "
+             f"{tuple(logits.shape)}")
+    _add(totals, counts)
+    del h, logits
+
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    state = {"opt": init_opt_state(params)}
+    step = make_train_step(LT.masked_loss_fn(model),
+                           AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=8))
+    batches = LT.frame_batches(np.random.default_rng(0), ENCODER_B, ENCODER_S, cfg.d_model,
+                               cfg.vocab_size, "cuda")
+
+    def one(batch):
+        _, state["opt"], m = step(params, state["opt"], batch, None)
+        return m["loss"]
+
+    ms, peak, loss, per = _timed_steps(one, batches)
+    if not np.isfinite(loss) or per.get("flash_attention") != cfg.num_layers or \
+            set(per) != {"flash_attention"}:
+        fail(f"families hubert training: loss {loss}, launches a step {per}")
+    _add(totals, {k: int(v * 3) for k, v in per.items()})
+    log(f"[families] hubert-xlarge ({smi}): {cfg.num_layers} layers (full depth), d_model "
+        f"{cfg.d_model}, {n_params} float32 params; forward over B={ENCODER_B} x {ENCODER_S} "
+        f"bf16 frames {fwd_ms:.2f} ms (B4 non-causal at hd {cfg.resolved_head_dim} x"
+        f"{cfg.num_layers}); masked-prediction AdamW step on float32 frames {ms:.1f} ms (1 "
+        f"warm-up, 3 timed), peak {peak:.2f} GB, loss {loss:.4f}, B4 x{cfg.num_layers} a step; "
+        f"{time.perf_counter() - t0:.1f} s")
+    model.requires_grad_(False)
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_families(smi: str) -> dict:
+    """``[families]``: every other decoder family through ``guided_decode``,
+    graphed and eager, and the encoder's forward and training, at full
+    width. -> the kernel launches of its runs."""
+    import torch
+    totals: dict = {}
+    t0 = time.perf_counter()
+    gc.collect()                  # earlier phases' models, held by their decode loops
+    torch.cuda.empty_cache()
+    for arch, layers, fracs, eager_fracs in FAMILIES:
+        _family_decoder(arch, layers, fracs, eager_fracs, totals, smi)
+    _family_encoder(totals, smi)
+    log(f"[families] wall {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3798,7 +4352,15 @@ def main() -> None:
         fail(f"the repro_torch package is not beside this script: {exc}")
     import torch
 
+    t_lap = [time.perf_counter()]
+
+    def lap(phases: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {phases} {now - t_lap[0]:.1f} s, after {t_lap[0] - t_start:.1f} s")
+        t_lap[0] = now
+
     phase_build()
+    lap("build")
     rows = phase_kernels()
     phase_parity()
     pipe, sd_launches = phase_main_path()
@@ -3806,12 +4368,17 @@ def main() -> None:
     phase_profile(pipe)
     del pipe
     torch.cuda.empty_cache()
+    lap("phases 3-6")
 
     rows.update(phase_attn_kernels())
     phase_latency_sweeps()
     phase_alternation()
+    lap("phase 7")
     phase_decode_parity()
     phase_ring_parity()
+    lap("phases 8-9")
+    phase_family_parity()
+    lap("[fparity]")
     model, toks, ar_launches, ar_rows = phase_decode_main()
     phase_decode_breakdown(model, toks, ar_rows)
     phase_decode_profile(model, toks)
@@ -3819,6 +4386,7 @@ def main() -> None:
     phase_decode_profile(model, toks, _apg_fn(), "APG FULL")
     del model
     torch.cuda.empty_cache()
+    lap("phase 10")
 
     rows.update(phase_paged_kernels())
     phase_paged_identity()
@@ -3828,16 +4396,14 @@ def main() -> None:
     for kv_dtype in ("bf16", "int8"):
         for graphs in (None, False):
             phase_serve_profile(model, "ragged", kv_dtype, graphs)
-    t_slot = time.perf_counter()
+    lap("phases 11-13")
     rows.update(phase_slot_kernel())
     phase_slot_parity()
     slot_paths = (phase_slot_main(model), phase_lazy_main(model), phase_serving_facade(model),
                   phase_ring_slot())
-    log(f"[time] phases 18-23 {time.perf_counter() - t_slot:.1f} s, after "
-        f"{t_slot - t_start:.1f} s")
-    t_a5 = time.perf_counter()
+    lap("phases 18-23")
     a5_launches = phase_a5(model)
-    log(f"[time] phase 24 {time.perf_counter() - t_a5:.1f} s")
+    lap("phase 24")
     del model
     torch.cuda.empty_cache()
 
@@ -3845,6 +4411,9 @@ def main() -> None:
     phase_train_parity()
     claims_launches = phase_claims()
     train_launches = phase_train_main()
+    lap("phases 14-17")
+    family_launches = phase_families(smi)
+    lap("phase 25")
 
     cu = "src/repro_torch/csrc/"
     kernels = {
@@ -3874,15 +4443,17 @@ def main() -> None:
         sl = sum(d.get(name, 0) for d in slot_paths)
         a5 = a5_launches.get(name, 0)
         cl, tr = claims_launches.get(name, 0), train_launches.get(name, 0)
-        if sd + ar + sv + sl + a5 + cl + tr == 0:
+        fam = family_launches.get(name, 0)
+        if sd + ar + sv + sl + a5 + cl + tr + fam == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
             f"{sv} in the paged serve runs', {sl} in the slot, lazy, facade and windowed slot "
             f"runs', {a5} in phase 24's (async, tier, content, fleet, autotune), {cl} in "
-            f"the claims' generates on the trained pipeline, {tr} in the timed LM training steps")
+            f"the claims' generates on the trained pipeline, {tr} in the timed LM training "
+            f"steps, {fam} in phase 25's (the other families)")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar + sv + sl + a5 + cl + tr, **r))
+                        launches=sd + ar + sv + sl + a5 + cl + tr + fam, **r))
     log(f"[time] the whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)

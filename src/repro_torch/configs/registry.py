@@ -1,16 +1,32 @@
-"""Architecture registry for the dense decoders the port runs. Counterpart
-of ``repro/configs/registry.py``, limited to the stacks whose blocks are all
-``attn``/``swa`` (the MoE, MLA and recurrent families come with later
-slices)."""
+"""Architecture registry: all ten of the reference's architectures.
+Counterpart of ``repro/configs/registry.py`` (``sd-unet`` has its own
+config, ``configs/sd_unet.py``)."""
 
 from __future__ import annotations
 
-from repro_torch.configs import h2o_danube3_4b, llama3_2_1b, qwen3_14b, yi_9b
+from repro_torch.configs import (
+    chameleon_34b,
+    deepseek_v2_lite_16b,
+    h2o_danube3_4b,
+    hubert_xlarge,
+    llama3_2_1b,
+    mixtral_8x7b,
+    qwen3_14b,
+    recurrentgemma_9b,
+    xlstm_350m,
+    yi_9b,
+)
 
 ARCHS = {
-    "llama3.2-1b": llama3_2_1b.CONFIG,
+    "hubert-xlarge": hubert_xlarge.CONFIG,
+    "mixtral-8x7b": mixtral_8x7b.CONFIG,
+    "recurrentgemma-9b": recurrentgemma_9b.CONFIG,
+    "deepseek-v2-lite-16b": deepseek_v2_lite_16b.CONFIG,
     "qwen3-14b": qwen3_14b.CONFIG,
+    "xlstm-350m": xlstm_350m.CONFIG,
     "yi-9b": yi_9b.CONFIG,
+    "llama3.2-1b": llama3_2_1b.CONFIG,
+    "chameleon-34b": chameleon_34b.CONFIG,
     "h2o-danube-3-4b": h2o_danube3_4b.CONFIG,
 }
 

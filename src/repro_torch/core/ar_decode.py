@@ -23,8 +23,10 @@ forward) are each captured once per (batch, caches' shapes, combine) and
 replayed once a step, on static caches that every generate of that shape
 reuses (the prefill's caches are copied in) and a position counter on the
 device that each replay advances. Prefill and sampling stay eager: the
-prompt's length varies, and the draws use the caller's generator.
-``graphs=False`` runs every step eagerly, as the CPU always does.
+prompt's length varies, and the draws use the caller's generator (an
+xLSTM layer's prefill loop replays one captured time step on CUDA in
+both modes, ``models/xlstm.py``). ``graphs=False`` runs every decode
+step eagerly, as the CPU always does.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def _sample_token(logits, temperature: float, generator=None):
 def prefill(model, tokens, *, long_ctx: bool = False):
     """One stream's prefill. tokens (B,S) -> (last logits (B,V) float32,
     per-layer caches)."""
-    h, caches = model(tokens, want_caches=True, long_ctx=long_ctx)
+    h, caches, _ = model(tokens, want_caches=True, long_ctx=long_ctx)
     return model.unembed(h[:, -1:, :].contiguous())[:, 0, :].float(), caches
 
 
@@ -85,14 +87,16 @@ def decode_step_cond(model, token, caches_c, pos, *, long_ctx: bool = False):
 
 class _DecodeLoop:
     """The captured decode loop of one (batch, caches' shapes, long_ctx):
-    both streams' static caches, the token a step reads, the device counter
-    ``ctr`` = (pos, step i) that each step advances, the interval combine's
-    bounds [a, b) and scale, and the FULL and COND graphs, keyed by their
-    combine, in one memory pool."""
+    both streams' static caches (every layer's state dict: KV caches, rings,
+    MLA latents, recurrent states), the token a step reads, the device
+    counter ``ctr`` = (pos, step i) that each step advances, the interval
+    combine's bounds [a, b) and scale, and the FULL and COND graphs, keyed
+    by their combine, in one memory pool."""
 
     def __init__(self, model, caches, long_ctx: bool):
-        k = caches[0]["k"]
-        dev, B = k.device, k.shape[0]
+        # any leaf but a ring's (W,) slot_pos leads with the batch
+        leaf = next(t for c in caches for t in c.values() if t.ndim >= 2)
+        dev, B = leaf.device, leaf.shape[0]
         self.model, self.long_ctx = model, long_ctx
         self.caches_c = [{n: torch.empty_like(t) for n, t in c.items()} for c in caches]
         self.caches_u = [{n: torch.empty_like(t) for n, t in c.items()} for c in caches]
@@ -265,16 +269,17 @@ def teacher_forced_logits(model, prompt_tokens, plan: GuidancePlan, tokens, *,
     (B, n_new) when the decode is fed ``tokens`` instead of its own choices;
     the other arguments as in ``guided_decode``. Two runs fed the same tokens
     compare step by step, and each step's top-2 margin says where a token
-    could flip."""
+    could flip. ``tokens=None`` feeds each step its own argmax: the logits
+    of the greedy ``guided_decode``, whose tokens their ``argmax(-1)`` is."""
     n_new = plan.total_steps
-    if tuple(tokens.shape) != (prompt_tokens.shape[0], n_new):
+    if tokens is not None and tuple(tokens.shape) != (prompt_tokens.shape[0], n_new):
         raise ValueError(f"tokens {tuple(tokens.shape)} for {n_new} steps")
     logits = []
 
     def forced(step_logits, i):
         if i < n_new:
             logits.append(step_logits.clone())   # a graph's logits are rewritten next step
-            return tokens[:, i]
+            return step_logits.argmax(dim=-1) if tokens is None else tokens[:, i]
         return None
 
     _run(model, prompt_tokens, plan, forced, long_ctx=long_ctx, capacity=capacity,

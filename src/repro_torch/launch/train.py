@@ -1,13 +1,14 @@
-"""Training launcher for the dense decoders. Counterpart of
-``repro/launch/train.py``: next-token training on the synthetic k-gram
-token stream, AdamW with 20 warmup steps, eager steps on one device.
+"""Training launcher for every architecture. Counterpart of
+``repro/launch/train.py``: decoders train on next tokens of the synthetic
+k-gram token stream (``lm_loss``, the MoE aux loss included), encoders
+(hubert-xlarge) on masked prediction of the synthetic audio frames' units
+(``masked_prediction_loss``); AdamW with 20 warmup steps, eager steps on
+one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --reduced --steps 200 --batch 16 --seq 128 --device cpu
 
-``--device`` defaults to the GPU. The encoder archs (hubert-xlarge) and the
-MoE, MLA and recurrent families raise until their models are ported
-(ROADMAP A7).
+``--device`` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -19,13 +20,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
-from repro_torch.data.synthetic import lm_batches
+from repro_torch.data.synthetic import audio_frames, lm_batches
 from repro_torch.models.transformer import Transformer
 from repro_torch.train import losses
 from repro_torch.train.loop import make_train_step, train
 from repro_torch.train.optimizer import AdamWConfig
 
-ENCODER_ARCHS = ("hubert-xlarge",)
 MAX_ORDER2_VOCAB = 8192
 
 
@@ -33,6 +33,15 @@ def lm_loss_fn(model: Transformer, *, remat: bool = False):
     """The loss of ``loop.train`` for batches ``{"tokens": (B, S) int64}``."""
     def loss_fn(_params, batch, _generator):
         return losses.lm_loss(model, batch["tokens"], remat=remat)
+    return loss_fn
+
+
+def masked_loss_fn(model: Transformer, *, remat: bool = False):
+    """The loss of ``loop.train`` for batches ``{"features", "targets",
+    "mask"}`` (``frame_batches``)."""
+    def loss_fn(_params, batch, _generator):
+        return losses.masked_prediction_loss(model, batch["features"], batch["targets"],
+                                             batch["mask"], remat=remat)
     return loss_fn
 
 
@@ -53,6 +62,17 @@ def token_batches(rng: np.random.Generator, vocab: int, batch: int, seq: int, de
         yield {"tokens": torch.from_numpy(arr).long().to(device)}
 
 
+def frame_batches(rng: np.random.Generator, batch: int, frames: int, dim: int, vocab: int,
+                  device):
+    """``audio_frames`` batches on ``device``: the frames (float32, zeroed
+    where masked), their units and the mask of scored frames."""
+    while True:
+        feats, units, mask = audio_frames(rng, batch, frames, dim, vocab)
+        yield {"features": torch.from_numpy(feats).to(device),
+               "targets": torch.from_numpy(units).long().to(device),
+               "mask": torch.from_numpy(mask).to(device)}
+
+
 def main(argv=None) -> list:
     """-> the logged history (one dict a logged step)."""
     ap = argparse.ArgumentParser()
@@ -68,9 +88,6 @@ def main(argv=None) -> list:
     ap.add_argument("--device", default=None, help="default: the GPU")
     args = ap.parse_args(argv)
 
-    if args.arch in ENCODER_ARCHS:
-        raise NotImplementedError(f"{args.arch}: encoder training (masked prediction) waits "
-                                  "for the hubert encoder's port (ROADMAP A7)")
     if args.arch not in list_archs():
         raise ValueError(f"unknown arch {args.arch!r}; the port trains {list_archs()}")
     cfg = get_config(args.arch)
@@ -85,9 +102,14 @@ def main(argv=None) -> list:
     print(f"params: {sum(p.numel() for p in params.values()) / 1e6:.1f}M")
 
     opt = AdamWConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
-    batches = token_batches(np.random.default_rng(args.seed), cfg.vocab_size, args.batch,
-                            args.seq, dev)
-    _, _, history = train(params, lm_loss_fn(model), batches, opt, num_steps=args.steps,
+    rng = np.random.default_rng(args.seed)
+    if cfg.is_encoder:
+        batches = frame_batches(rng, args.batch, args.seq, cfg.d_model, cfg.vocab_size, dev)
+        loss_fn = masked_loss_fn(model)
+    else:
+        batches = token_batches(rng, cfg.vocab_size, args.batch, args.seq, dev)
+        loss_fn = lm_loss_fn(model)
+    _, _, history = train(params, loss_fn, batches, opt, num_steps=args.steps,
                           ckpt_dir=args.ckpt_dir, log_every=10, seed=args.seed)
     first, last = history[0]["loss"], history[-1]["loss"]
     print(f"loss {first:.4f} -> {last:.4f} "

@@ -30,6 +30,10 @@ def head_rmsnorm(scale, x, eps: float = 1e-6):
     return KR.rmsnorm(x, scale, eps)
 
 
+def init_layernorm(mk, dim: int):
+    return {"scale": mk((dim,), init="ones"), "bias": mk((dim,), init="zeros")}
+
+
 def layernorm(scale, bias, x, eps: float = 1e-5):
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
@@ -49,6 +53,13 @@ def embed(table, ids, dtype=None):
 
 def dense(w, x):
     return x @ w.to(x.dtype)
+
+
+def init_gelu_mlp(mk, d_model: int, d_ff: int):
+    return {"w_in": mk((d_model, d_ff), scale=1.0 / math.sqrt(d_model)),
+            "b_in": mk((d_ff,), init="zeros"),
+            "w_out": mk((d_ff, d_model), scale=1.0 / math.sqrt(d_ff)),
+            "b_out": mk((d_model,), init="zeros")}
 
 
 def gelu_mlp(w_in, b_in, w_out, b_out, x):

@@ -1,17 +1,26 @@
 """Transformer stacks. Counterpart of ``repro.models.transformer``:
 
 * ``Encoder``      ``attn`` blocks with ``is_encoder`` (LayerNorm, non-causal
-                   attention, GELU MLP): the SD text encoder;
-* ``Transformer``  the dense decoder, every block ``attn`` or ``swa`` (RMSNorm,
-                   causal GQA attention, SwiGLU): ``forward`` with caches
-                   (prefill), ``decode_step``, the cache preparation between
-                   them, ``decode_step_paged`` against the paged KV pools of
-                   ``paged_cache_specs`` (per-row positions), and the (tied)
-                   unembedding.
+                   attention on the direct path, GELU MLP): the SD text
+                   encoder;
+* ``Transformer``  every stack of the reference's ten architectures: the
+                   block kinds ``attn`` | ``swa`` (GQA or MLA attention,
+                   then SwiGLU or MoE), ``rglru`` (Griffin recurrence, then
+                   SwiGLU) and ``mlstm`` / ``slstm`` (xLSTM, no FFN);
+                   DeepSeek's leading dense layers (``first_k_dense``);
+                   ``d_ff == 0`` blocks; encoder stacks (LayerNorm,
+                   non-causal attention, GELU MLP) with token or embedding
+                   inputs. ``forward`` (train, scoring and prefill, with
+                   caches and the summed MoE aux loss), ``decode_step``, the
+                   cache preparation between them, ``decode_step_paged``
+                   against the paged KV pools of ``paged_cache_specs``
+                   (plain GQA attention stacks only), and the unembedding.
 
-The reference stacks the layers for a ``lax.scan``; here they are an
-``nn.ModuleList``. The reference's sharding ``rules`` have no counterpart:
-the port runs on one device.
+The reference stacks the layers into scan segments; here they are one
+``nn.ModuleList`` in block order (``convert.model_items`` unstacks them in
+that order), and layer i is a MoE layer when the config has experts and
+i >= ``first_k_dense``. The reference's sharding ``rules`` have no
+counterpart: the port runs on one device.
 """
 
 from __future__ import annotations
@@ -25,19 +34,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import xlstm as XL
 
 
 def init_encoder_layer(cfg, mk):
-    D, F = cfg.d_model, cfg.d_ff
-    return {
-        "norm1": {"scale": mk((D,), init="ones"), "bias": mk((D,), init="zeros")},
-        "attn": A.init_attention(cfg, mk),
-        "norm2": {"scale": mk((D,), init="ones"), "bias": mk((D,), init="zeros")},
-        "mlp": {"w_in": mk((D, F), scale=1.0 / math.sqrt(D)),
-                "b_in": mk((F,), init="zeros"),
-                "w_out": mk((F, D), scale=1.0 / math.sqrt(F)),
-                "b_out": mk((D,), init="zeros")},
-    }
+    D = cfg.d_model
+    return {"norm1": L.init_layernorm(mk, D), "attn": A.init_attention(cfg, mk),
+            "norm2": L.init_layernorm(mk, D), "mlp": L.init_gelu_mlp(mk, D, cfg.d_ff)}
 
 
 def init_encoder(cfg, mk):
@@ -46,7 +52,7 @@ def init_encoder(cfg, mk):
     return {
         "embed": {"table": mk((cfg.vocab_size, D), scale=1.0 / math.sqrt(D))},
         "layers": [init_encoder_layer(cfg, mk) for _ in range(cfg.num_layers)],
-        "final_norm": {"scale": mk((D,), init="ones"), "bias": mk((D,), init="zeros")},
+        "final_norm": L.init_layernorm(mk, D),
         "lm_head": mk((D, cfg.vocab_size), scale=D ** -0.5),
     }
 
@@ -91,91 +97,209 @@ class Encoder(nn.Module):
         return x
 
 
-# -- decoder -------------------------------------------------------------------
+# -- the stacks ----------------------------------------------------------------
+
+ATTN = ("attn", "swa")
 
 
-def _check_decoder(cfg) -> None:
-    """Raise on what the dense decoder does not port yet."""
-    later = [name for name, present in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("rglru/xLSTM blocks", not set(cfg.blocks) <= {"attn", "swa"}),
-        ("an encoder stack", cfg.is_encoder),
-        ("embedding inputs", cfg.embedding_inputs)) if present]
-    if later:
-        raise ValueError(f"{cfg.name}: {', '.join(later)} not ported yet (a later slice, "
-                         "ROADMAP A7); the decoder takes attn/swa stacks")
+def is_moe_layer(cfg, i: int) -> bool:
+    """Layer i routes through experts: every layer past the leading dense ones."""
+    return cfg.moe is not None and i >= cfg.moe.first_k_dense
 
 
-def init_block(cfg, mk):
+def layer_window(cfg, kind: str, long_ctx: bool):
+    """A block's attention window: the native one of ``swa`` blocks; on
+    ``long_ctx`` the SWA substitute for full GQA attention; else None."""
+    if kind == "swa":
+        return cfg.sliding_window
+    if kind == "attn" and long_ctx and cfg.mla is None:
+        return cfg.long_context_window
+    return None
+
+
+def init_block(cfg, mk, kind: str, *, moe: bool = False):
     D = cfg.d_model
-    p = {"norm1": L.init_rmsnorm(mk, D), "attn": A.init_attention(cfg, mk)}
-    if cfg.d_ff > 0:
-        p["norm2"] = L.init_rmsnorm(mk, D)
-        p["mlp"] = L.init_swiglu(mk, D, cfg.d_ff)
+    norm = L.init_layernorm if cfg.is_encoder else L.init_rmsnorm
+    p = {"norm1": norm(mk, D)}
+    if kind in ATTN:
+        p["attn"] = MLA.init_mla(cfg, mk) if cfg.mla is not None else A.init_attention(cfg, mk)
+    elif kind == "rglru":
+        p["mix"] = RG.init_rglru(cfg, mk)
+    elif kind == "mlstm":
+        p["mix"] = XL.init_mlstm(cfg, mk)
+    elif kind == "slstm":
+        p["mix"] = XL.init_slstm(cfg, mk)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if kind in ATTN + ("rglru",) and cfg.d_ff > 0:
+        p["norm2"] = norm(mk, D)
+        if moe:
+            p["mlp"] = MOE.init_moe(cfg, mk)
+        elif cfg.is_encoder:
+            p["mlp"] = L.init_gelu_mlp(mk, D, cfg.d_ff)
+        else:
+            p["mlp"] = L.init_swiglu(mk, D, cfg.d_ff)
     return p
 
 
-def init_decoder(cfg, mk):
-    """``init_model``'s tree for a dense decoder, with the layers unstacked."""
-    p = {"embed": L.init_embedding(mk, cfg.vocab_size, cfg.d_model),
-         "layers": [init_block(cfg, mk) for _ in range(cfg.num_layers)],
-         "final_norm": L.init_rmsnorm(mk, cfg.d_model)}
+def init_model(cfg, mk):
+    """``init_model``'s tree with the layers unstacked, in block order."""
+    p = {}
+    if not cfg.embedding_inputs:
+        p["embed"] = L.init_embedding(mk, cfg.vocab_size, cfg.d_model)
+    p["layers"] = [init_block(cfg, mk, kind, moe=is_moe_layer(cfg, i))
+                   for i, kind in enumerate(cfg.blocks)]
+    p["final_norm"] = (L.init_layernorm if cfg.is_encoder else L.init_rmsnorm)(mk, cfg.d_model)
     if not cfg.tie_embeddings:
         p["lm_head"] = mk((cfg.d_model, cfg.vocab_size), scale=cfg.d_model ** -0.5)
     return p
 
 
-def block_forward(p, cfg, x, rope, *, window):
-    """-> (y, cache {k, v})."""
-    h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
-    mix, cache = A.attn_forward_auto(p.attn, cfg, h, rope, causal=True, window=window)
-    x = x + mix
-    if hasattr(p, "mlp"):
-        x = x + L.swiglu(p.mlp, L.rmsnorm(p.norm2.scale, x, cfg.norm_eps))
-    return x, cache
+def _norm(cfg, p, x):
+    if cfg.is_encoder:
+        return L.layernorm(p.scale, p.bias, x, cfg.norm_eps)
+    return L.rmsnorm(p.scale, x, cfg.norm_eps)
 
 
-def block_decode(p, cfg, x, cache, pos, rope, *, window):
-    """One-token step; updates ``cache`` in place. -> (y, cache)."""
-    h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
-    if "slot_pos" in cache:
-        mix, cache = A.attn_decode_ring(p.attn, cfg, h, cache, pos, rope, window=window)
+def _ffn(p, cfg, x, moe: bool):
+    """A block's second half, x + FFN(norm2(x)) where the block has one.
+    -> (x, the MoE aux loss or None)."""
+    if not hasattr(p, "mlp"):
+        return x, None
+    h = _norm(cfg, p.norm2, x)
+    if moe:
+        y, aux = MOE.moe_forward(p.mlp, cfg, h)
+        return x + y, aux
+    if cfg.is_encoder:
+        m = p.mlp
+        return x + L.gelu_mlp(m.w_in, m.b_in, m.w_out, m.b_out, h), None
+    return x + L.swiglu(p.mlp, h), None
+
+
+def block_forward(p, cfg, kind: str, x, rope, *, moe: bool = False, window=None):
+    """A block over the whole sequence at positions ``arange(S)``. -> (y,
+    cache, aux or None)."""
+    h = _norm(cfg, p.norm1, x)
+    if kind in ATTN:
+        causal = not cfg.is_encoder
+        if cfg.mla is not None:
+            S = x.shape[1]
+            fwd = MLA.mla_forward_blocked if S > 2048 and S % 512 == 0 else MLA.mla_forward
+            mix, cache = fwd(p.attn, cfg, h, rope, causal=causal)
+        else:
+            mix, cache = A.attn_forward_auto(p.attn, cfg, h, rope, causal=causal, window=window)
+    elif kind == "rglru":
+        mix, cache = RG.rglru_forward(p.mix, cfg, h)
+    elif kind == "mlstm":
+        mix, cache = XL.mlstm_forward(p.mix, cfg, h)
+    elif kind == "slstm":
+        mix, cache = XL.slstm_forward(p.mix, cfg, h)
     else:
-        mix, cache = A.attn_decode(p.attn, cfg, h, cache, pos, rope, window=window)
-    x = x + mix
-    if hasattr(p, "mlp"):
-        x = x + L.swiglu(p.mlp, L.rmsnorm(p.norm2.scale, x, cfg.norm_eps))
+        raise ValueError(f"unknown block kind {kind!r}")
+    x, aux = _ffn(p, cfg, x + mix, moe)
+    return x, cache, aux
+
+
+def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, window=None):
+    """One-token step; updates ``cache`` (a KV cache, latents or a recurrent
+    state) in place. -> (y, cache)."""
+    h = _norm(cfg, p.norm1, x)
+    if kind in ATTN:
+        if cfg.mla is not None:
+            mix, cache = MLA.mla_decode(p.attn, cfg, h, cache, pos, rope)
+        elif "slot_pos" in cache:
+            mix, cache = A.attn_decode_ring(p.attn, cfg, h, cache, pos, rope, window=window)
+        else:
+            mix, cache = A.attn_decode(p.attn, cfg, h, cache, pos, rope, window=window)
+    elif kind == "rglru":
+        mix, cache = RG.rglru_decode(p.mix, cfg, h, cache)
+    elif kind == "mlstm":
+        mix, cache = XL.mlstm_decode(p.mix, cfg, h, cache)
+    elif kind == "slstm":
+        mix, cache = XL.slstm_decode(p.mix, cfg, h, cache)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    x, _ = _ffn(p, cfg, x + mix, moe)
     return x, cache
 
 
-def block_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, window, phase=None):
+def block_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, moe: bool = False,
+                       window=None, phase=None):
     """One-token step per row against the layer's paged pool (updated in
     place). -> (y, pool)."""
-    h = L.rmsnorm(p.norm1.scale, x, cfg.norm_eps)
+    h = _norm(cfg, p.norm1, x)
     mix, pool = A.attn_decode_paged(p.attn, cfg, h, pool, block_table, pos, rope,
                                     window=window, phase=phase)
-    x = x + mix
-    if hasattr(p, "mlp"):
-        x = x + L.swiglu(p.mlp, L.rmsnorm(p.norm2.scale, x, cfg.norm_eps))
+    x, _ = _ffn(p, cfg, x + mix, moe)
     return x, pool
+
+
+def cache_specs(cfg, batch: int, capacity: int, *, long_ctx: bool = False,
+                dtype=torch.bfloat16, device=None):
+    """One zero decode cache a layer, as ``prepare_decode_caches`` returns
+    them: a linear KV cache of ``capacity``, or a ring of ``window`` slots
+    (all empty) where the window is under it; MLA latents; recurrent
+    states."""
+    out = []
+    for kind in cfg.blocks:
+        if kind in ATTN and cfg.mla is not None:
+            out.append(MLA.mla_cache_spec(cfg, batch, capacity, dtype=dtype, device=device))
+        elif kind in ATTN:
+            window = layer_window(cfg, kind, long_ctx)
+            ring = window is not None and window < capacity
+            c = A.cache_spec(cfg, batch, window if ring else capacity, dtype=dtype,
+                             device=device)
+            if ring:
+                c["slot_pos"] = torch.full((window,), -1, dtype=torch.int32,
+                                           device=c["k"].device)
+            out.append(c)
+        elif kind == "rglru":
+            out.append(RG.rglru_state_spec(cfg, batch, dtype=dtype, device=device))
+        elif kind == "mlstm":
+            out.append(XL.mlstm_state_spec(cfg, batch, device=device))
+        else:
+            out.append(XL.slstm_state_spec(cfg, batch, device=device))
+    return out
+
+
+def check_pageable(cfg) -> None:
+    """Raise ``ValueError`` for a stack the paged KV arena cannot hold, as the
+    reference's ``paged_cache_specs`` does: pages hold GQA KV rows, and MLA
+    latents and recurrent states have no page structure."""
+    if cfg.mla is not None:
+        raise ValueError("paged KV arena requires plain GQA attention "
+                         "(MLA latent caches are not paged)")
+    for kind in cfg.blocks:
+        if kind not in ATTN:
+            raise ValueError(f"paged KV arena requires attention blocks, got {kind!r}")
 
 
 def paged_cache_specs(cfg, num_pages: int, page_size: int, *, kv_dtype: str = "bf16",
                       device=None):
     """One zero paged pool per layer (``attention.paged_cache_spec``); raises
     ``ValueError`` for stacks the paged arena cannot hold."""
-    _check_decoder(cfg)
+    check_pageable(cfg)
     return [A.paged_cache_spec(cfg, num_pages, page_size, kv_dtype=kv_dtype, device=device)
             for _ in range(cfg.num_layers)]
 
 
+def _pad_seq(t, capacity: int):
+    """(B, S, ...) -> (B, capacity, ...), zeros past S."""
+    pad = capacity - t.shape[1]
+    if pad <= 0:
+        return t
+    out = t.new_zeros(t.shape[0], capacity, *t.shape[2:])
+    out[:, :t.shape[1]] = t
+    return out
+
+
 class Transformer(nn.Module):
-    """The dense decoder: tokens (B, S) -> hidden (B, S, D) in bf16 (the
-    embedding is cast to bf16 on entry, as in the reference)."""
+    """A stack of ``cfg.blocks``: tokens (B, S), or embeddings (B, S, D) for
+    ``embedding_inputs``, -> hidden (B, S, D). Token embeddings are cast to
+    bf16 on entry, as in the reference; embeddings enter as given."""
 
     def __init__(self, cfg, tree: dict):
         super().__init__()
-        _check_decoder(cfg)
         self.cfg = cfg
         L.adopt_tree(self, tree)
 
@@ -183,70 +307,77 @@ class Transformer(nn.Module):
     def init(cls, cfg, generator=None, *, dtype=torch.float32, device=None):
         """Random weights at ``init_model``'s scales, drawn from ``generator``
         on ``device`` (``None``: the GPU)."""
-        _check_decoder(cfg)
-        return cls(cfg, init_decoder(cfg, L.Maker(generator, dtype, resolve_device(device))))
+        return cls(cfg, init_model(cfg, L.Maker(generator, dtype, resolve_device(device))))
 
     @classmethod
     def from_state_dict(cls, cfg, state: dict):
         """From ``repro_torch.convert.from_jax_model_params`` (or
         ``state_dict()``); the tensors stay on their device."""
-        skeleton = cls(cfg, init_decoder(cfg, L.Maker(None, torch.float32, "meta")))
+        skeleton = cls(cfg, init_model(cfg, L.Maker(None, torch.float32, "meta")))
         skeleton.load_state_dict(state, assign=True)
         return skeleton
 
     def _window(self, kind: str, long_ctx: bool):
-        if kind == "swa":
-            return self.cfg.sliding_window
-        if long_ctx:
-            return self.cfg.long_context_window    # the SWA substitute on long_500k
-        return None
+        return layer_window(self.cfg, kind, long_ctx)
 
     def _rope(self, positions):
-        return L.rope_tables(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+        cfg = self.cfg
+        dim = cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.resolved_head_dim
+        return L.rope_tables(positions, dim, cfg.rope_theta)
 
     def embed_tokens(self, tokens):
+        if self.cfg.embedding_inputs:
+            raise ValueError(f"{self.cfg.name} takes embeddings, not tokens")
         return L.embed(self.embed.table, tokens, dtype=torch.bfloat16)
 
     def unembed(self, h):
         """Final norm and the tied (or ``lm_head``) projection; logits in h's
         dtype."""
-        h = L.rmsnorm(self.final_norm.scale, h, self.cfg.norm_eps)
+        h = _norm(self.cfg, self.final_norm, h)
         if self.cfg.tie_embeddings:
             return h @ self.embed.table.to(h.dtype).T
         return h @ self.lm_head.to(h.dtype)
 
-    def forward(self, tokens, *, want_caches: bool = False, long_ctx: bool = False,
+    def forward(self, inputs, *, want_caches: bool = False, long_ctx: bool = False,
                 remat: bool = False):
-        """Prefill at positions ``arange(S)``. -> (hidden, caches or None);
-        caches are one {k, v} (B,S,K,hd) per layer. With ``remat`` each
-        layer runs under ``torch.utils.checkpoint`` (the reference's
-        ``remat``): its activations are recomputed in the backward."""
-        x = self.embed_tokens(tokens)
+        """The whole sequence at positions ``arange(S)``. -> (hidden, caches
+        or None, aux): caches one a layer (attention {k, v} (B,S,K,hd), MLA
+        {c, k_rope}, recurrent states), aux the summed MoE load-balance loss
+        (float32, 0 without experts). With ``remat`` each layer runs under
+        ``torch.utils.checkpoint`` (the reference's ``remat``): its
+        activations are recomputed in the backward."""
+        cfg = self.cfg
+        x = inputs if cfg.embedding_inputs else self.embed_tokens(inputs)
         rope = self._rope(torch.arange(x.shape[1], device=x.device)[None])
         caches = []
-        for kind, layer in zip(self.cfg.blocks, self.layers):
-            window = self._window(kind, long_ctx)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (kind, layer) in enumerate(zip(cfg.blocks, self.layers)):
+            kw = dict(moe=is_moe_layer(cfg, i), window=self._window(kind, long_ctx))
             if remat:
-                x, cache = checkpoint(block_forward, layer, self.cfg, x, rope, window=window,
-                                      use_reentrant=False)
+                x, cache, a = checkpoint(block_forward, layer, cfg, kind, x, rope,
+                                         use_reentrant=False, **kw)
             else:
-                x, cache = block_forward(layer, self.cfg, x, rope, window=window)
-            caches.append(cache)
-        return x, (caches if want_caches else None)
+                x, cache, a = block_forward(layer, cfg, kind, x, rope, **kw)
+            if want_caches:
+                caches.append(cache)
+            if a is not None:
+                aux = aux + a
+        return x, (caches if want_caches else None), aux
 
     def decode_step(self, token_embeds, caches, pos, *, rows=None, long_ctx: bool = False):
         """One token at ``pos`` for the whole stack; the caches are updated in
         place. ``pos`` a 0-d or one-element int32 tensor on the device (the
         step then reads no value on the host and can be captured in a CUDA
-        graph) or a Python int; with ``rows``, the (B,) cache row of each
-        batch row (a slot arena's rows, read and written in place), a (B,)
-        int32 tensor of per-row positions (RoPE, the cache write and the
-        attention mask per row). -> (hidden (B,1,D), caches)."""
+        graph) or a Python int; with ``rows`` (GQA attention stacks: a slot
+        arena), the (B,) cache row of each batch row, read and written in
+        place, and a (B,) int32 tensor of per-row positions (RoPE, the cache
+        write and the attention mask per row). -> (hidden (B,1,D), caches)."""
+        cfg = self.cfg
         x = token_embeds
         pos = A.decode_pos(pos, x.device, rows)
         rope = self._rope(pos.pos.view(-1, 1))
-        for kind, layer, cache in zip(self.cfg.blocks, self.layers, caches):
-            x, _ = block_decode(layer, self.cfg, x, cache, pos, rope,
+        for i, (kind, layer, cache) in enumerate(zip(cfg.blocks, self.layers, caches)):
+            x, _ = block_decode(layer, cfg, kind, x, cache, pos, rope, moe=is_moe_layer(cfg, i),
                                 window=self._window(kind, long_ctx))
         return x, caches
 
@@ -259,29 +390,30 @@ class Transformer(nn.Module):
         masks; ``phase`` (B,) int32 marks a ragged pass list (rows at phase
         0 are padding: zero attention output, dropped writes). -> (hidden
         (B,1,D), pools)."""
+        cfg = self.cfg
         x = token_embeds
         rope = self._rope(pos[:, None])
-        for kind, layer, pool in zip(self.cfg.blocks, self.layers, pools):
-            x, _ = block_decode_paged(layer, self.cfg, x, pool, block_table, pos, rope,
+        for i, (kind, layer, pool) in enumerate(zip(cfg.blocks, self.layers, pools)):
+            x, _ = block_decode_paged(layer, cfg, x, pool, block_table, pos, rope,
+                                      moe=is_moe_layer(cfg, i),
                                       window=self._window(kind, long_ctx), phase=phase)
         return x, pools
 
     def prepare_decode_caches(self, caches, *, seq_len: int, capacity: int,
                               long_ctx: bool = False):
-        """Prefill caches -> decode caches: a ring of ``window`` slots where
-        the layer's window is under ``capacity``, else the linear cache
-        zero-padded to ``capacity``."""
+        """Prefill caches -> decode caches: a GQA layer's ring of ``window``
+        slots where its window is under ``capacity``, else its linear cache
+        zero-padded to ``capacity``; MLA latents zero-padded to
+        ``capacity``; recurrent states as they are."""
         out = []
         for kind, c in zip(self.cfg.blocks, caches):
             window = self._window(kind, long_ctx)
-            if window is not None and window < capacity:
-                out.append(A.cache_from_prefill(c, window=window, seq_len=seq_len))
-            elif capacity > seq_len:
-                lin = A.cache_spec(self.cfg, c["k"].shape[0], capacity, dtype=c["k"].dtype,
-                                   device=c["k"].device)
-                lin["k"][:, :seq_len] = c["k"]
-                lin["v"][:, :seq_len] = c["v"]
-                out.append(lin)
-            else:
+            if kind not in ATTN:
                 out.append(c)
+            elif self.cfg.mla is not None:
+                out.append({n: _pad_seq(t, capacity) for n, t in c.items()})
+            elif window is not None and window < capacity:
+                out.append(A.cache_from_prefill(c, window=window, seq_len=seq_len))
+            else:
+                out.append({n: _pad_seq(t, capacity) for n, t in c.items()})
         return out

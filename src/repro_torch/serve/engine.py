@@ -101,7 +101,11 @@ counted, not read off a compiled executable, and the autotuner's budget
 rounding is fixed (ROADMAP C).
 
 A mesh or sharding rules (``mesh``, ``rules``) raise ``NotImplementedError``
-(ROADMAP A8).
+(ROADMAP A8). The engine serves GQA attention stacks (``attn``/``swa``
+blocks, dense FFNs): a MoE, MLA, recurrent or encoder stack raises at
+construction, the paged arena's ``ValueError`` first where the reference
+raises it (MLA latents and recurrent states have no pages), else
+``NotImplementedError`` (ROADMAP A7.1).
 """
 
 from __future__ import annotations
@@ -368,6 +372,13 @@ class ContinuousEngine:
             raise ValueError(f"interval {interval!r} must satisfy 0 <= start < stop <= 1")
         if mesh is not None or rules is not None:
             raise NotImplementedError("a mesh or sharding rules are not ported yet (ROADMAP A8)")
+        if kv == "paged":
+            T.check_pageable(cfg)       # the reference's ValueError first
+        if cfg.moe is not None or cfg.mla is not None or cfg.is_encoder \
+                or not set(cfg.blocks) <= set(T.ATTN):
+            raise NotImplementedError(f"{cfg.name}: the engine serves GQA attention stacks; "
+                                      "MoE, MLA, recurrent and encoder stacks are not ported "
+                                      "to it yet (ROADMAP A7.1)")
         if guidance_policy == "interval" and combine == "cfg":
             # the interval policy's semantics live in the combine stage
             combine = "interval"
@@ -1252,8 +1263,8 @@ class ContinuousEngine:
             tu[:len(tu) if it.u_mask_below is None else it.u_mask_below] = self.num_pages
             btu[i] = tu
         model, ps = self.model, self.page_size
-        h_c, caches_c = model(self._dev(tokens, torch.long), want_caches=True)
-        h_u, caches_u = model(self._dev(tokens_u, torch.long), want_caches=True)
+        h_c, caches_c, _ = model(self._dev(tokens, torch.long), want_caches=True)
+        h_u, caches_u, _ = model(self._dev(tokens_u, torch.long), want_caches=True)
         col = np.arange(Sb) // ps
         offs = self._dev(np.tile(np.arange(Sb) % ps, kb))
         pages_c = self._dev(btc[:, col].reshape(-1))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.selective import Mode, PlanCursor
+from repro_torch.models.transformer import check_pageable
 
 class StatePool:
     """Allocator over ``num_slots`` arena rows. Lowest-index-first alloc
@@ -129,14 +130,9 @@ def kv_page_bytes(cfg, page_size: int, kv_dtype: str = "bf16") -> int:
     """Per-page device bytes of ``cfg``'s paged pool over all layers: the
     unit the engine's admission and byte accounting multiply page counts
     by. Raises ``ValueError`` for stacks the paged arena cannot hold (MLA
-    latents, recurrent or xLSTM blocks), as the reference's spec walk does."""
-    if cfg.mla is not None:
-        raise ValueError("paged KV arena requires plain GQA attention "
-                         "(MLA latent caches are not paged)")
-    for kind in cfg.blocks:
-        if kind not in ("attn", "swa"):
-            raise ValueError(f"paged KV arena requires attention "
-                             f"blocks, got {kind!r}")
+    latents, recurrent or xLSTM blocks), as the reference's spec walk does
+    (``transformer.check_pageable``)."""
+    check_pageable(cfg)
     return page_nbytes(page_size, cfg.num_kv_heads, cfg.resolved_head_dim,
                        cfg.num_layers, kv_dtype)
 

@@ -1,7 +1,6 @@
-"""Losses: next-token cross-entropy (decoders) and eps-prediction MSE with
-CFG condition dropout (diffusion). Counterpart of
-``repro/train/losses.py``; its ``masked_prediction_loss`` comes with the
-hubert encoder (ROADMAP A7).
+"""Losses: next-token cross-entropy (decoders), masked-prediction
+cross-entropy (encoders) and eps-prediction MSE with CFG condition dropout
+(diffusion). Counterpart of ``repro/train/losses.py``.
 
 The reference draws the diffusion loss's timesteps, noise and dropout mask
 from a key inside the loss. Here they are inputs (``t``, ``eps``,
@@ -27,18 +26,27 @@ def _ce(logits, targets, mask=None):
 
 def lm_loss(model, tokens, *, remat: bool = True):
     """Next-token CE over tokens (B, S) through ``model`` (a
-    ``Transformer``). -> (loss, metrics).
+    ``Transformer``), plus the stack's MoE load-balance loss (0 without
+    experts). -> (loss, metrics).
 
     The forward runs on the full S; the last position's logits are masked
     out of the loss and its target is the rolled-in first token, as in the
-    reference. The dense stacks have no auxiliary loss."""
-    h, _ = model(tokens, remat=remat)
+    reference."""
+    h, _, aux = model(tokens, remat=remat)
     logits = model.unembed(h)
     B, S = tokens.shape
     mask = (torch.arange(S, device=tokens.device)[None] < S - 1).expand(B, S)
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     loss = _ce(logits, targets, mask)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux, {"ce": loss, "aux": aux}
+
+
+def masked_prediction_loss(model, features, targets, mask, *, remat: bool = True):
+    """HuBERT's objective: the codebook ``targets`` (B, S) at the frames
+    where ``mask`` (B, S) bool is True, from ``features`` (B, S, D), frontend
+    embeddings already corrupted at those frames. -> (loss, metrics)."""
+    h, _, aux = model(features, remat=remat)
+    loss = _ce(model.unembed(h), targets, mask)
     return loss + aux, {"ce": loss, "aux": aux}
 
 

@@ -120,7 +120,7 @@ def _f32(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def _assert_decode_matches(pair, toks, n, frac, **kw):
+def _assert_decode_matches(pair, toks, n, frac, *, tol=LOGIT_TOL, **kw):
     jplan, plan = JPlan.suffix(n, frac, 3.0), GuidancePlan.suffix(n, frac, 3.0)
     ref, ref_end = JAR.guided_decode(pair.params, pair.jcfg, jnp.asarray(toks), jplan, **kw)
     ref = np.array(ref)
@@ -130,7 +130,7 @@ def _assert_decode_matches(pair, toks, n, frac, **kw):
     logits = AR.teacher_forced_logits(pair.model, torch.from_numpy(toks).long(), plan,
                                       torch.from_numpy(ref).long(), **kw).numpy()
     np.testing.assert_allclose(logits, ref_logits, rtol=0,
-                               atol=LOGIT_TOL * np.abs(ref_logits).max())
+                               atol=tol * np.abs(ref_logits).max())
     err = np.abs(logits - ref_logits)
     top = ref_logits.argmax(-1)[..., None]
     gap = np.take_along_axis(ref_logits, top, -1) - ref_logits
@@ -180,7 +180,7 @@ def test_decoder_layer_matches_reference(zoo, arch):
     pos = jnp.arange(12)[None]
     yj, kv, _ = JT.block_forward(bp, jcfg, "attn", xj, pos, moe_layer=False, want_cache=True)
     rope = TL.rope_tables(torch.arange(12)[None], cfg.resolved_head_dim, cfg.rope_theta)
-    yt, tkv = TT.block_forward(pair.model.layers[0], cfg, xt, rope, window=None)
+    yt, tkv, _ = TT.block_forward(pair.model.layers[0], cfg, "attn", xt, rope, window=None)
     np.testing.assert_allclose(_f32(yt), _f32(yj), rtol=0, atol=BF16 * np.abs(_f32(yj)).max())
     cache = JT.prepare_decode_caches(jcfg, [[jax.tree.map(lambda a: a[None], kv)]],
                                      seq_len=12, capacity=16)[0][0]
@@ -188,8 +188,8 @@ def test_decoder_layer_matches_reference(zoo, arch):
     tcache = pair.model.prepare_decode_caches([tkv], seq_len=12, capacity=16)[0]
     dj, _ = JT.block_decode(bp, jcfg, "attn", yj[:, -1:], cache, 12, moe_layer=False)
     rope = TL.rope_tables(torch.full((1, 1), 12), cfg.resolved_head_dim, cfg.rope_theta)
-    dt, _ = TT.block_decode(pair.model.layers[0], cfg, yt[:, -1:].contiguous(), tcache, 12,
-                            rope, window=None)
+    dt, _ = TT.block_decode(pair.model.layers[0], cfg, "attn", yt[:, -1:].contiguous(), tcache,
+                            12, rope, window=None)
     np.testing.assert_allclose(_f32(dt), _f32(dj), rtol=0, atol=BF16 * np.abs(_f32(dj)).max())
 
 
@@ -290,6 +290,18 @@ def test_prefix_preserved(llama):
     assert torch.equal(g_base[:, :n_full], g_sel[:, :n_full])
 
 
+def test_greedy_teacher_forced_logits_are_the_decodes(llama):
+    """``tokens=None`` gives the greedy decode's own logits: their argmax is
+    ``guided_decode``'s tokens, and they equal the logits teacher-forced on
+    those tokens bit for bit."""
+    model, toks = llama
+    plan = GuidancePlan.suffix(8, 0.25, 3.0)
+    tokens, _ = AR.guided_decode(model, toks, plan)
+    logits = AR.teacher_forced_logits(model, toks, plan, None)
+    assert torch.equal(logits.argmax(-1), tokens)
+    assert torch.equal(logits, AR.teacher_forced_logits(model, toks, plan, tokens))
+
+
 def test_window_plan_rejected(llama):
     model, toks = llama
     with pytest.raises(ValueError, match="suffix"):
@@ -326,9 +338,15 @@ def test_no_kernel_launches_on_the_cpu(llama):
 
 
 def test_unported_families_raise():
+    """The decoder takes every family now; the serve engine does not yet
+    (ROADMAP A7.1): it raises at construction for a MoE, recurrent or
+    encoder stack."""
     from repro_torch.configs.base import MoEConfig
+    from repro_torch.serve import ContinuousEngine
     cfg = get_smoke_config("llama3.2-1b")
-    for bad in (dict(moe=MoEConfig(num_experts=4, top_k=2)), dict(block_pattern=("rglru",)),
-                dict(is_encoder=True)):
-        with pytest.raises(ValueError, match="later slice"):
-            TT.Transformer.init(dataclasses.replace(cfg, **bad), device="cpu")
+    for bad in (dict(moe=MoEConfig(num_experts=4, top_k=2, expert_d_ff=64)),
+                dict(block_pattern=("rglru",)), dict(is_encoder=True)):
+        bcfg = dataclasses.replace(cfg, **bad)
+        model = TT.Transformer.init(bcfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="A7.1"):
+            ContinuousEngine(model, bcfg)

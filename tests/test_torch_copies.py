@@ -98,7 +98,8 @@ def test_tokenizer_ids_equal():
 
 
 def _fields(obj):
-    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+    """Field by field, the nested MoE and MLA configs as dicts of theirs."""
+    return dataclasses.asdict(obj)
 
 
 def test_config_fields_equal():
@@ -114,7 +115,9 @@ def test_config_fields_equal():
     assert (t.resolved_head_dim, t.blocks) == (j.resolved_head_dim, j.blocks)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-14b", "yi-9b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen3-14b", "yi-9b", "h2o-danube-3-4b",
+                                  "mixtral-8x7b", "deepseek-v2-lite-16b", "recurrentgemma-9b",
+                                  "xlstm-350m", "hubert-xlarge", "chameleon-34b"])
 def test_decoder_config_copies_equal(arch):
     from repro.configs import registry as jreg
     from repro_torch.configs import registry as treg
@@ -122,6 +125,12 @@ def test_decoder_config_copies_equal(arch):
     assert _fields(t) == _fields(j)
     assert _fields(treg.get_smoke_config(arch)) == _fields(jreg.get_smoke_config(arch))
     assert (t.resolved_head_dim, t.blocks) == (j.resolved_head_dim, j.blocks)
+
+
+def test_registry_copies_every_architecture():
+    from repro.configs import registry as jreg
+    from repro_torch.configs import registry as treg
+    assert treg.list_archs() == jreg.list_archs()
 
 
 def test_prompt_copies_equal():

@@ -159,7 +159,7 @@ def _prefilled(arch, S, cap, seed):
     cfg = get_smoke_config(arch)
     model = Transformer.init(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, S)))
-    _, caches = model(toks, want_caches=True)
+    _, caches, _ = model(toks, want_caches=True)
     return model, model.prepare_decode_caches(caches, seq_len=S, capacity=cap), cfg
 
 
