@@ -61,7 +61,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    one sLSTM block, also on float32 weights and stream), B = 2 prompts of
    32 tokens, 8 new (on the MoE stacks the routings recorded on both
    sides: each flip must be one rounding explains, and the steps it moves
-   are not held);
+   are not held); after each MoE family, ``[sfparity]``: its slot arena on
+   the CPU and the GPU on float32 weights, stream and pools, 4 requests of
+   32 tokens, 8 new, events equal, launches exact, tokens margin-guarded,
+   routing flips as in ``[fparity]``;
 10. decode main path: ``guided_decode`` on llama3.2-1b at full width and
    depth (random bf16 weights from a seed), B = 4 prompts of 512 tokens, 256
    new tokens, graphed (the default), with exact launch counts (RMSNorm's
@@ -81,7 +84,8 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    pages of 16, a pool of 640 pages, tables of 40), positions spread over
    the tables, a quarter of the rows at phase 0, out-of-range table
    entries, with and without a window, and at the other dense decoders'
-   head groups (every ``block_k`` giving the same bits: the kernels have no
+   head groups and those of mixtral-8x7b (window 4096) and chameleon-34b,
+   bf16 and int8 pages (every ``block_k`` giving the same bits: the kernels have no
    sub-page tile); each timed beside its bytes bound and its plain version;
    then B9 against B7, and B8 against B10, with every row at phase 1: the
    same kernel on the same inputs, bit for bit;
@@ -95,7 +99,7 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    arriving two a tick, ragged bf16 (graphed) at f in {0, 0.2, 0.5} and at
    f = 0.2 ragged int8, signature bf16 and signature int8 (graphed, a
    capture a signature bucket), and the same four eager
-   (``graphs=False``), each after a warm-up, with exact launch counts of
+   (``graphs=False``), after one warm-up a step mode and pool dtype, with exact launch counts of
    the paged kernels and RMSNorm's launches by rows; graphed against eager
    on the same trace at f = 0.2 (``[sgraphs]``), ragged bf16 and int8 at
    full depth and signature bf16 and int8 on the first two layers: event
@@ -137,7 +141,10 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    ring-a-row form, a windowed slot arena's (8 rows of a pool of 9 rings
    of 128 slots, h2o-danube-3-4b's heads, every ring wrapped, a padding
    row on the empty spare), each timed beside its bound, its plain version
-   and SDPA with a per-row mask (``[slotkern]``);
+   and SDPA with a per-row mask (``[slotkern]``); both also at the
+   families' slot shapes (per row: mixtral's, chameleon's and
+   recurrentgemma's heads at ``[fserve]``'s capacity; ring a row:
+   recurrentgemma's ring of 2048 at hd 256, one kv head);
 19. slot and lazy parity: the slot arena and lazy reservation (ragged bf16
    and int8, signature bf16; a pool the simulator sizes to preempt and
    copy on write) on llama3.2-1b at full width, 2 layers, CPU against GPU:
@@ -195,9 +202,14 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    tokens bit-equal at f = 0.2: seconds per generate,
    tokens/s, the saving, both prefills' wall, FULL and COND device ms
    (replays timed by events and one profiled, with its leading kernels),
-   a generate's busy share and peak memory; then hubert-xlarge at full
-   depth: a forward over 4 x 512 frames and masked-prediction AdamW steps
-   with float32 parameters.
+   a generate's busy share and peak memory; then ``[fserve]`` on the same
+   model: the serve engine's slot arena (and for mixtral and chameleon
+   the paged ragged step over bf16 and int8 pages and the paged signature
+   step), 16 requests, graphed and eager (the paged signature step graphed
+   only), tokens and events equal, one capture a bucket, launches exact,
+   wall, ticks and a steady tick's busy
+   share; then hubert-xlarge at full depth: a forward over 4 x 512 frames
+   and masked-prediction AdamW steps with float32 parameters.
 
 Phases 18-24 run after phase 13, on its model; phase 25 runs last.
 
@@ -1297,15 +1309,18 @@ def _decode_pair(tag, cpu, gpu, toks, plan, kw, want, around_gpu=None, routes=Fa
 
 
 @contextlib.contextmanager
-def _recording_routes(rec: list):
+def _recording_routes(rec: list, live=None):
     """Appends each MoE routing's (top-k ids, router probabilities, kept
-    pairs), on the CPU, to ``rec`` in call order."""
+    pairs), on the CPU, to ``rec`` in call order; with ``live``,
+    ``live(p)`` (``p`` the layer's MoE parameters) -> (tags, n): the
+    record is the tags followed by the first n rows' tensors."""
     from repro_torch.models import moe as MOE
     route = MOE.route
 
     def recorded(p, cfg, x, C):
         r = route(p, cfg, x, C)
-        rec.append((r.ids.cpu(), r.probs.cpu(), r.keep.cpu()))
+        tags, n = live(p) if live is not None else ((), None)
+        rec.append((*tags, r.ids[:n].cpu(), r.probs[:n].cpu(), r.keep[:n].cpu()))
         return r
 
     MOE.route = recorded
@@ -1315,17 +1330,40 @@ def _recording_routes(rec: list):
         MOE.route = route
 
 
+def _routing_call_ok(tag, k: int, a, b):
+    """One routing call of two runs, ``a`` and ``b`` each (top-k ids,
+    router probabilities, kept pairs) over (rows, S) tokens, rows the
+    routing groups. A flip is a token whose top-k set differs; rounding
+    must explain each (run a's k-th router probability within twice the
+    largest probability difference of its (k+1)-th), every changed
+    capacity drop (the experts that kept the token: one set in either
+    top-k order) must sit in a row with a flip, and the router
+    probabilities must agree within ``LOGIT_TOL``, or the check fails. ->
+    (flip, drop) (rows, S)"""
+    import torch
+    (ia, pa, ka), (ib, pb, kb) = a, b
+    flip = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+    drop = (torch.where(ka, ia, -1).sort(-1).values
+            != torch.where(kb, ib, -1).sort(-1).values).any(-1) & ~flip
+    top = pa.sort(-1, descending=True).values
+    unexplained = flip & (top[..., k - 1] - top[..., k] > 2 * (pa - pb).abs().amax(-1))
+    if bool(unexplained.any()) or bool((drop.any(-1) & ~flip.any(-1)).any()):
+        fail(f"{tag} differs beyond rounding: flips {flip.nonzero().tolist()}, unexplained "
+             f"{unexplained.nonzero().tolist()}, drops {drop.nonzero().tolist()}")
+    if (pa - pb).abs().max().item() > LOGIT_TOL:
+        fail(f"{tag}: router probabilities differ by {(pa - pb).abs().max().item():.3g} > "
+             f"{LOGIT_TOL}")
+    return flip, drop
+
+
 def _routing_moves(tag, cfg, plan, rec_a, rec_b):
     """The teacher-forced steps (B, n) that the routings two runs recorded
     (``_recording_routes``: per forward, prefills then decode steps, each MoE
-    layer in order) may move apart. A flip is a token whose top-k set
-    differs; rounding must explain each (run a's k-th router probability
-    within twice the largest probability difference of its (k+1)-th),
-    every changed capacity drop must sit in a forward with a flip, the
-    router probabilities must agree within ``LOGIT_TOL``, and at most a
-    quarter of the steps may move, or the check fails. A flip or drop in a
-    layer before the last moves every later step of its row; in the last
-    layer only the step its position's logits give."""
+    layer in order) may move apart. Each call must pass
+    ``_routing_call_ok``, and at most a quarter of the steps may move, or
+    the check fails. A flip or drop in a layer before the last moves every
+    later step of its row; in the last layer only the step its position's
+    logits give."""
     import torch
     from repro_torch.core.selective import Mode
 
@@ -1338,19 +1376,10 @@ def _routing_moves(tag, cfg, plan, rec_a, rec_b):
              f"{len(steps) * len(layers)}")
     moved = torch.zeros(rec_a[0][0].shape[0], n, dtype=torch.bool)
     n_flips = 0
-    for j, ((ia, pa, ka), (ib, pb, kb)) in enumerate(zip(rec_a, rec_b)):
+    for j, (a, b) in enumerate(zip(rec_a, rec_b)):
         step, layer = steps[j // len(layers)], layers[j % len(layers)]
-        flip = (ia.sort(-1).values != ib.sort(-1).values).any(-1)            # (B, S)
-        drop = (ka != kb).any(-1) & ~flip
-        top = pa.sort(-1, descending=True).values
-        unexplained = flip & (top[..., k - 1] - top[..., k] > 2 * (pa - pb).abs().amax(-1))
-        if bool(unexplained.any()) or bool((drop.any(-1) & ~flip.any(-1)).any()):
-            fail(f"{tag}: routing call {j} (layer {layer}, step {step}) differs beyond rounding: "
-                 f"flips {flip.nonzero().tolist()}, unexplained "
-                 f"{unexplained.nonzero().tolist()}, drops {drop.nonzero().tolist()}")
-        if (pa - pb).abs().max().item() > LOGIT_TOL:
-            fail(f"{tag}: routing call {j} (layer {layer}, step {step}): router probabilities "
-                 f"differ by {(pa - pb).abs().max().item():.3g} > {LOGIT_TOL}")
+        flip, drop = _routing_call_ok(f"{tag}: routing call {j} (layer {layer}, step {step})",
+                                      k, a, b)
         n_flips += int(flip.sum())
         for b, pos in (flip | drop).nonzero().tolist():
             if step >= n:
@@ -1521,6 +1550,159 @@ def _float32_stream():
         Transformer.embed_tokens = embed
 
 
+SFPARITY_S, SFPARITY_NEW = 32, 8      # [sfparity]: prompts, new tokens
+F32_LOGIT_TOL = 1e-4   # CPU vs GPU logits of float32 weights and stream, of max|logit|
+
+
+def _slot_parity_engine(rec=None):
+    """A recording engine (``_recording_engine``) whose pools' floating
+    leaves are float32 (the engine's are bf16, the stream's dtype), for a
+    float32 stream, and that, with ``rec``, records each MoE routing of its
+    live rows there (``_recording_routes``), tagged (tick, the uid of each
+    live row, the layer). The live rows are a slot prefill's one and a
+    signature group's requests (its padding rows on the spare route
+    nothing live)."""
+    Base = _recording_engine()
+
+    class Eng(Base):
+        _uids = None
+
+        def _pool_specs(self, rows, device):
+            return [{k: t.float() if t.is_floating_point() else t for k, t in layer.items()}
+                    for layer in super()._pool_specs(rows, device)]
+
+        def _prefill_slot(self, req, slot, key):
+            self._uids = [req.uid]
+            return super()._prefill_slot(req, slot, key)
+
+        def _signature_step(self, f, c):
+            self._groups = {"f": f["uids"], "c": c["uids"]}
+            return super()._signature_step(f, c)
+
+        def _decode_rows(self, emb, dev, group, stream):
+            self._uids = self._groups[group]
+            return super()._decode_rows(emb, dev, group, stream)
+
+        def serve_trace(self, *a, **kw):
+            if rec is None:
+                return super().serve_trace(*a, **kw)
+            layer_of = {id(layer.mlp): i for i, layer in enumerate(self.model.layers)
+                        if hasattr(layer, "mlp")}
+
+            def live(p):
+                return (self.tick_count, list(self._uids), layer_of[id(p)]), len(self._uids)
+            with _recording_routes(rec, live):
+                return super().serve_trace(*a, **kw)
+    return Eng
+
+
+def _serve_moves(tag, cfg, rec_a, rec_b, parted: dict) -> dict:
+    """Where each request's tokens may part between two runs' routings
+    (``_slot_parity_engine``): a routing flip or a changed capacity drop
+    in one of its rows, each call held by ``_routing_call_ok``, in a layer
+    before the last, or in the last at the position whose output the step
+    reads (a last layer's FFN feeds no cache). A request's rows are
+    compared up to the tick ``parted[uid]`` whose token parts the two runs
+    (later steps read other tokens), and up to a move before its last
+    layer (later layers and steps read other states). -> {uid: [(tick,
+    whole)]}: a move in a layer before the last moves the request's tokens
+    from that tick on (``whole``), one in the last layer only the token of
+    that tick"""
+    k = cfg.moe.top_k
+    if len(rec_a) != len(rec_b) or any(a[:3] != b[:3] for a, b in zip(rec_a, rec_b)):
+        fail(f"{tag}: the two runs' routings do not pair ({len(rec_a)}, {len(rec_b)})")
+    moved, n_flips, gone = {}, 0, set()
+    for j, ((tick, uids, layer, *a), (_, _, _, *b)) in enumerate(zip(rec_a, rec_b)):
+        same = [i for i, u in enumerate(uids)
+                if tick <= parted.get(u, tick) and (u, True) not in gone]
+        if not same:
+            continue
+        uids = [uids[i] for i in same]
+        flip, drop = _routing_call_ok(f"{tag}: routing call {j} (tick {tick}, layer {layer})",
+                                      k, [t[same] for t in a], [t[same] for t in b])
+        n_flips += int(flip.sum())
+        hit, whole = flip | drop, layer != cfg.num_layers - 1
+        if not whole:
+            hit = hit[:, -1:]
+        for i in hit.any(-1).nonzero()[:, 0].tolist():
+            moved.setdefault(uids[i], []).append((tick, whole))
+            gone.add((uids[i], whole))
+    log(f"[sfparity] {tag}: {n_flips} routing flips over {len(rec_a)} routings, each within "
+        f"rounding; requests moved from ticks {moved}")
+    return moved
+
+
+def _moved_tokens(eng, out: dict, moved: dict) -> dict:
+    """The indices of each request's tokens that routing moves
+    (``_serve_moves``) may part, from the ticks of its token events."""
+    out_idx = {}
+    for uid, toks in out.items():
+        ticks = [k[1] for k in eng.metrics.trace.keys() if k[0] == "token" and k[2] == uid]
+        out_idx[uid] = {i for i, tau in enumerate(ticks[:len(toks)])
+                        if any(tau >= t if whole else tau == t
+                               for t, whole in moved.get(uid, ()))}
+    return out_idx
+
+
+def _slot_family_parity(tag, cpu, gpu) -> str:
+    """``[sfparity]`` on a MoE stack: the slot arena on the CPU (plain
+    versions) and on the card (kernels, the signature steps graphed), both
+    on float32 weights, stream and pools (``_float32_stream``; in bf16 at
+    full width the two break router near-ties apart on a quarter to a half
+    of the tokens, PERF.md): 4 requests of ``SFPARITY_S`` random tokens,
+    ``SFPARITY_NEW`` new, f = 0.25, scale 3; events equal, the card's
+    launches exact (``_serve_want``), logits within ``F32_LOGIT_TOL`` and
+    tokens equal up to each request's first step the logits do not decide
+    (``_serve_margin``). The card's eager run (bit-equal to its graphed one)
+    records its routings beside the CPU's: each flip must be one rounding
+    explains, a request's tokens that a flip may move are neither held nor
+    decided (``_serve_moves``), and at most a quarter of the tokens may
+    move, as in ``_routing_moves``. -> the log's summary"""
+    import torch
+    from repro_torch.models.transformer import Transformer
+    cfg = cpu.cfg
+    kw = dict(num_slots=4, pass_budget=8, prompt_len=SFPARITY_S, max_new=SFPARITY_NEW,
+              stop_on_eos=False, prefills_per_tick=2, seed=0, selective_fraction=0.25)
+    arrivals = [0, 0, 1, 2]
+
+    def serve(model, graphs=None, rec=None):
+        eng = _slot_parity_engine(rec)(model, cfg, graphs=graphs, **kw)
+        out = eng.serve_trace(_serve_requests(cfg, 4, (SFPARITY_S,), SFPARITY_NEW, 7), arrivals)
+        torch.cuda.synchronize()
+        return eng, out
+
+    with _float32_stream():
+        cpu = Transformer.from_state_dict(cfg, {k: t.float() for k, t in cpu.state_dict().items()})
+        gpu = Transformer.from_state_dict(cfg, {k: t.cuda() for k, t in cpu.state_dict().items()})
+        rec_c, rec_g = [], []
+        ce, co = serve(cpu, rec=rec_c)
+        reset_launches()
+        ge, go = serve(gpu)
+        counts, want = launch_counts(), _serve_want(cfg, ge, "signature")
+        if counts != want or ce.metrics.trace.keys() != ge.metrics.trace.keys() or \
+                not ge.graphs:
+            fail(f"{tag}: launches {counts} want {want}, events equal "
+                 f"{ce.metrics.trace.keys() == ge.metrics.trace.keys()}")
+        ee, eo = serve(gpu, graphs=False, rec=rec_g)
+    if eo != go or not all(torch.equal(a, b) for u in go
+                           for a, b in zip(ge.logits[u], ee.logits[u])):
+        fail(f"{tag}: the card's graphed and eager slot runs differ")
+    parted = {}
+    for uid, toks in co.items():
+        ticks = [k[1] for k in ce.metrics.trace.keys() if k[0] == "token" and k[2] == uid]
+        m = next((i for i, (x, y) in enumerate(zip(toks, eo[uid])) if x != y), None)
+        if m is not None:
+            parted[uid] = ticks[m]
+    exempt = _moved_tokens(ge, go, _serve_moves(tag, cfg, rec_c, rec_g, parted))
+    n_moved = sum(len(v) for v in exempt.values())
+    total = sum(len(v) for v in go.values())
+    if 4 * n_moved > total:
+        fail(f"{tag}: routing flips move {n_moved} of {total} tokens, more than a quarter")
+    return (f"slot arena, float32 weights, stream and pools, 4 requests, launches exact, events "
+            f"equal; {n_moved} of {total} tokens a routing flip moves not held; "
+            + _serve_margin(tag, ce, co, ge, go, exempt, F32_LOGIT_TOL))
+
+
 def phase_family_parity():
     """``[fparity]``: the same ``guided_decode`` on the CPU (plain versions)
     and the GPU (kernels, graphed) for every decoder family of phase 25, as
@@ -1569,17 +1751,23 @@ def phase_family_parity():
                 lb = AR.teacher_forced_logits(g32, toks.cuda(), plan, a.cuda()).cpu()
             big = la.abs().max().item()
             rel = (lb - la).abs().max().item() / big
-            if not rel <= 1e-4:
-                fail(f"fparity {arch}: float32 teacher-forced logits rel err {rel:.3g} > 1e-4")
+            if not rel <= F32_LOGIT_TOL:
+                fail(f"fparity {arch}: float32 teacher-forced logits rel err {rel:.3g} > "
+                     f"{F32_LOGIT_TOL}")
             drift = [(AR.teacher_forced_logits(m, t, plan, a.to(t.device)).cpu() - la).abs().max()
                      .item() / big for m, t in ((cpu, toks), (gpu, toks.cuda()))]
-            summary += (f"; float32 weights and stream: logits rel err {rel:.3g} (tol 1e-4); the "
+            summary += (f"; float32 weights and stream: logits rel err {rel:.3g} (tol "
+                        f"{F32_LOGIT_TOL}); the "
                         f"bf16 runs fed its tokens differ from it by {drift[0]:.3g} (CPU) and "
                         f"{drift[1]:.3g} (GPU)")
             del c32, g32
         log(f"[fparity] {arch} x{n} layers {list(cfg.blocks)}, B=2 S=32, 8 new tokens "
             f"({plan.total_steps - plan.optimized_steps} FULL + {plan.optimized_steps} COND), "
             f"{time.perf_counter() - t0:.1f} s: {summary}")
+        if cfg.moe is not None:
+            t1 = time.perf_counter()
+            summary = _slot_family_parity(f"sfparity {arch}", cpu, gpu)
+            log(f"[sfparity] {arch} x{n} layers, {time.perf_counter() - t1:.1f} s: {summary}")
         del cpu, gpu
         gc.collect()              # the model and its decode loops hold each other
         torch.cuda.empty_cache()
@@ -1680,24 +1868,27 @@ def phase_decode_main():
         plan = GuidancePlan.suffix(DECODE_NEW, f, DECODE_SCALE)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
-        times = [run(plan, graphs=graphs)[1] for _ in range(4)][1:]
-        counts = {k: v / 4 for k, v in launch_counts().items()}
+        n = 4 if graphs is None else 2       # eager: one timed run (the script's time limit)
+        times = [run(plan, graphs=graphs)[1] for _ in range(n)][1:]
+        counts = {k: v / n for k, v in launch_counts().items()}
         want = _expected_launches(cfg, plan, "cfg_combine")
         if counts != want:
             fail(f"dmain f={f} graphs={graphs}: launches per generate {counts}, want {want}")
         forwards = 2 + 2 * (DECODE_NEW - plan.optimized_steps) + plan.optimized_steps
-        rows.append(dict(f=f, graphed=graphs is None, mean_s=float(np.mean(times)),
-                         std_s=float(np.std(times)), forwards=forwards, census=norm_census(),
+        rows.append(dict(f=f, graphed=graphs is None, timed=len(times),
+                         mean_s=float(np.mean(times)),
+                         std_s=float(np.std(times)), forwards=forwards,
+                         census={k: v / n for k, v in norm_census().items()},   # a generate
                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
     graphed = {r["f"]: r for r in rows if r["graphed"]}
     eager = next(r for r in rows if not r["graphed"])
     if eager["census"] != graphed[0.2]["census"]:
-        fail(f"dmain f=0.2: rmsnorm launches by shape graphed {graphed[0.2]['census']} against "
-             f"eager {eager['census']}")
+        fail(f"dmain f=0.2: rmsnorm launches a generate by shape graphed "
+             f"{graphed[0.2]['census']} against eager {eager['census']}")
     for r in rows:
         r["saving"] = 1.0 - r["mean_s"] / graphed[0.0]["mean_s"] if r["graphed"] else None
         log(f"[dmain] f={r['f']} {'graphed' if r['graphed'] else 'eager'}: mean "
-            f"{r['mean_s']:.4f} s std {r['std_s']:.4f} s (1 warm-up, 3 timed), "
+            f"{r['mean_s']:.4f} s std {r['std_s']:.4f} s (1 warm-up, {r['timed']} timed), "
             f"{DECODE_B * DECODE_NEW / r['mean_s']:.1f} tokens/s, forwards {r['forwards']}, "
             + (f"saving {r['saving']:.4f}, " if r["graphed"] else "")
             + f"peak {r['peak_gb']:.2f} GB")
@@ -1952,6 +2143,12 @@ def _paged_bytes(name, q, kv, pos, phase, ps: int, window=None) -> tuple[int, in
     return nbytes, 4 * H * hd * keys
 
 
+# (H, K, hd, window) past the serve shape: llama-class dense decoders, then
+# mixtral-8x7b (window 4096) and chameleon-34b, which the paged arena serves
+PAGED_SHAPES = ((40, 8, 128, None), (32, 4, 128, None), (32, 8, 120, None),
+                (32, 8, 128, 4096), (64, 8, 128, None))
+
+
 def phase_paged_kernels():
     """B7-B10 against their plain version at the serve path's shapes. ->
     {name: row} for the JSON line: bf16 (B7, B9) and int8 pages with bf16 q
@@ -1992,17 +2189,22 @@ def phase_paged_kernels():
                 f"entries, window None/64/200 (split plans {plans} as (tile, cluster, tiles "
                 f"a block, stages, smem bytes)): within tolerance; phase-0 rows exact zeros; "
                 f"block_k {KP.block_k_candidates(SERVE_PS)} bit-identical")
-    # the other dense decoders' head groups take other instantiations
-    for H, K, hd in ((40, 8, 128), (32, 4, 128), (32, 8, 120)):
+    # the other decoders' head groups take other instantiations: the dense
+    # ones', mixtral's (its window) and chameleon's, which the paged arena
+    # serves
+    for H, K, hd, window in PAGED_SHAPES:
         for int8 in (False, True):
             q, kv, bt, pos, phase = _paged_case(gen, bf16, int8, H, K, hd)
             for name in [n for n in PAGED if n.endswith("int8") == int8]:
-                tag = f"bf16 H={H} K={K} hd={hd}"
-                out = _paged_call(KP, name, q, kv, bt, pos, phase)()
-                ref = _paged_plain(KP, name, q, kv, bt, pos, phase)()
+                tag = f"bf16 H={H} K={K} hd={hd} window={window}"
+                out = _paged_call(KP, name, q, kv, bt, pos, phase, window=window)()
+                ref = _paged_plain(KP, name, q, kv, bt, pos, phase, window=window)()
                 e = _err_ok(name, tag, out, ref, per_row=ATTN_BF16_STEPS * BF16_STEP)
+                errs[name] = max(errs[name], e[0])
                 worst[name, bf16] = max(worst[name, bf16], e[1])
-    log("[paged] all four at H/K/hd 40/8/128, 32/4/128, 32/8/120 (bf16 q): within tolerance")
+    log("[paged] all four at H/K/hd/window " + ", ".join(
+        f"{H}/{K}/{hd}/{w}" for H, K, hd, w in PAGED_SHAPES) + " (bf16 q, bf16 and int8 "
+        "pages): within tolerance")
     for (name, dtype), w in sorted(worst.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
         log(f"[paged] {name} {str(dtype)[6:]}: largest error over the sweep {w:.3g} of its "
             f"row's max|out| ({w / BF16_STEP:.2f} bf16 steps)")
@@ -2147,11 +2349,12 @@ def phase_serve_parity():
 SERVE_LOGIT_TOL = 3e-2   # CPU vs GPU serve logits, of max|logit| (bf16 stacks, int8 pools)
 
 
-def _serve_margin(tag, ea, oa, eb, ob) -> str:
+def _serve_margin(tag, ea, oa, eb, ob, exempt=None, tol=SERVE_LOGIT_TOL) -> str:
     """Two recording engines' runs of one trace (outputs ``oa``, ``ob``):
-    each request's logits within ``SERVE_LOGIT_TOL`` of max|logit| up to
+    each request's logits within ``tol`` of max|logit| up to
     its first parting token, which must come at a step the logits do not
-    decide. -> the log's summary."""
+    decide; the token indices ``exempt[uid]`` are neither held nor
+    decided. -> the log's summary."""
     import torch
     compared = total = equal = 0
     worst = 0.0
@@ -2166,19 +2369,22 @@ def _serve_margin(tag, ea, oa, eb, ob) -> str:
         bits = bits and torch.equal(la, lb)
         big = la.abs().max().item()
         err = (lb - la).abs()
+        ex = [i for i in sorted((exempt or {}).get(uid, ())) if i < upto]
+        err[ex] = 0.0
         worst = max(worst, err.max().item() / big)
-        if not err.max().item() <= SERVE_LOGIT_TOL * big:
-            fail(f"{tag} {uid}: logits rel err {err.max().item() / big:.3g} > {SERVE_LOGIT_TOL}")
+        if not err.max().item() <= tol * big:
+            fail(f"{tag} {uid}: logits rel err {err.max().item() / big:.3g} > {tol}")
         top = la.argmax(-1, keepdim=True)
         gap = la.gather(-1, top) - la
         slack = err.gather(-1, top) + err
         undecided = ((gap <= slack) & (torch.arange(la.shape[-1]) != top)).any(-1)
+        undecided[ex] = True
         if mis < n and not bool(undecided[mis]):
             fail(f"{tag} {uid}: tokens part at decided step {mis}: {a} vs {b}")
         compared += mis
         total += n
         equal += sum(x == y for x, y in zip(a, b))
-    return (f"logits rel err {worst:.3g} (tol {SERVE_LOGIT_TOL}), bit-equal {bits}; tokens "
+    return (f"logits rel err {worst:.3g} (tol {tol}), bit-equal {bits}; tokens "
             f"equal on {compared} of {total} before any undecided parting, {equal} equal "
             f"overall")
 
@@ -2204,11 +2410,14 @@ def phase_serve_main():
             ("signature", "bf16", 0.2, None), ("signature", "int8", 0.2, None),
             ("ragged", "bf16", 0.2, False), ("ragged", "int8", 0.2, False),
             ("signature", "bf16", 0.2, False), ("signature", "int8", 0.2, False)]
-    totals, rows, census = {}, [], {}
+    totals, rows, census, warmed = {}, [], {}, set()
     for step_mode, kv_dtype, f, graphs in runs:
         def engine():
             return _serve_engine(model, cfg, step_mode, kv_dtype, f, graphs)
-        engine().serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
+        if (step_mode, kv_dtype) not in warmed:
+            # one warm-up a step mode and pool dtype (the script's time limit)
+            warmed.add((step_mode, kv_dtype))
+            engine().serve_trace(_serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0), arrivals)
         eng = engine()
         what = f"{step_mode} {kv_dtype} f={f} {'graphed' if eng.graphs else 'eager'}"
         reqs = _serve_requests(cfg, 16, SERVE_LENS, SERVE_NEW, 0)
@@ -2456,9 +2665,78 @@ def phase_slot_kernel() -> dict:
         f"{pos.tolist()}, H={H} K={K} hd={hd} bf16: device time kernel {ms * 1e3:.2f} us "
         f"(host {host_ms * 1e3:.2f} us/call), plain {plain_ms * 1e3:.2f} us, SDPA with a "
         f"per-row mask {lib_ms * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}: {nbytes} B)")
+    fam_rows, fam_ring = _slot_family_kernels(gen)
+    ring = _slot_ring_kernel(gen)
+    ring["max_abs_err"] = max(ring["max_abs_err"], fam_ring)
     return {"decode_attention_rows": dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err),
-            "decode_attention_ring_rows": _slot_ring_kernel(gen)}
+                                          bound_ms=b_ms, bound_by=b_by,
+                                          max_abs_err=max(err, fam_rows)),
+            "decode_attention_ring_rows": ring}
+
+
+# the families' slot arena shapes of B5: (H, K, hd, window), per row on
+# linear rows (mixtral-8x7b under its window of 4096, chameleon-34b, and
+# recurrentgemma-9b's local attention, whose window of 2048 is over
+# [fserve]'s capacity), and a ring a row (recurrentgemma-9b past its
+# window: W 2048, one kv head)
+SLOT_FAMILY_ROWS = ((32, 8, 128, 4096), (64, 8, 128, None), (16, 1, 256, 2048))
+SLOT_FAMILY_RING = (16, 1, 256, 2048)
+
+
+def _slot_family_kernels(gen) -> tuple[float, float]:
+    """B5's per-row form at mixtral's, chameleon's and recurrentgemma's
+    heads, the shapes ``[fserve]`` gives it (8 query rows on 9 rows of its
+    capacity, ``FSERVE_S`` + ``FSERVE_NEW``, positions over its decode
+    span, rows permuted with a padding row on the spare), and its
+    ring-a-row form at recurrentgemma's (9 rings of 2048 slots, positions
+    past the window so that every ring has wrapped; no run of this script
+    serves past that window), against their plain versions in bf16 at the
+    bf16 tolerance. -> the largest absolute errors (per row, ring a row)"""
+    import torch
+    from repro_torch.kernels import decode_attention as KD
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    B, N, cap = 8, 9, FSERVE_S + FSERVE_NEW
+    rows = torch.tensor([5, 0, 7, 2, 8, 3, 1, 6], dtype=torch.int32, device=dev)
+    err, notes = 0.0, []
+    for H, K, hd, window in SLOT_FAMILY_ROWS:
+        pos = torch.linspace(FSERVE_S, cap - 1, B, device=dev).round().to(torch.int32)
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf16)
+        k = torch.randn(N, cap, K, hd, generator=gen, device=dev).to(bf16)
+        v = torch.randn(N, cap, K, hd, generator=gen, device=dev).to(bf16)
+        reset_launches()
+        out = KD.decode_attention(q, k, v, pos, window=window, rows=rows)
+        ref = KD.decode_attention_plain(q, k[rows.long()], v[rows.long()], pos, window=window)
+        tag = f"rows H={H} K={K} hd={hd} window={window} capacity={cap}"
+        e = _err_ok("decode_attention_rows", tag, out, ref, per_row=ATTN_BF16_STEPS * BF16_STEP)
+        if KD.LAUNCH_FORMS != {"rows": 1}:
+            fail(f"decode_attention_rows {tag}: launches {KD.LAUNCH_FORMS}")
+        err = max(err, e[0])
+        notes.append(f"rows {H}/{K}/{hd}/{window}: {e[1] / BF16_STEP:.2f} bf16 steps")
+    H, K, hd, W = SLOT_FAMILY_RING
+    pos = torch.linspace(W + 64, W + 63 + FSERVE_NEW, B, device=dev).round().to(torch.int32)
+    slot_pos = torch.full((N, W), -1, dtype=torch.int32, device=dev)
+    for b in range(B):
+        slot_pos[b] = _ring_slots(W, int(pos[b]), gen)
+    p = torch.where(rows == N - 1, 0, pos[rows.long().clamp(max=B - 1)]).to(torch.int32)
+    slot_pos[N - 1, 0] = 0             # the padding row's write at pos 0
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf16)
+    k = torch.randn(N, W, K, hd, generator=gen, device=dev).to(bf16)
+    v = torch.randn(N, W, K, hd, generator=gen, device=dev).to(bf16)
+    reset_launches()
+    out = KD.decode_attention(q, k, v, p, window=W, slot_pos=slot_pos, rows=rows)
+    r = rows.long()
+    ref = KD.decode_attention_plain(q, k[r], v[r], p,
+                                    valid=KD.ring_valid(slot_pos[r], p[:, None], W))
+    tag = f"ring rows H={H} K={K} hd={hd} W={W}"
+    e = _err_ok("decode_attention_ring_rows", tag, out, ref,
+                per_row=ATTN_BF16_STEPS * BF16_STEP)
+    if KD.LAUNCH_FORMS != {"ring_rows": 1}:
+        fail(f"decode_attention_ring_rows {tag}: launches {KD.LAUNCH_FORMS}")
+    notes.append(f"ring rows {H}/{K}/{hd}/W {W}: {e[1] / BF16_STEP:.2f} bf16 steps")
+    log("[slotkern] the families' shapes (H/K/hd/window, bf16, rows permuted with a padding "
+        "row on the spare): " + "; ".join(notes))
+    return err, e[0]
 
 
 def _slot_ring_kernel(gen) -> dict:
@@ -4045,6 +4323,178 @@ FAMILIES = (
 )
 FAMILY_TEACHER_S = 128    # the teacher-forced consistency check's prompt
 ENCODER_B, ENCODER_S = 4, 512
+# [fserve]: 16 requests of random prompts of 128 tokens, 32 new tokens, two
+# arriving a tick, 8 slots, pass budget 16, f = 0.2, scale 3, greedy
+FSERVE_S, FSERVE_NEW, FSERVE_N = 128, 32, 16
+# xlstm's prefill is a loop over time (ROADMAP B'9): at prompts of 128 its
+# 32 prefills a run take most of a minute, so it serves prompts of 16
+FSERVE_S_XLSTM = 16
+FSERVE_WINDOW = (20, 25)      # the profiled ticks: 8 requests in flight, none admitted
+# the families the paged arena also serves: (step mode, pool dtype) runs
+FSERVE_PAGED = ("mixtral-8x7b", "chameleon-34b")
+FSERVE_PAGED_RUNS = (("ragged", "bf16"), ("ragged", "int8"), ("signature", "bf16"))
+
+
+def _serve_want(cfg, eng, step_mode: str) -> dict:
+    """Exact launches of one serve run of ``eng`` (of any decoder): B4 once
+    a GQA layer and prefill forward (two a slot admission, two a paged
+    prefill group: every prompt of one length here), B5 per row (slot) or
+    the pool's paged kernel once a GQA layer and decode forward, B6 per
+    forward once a norm of each block and the final norm (as
+    ``_expected_launches``), and B3 once a prefill's combine and once a
+    step that combines (a signature step's FULL group, every ragged
+    step)."""
+    m = eng.metrics
+    attn = ("attn", "swa")
+    gqa = 0 if cfg.mla is not None else sum(k in attn for k in cfg.blocks)
+    norms = 1 + sum(1 + (k in attn + ("rglru",) and cfg.d_ff > 0)
+                    + 2 * (k in attn and cfg.qk_norm and cfg.mla is None)
+                    + (k in attn and cfg.mla is not None) for k in cfg.blocks)
+    dec = _decode_forwards(m, step_mode)
+    admits = [k for k in m.trace.keys() if k[0] == "admit"]
+    groups = len(admits) if eng.kv == "slot" else len({k[1] for k in admits})
+    combines = m.step_launches if step_mode == "ragged" else \
+        sum(1 for r in m.records if r.n_full)
+    want = {k: 0 for k in launch_counts()}
+    want.update(flash_attention=2 * groups * gqa, rmsnorm=norms * (2 * groups + dec),
+                cfg_combine_rowscale=groups + combines)
+    if eng.kv == "slot":
+        want["decode_attention"] = gqa * dec
+    else:
+        want[_paged_kernel_of(step_mode, eng.kv_dtype)] = gqa * dec
+    return want
+
+
+def _serve_window(eng, reqs, arrivals, window) -> tuple:
+    """Drive ``reqs`` through ``eng`` at ``arrivals``, ticks ``window`` (lo,
+    hi) under ``torch.profiler``. -> (tokens by uid, the run's wall s, the
+    window's wall s, {kernel name: (ns, launches)} over the window)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    i, prof, win = 0, None, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while i < len(reqs) or eng.scheduler.n_active or len(eng.queue):
+        while i < len(reqs) and arrivals[i] <= eng.tick_count:
+            eng.submit(reqs[i])
+            i += 1
+        if eng.tick_count == window[0]:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+            w0 = time.perf_counter()
+        eng.tick()
+        if eng.tick_count == window[1]:
+            torch.cuda.synchronize()
+            win = time.perf_counter() - w0
+            prof.__exit__(None, None, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.profiler.kineto_results.events() if prof is not None else ():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t_, k = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t_ + e.end_ns() - e.start_ns(), k + 1)
+    return {r.uid: eng.results[r.uid] for r in reqs}, wall, win, by_name
+
+
+def _family_serve(model, arch: str, totals: dict, smi: str) -> float:
+    """``[fserve]``: the serve engine on a family's loaded model: the slot
+    arena (8 slots, prompts of ``FSERVE_S`` (xlstm ``FSERVE_S_XLSTM``),
+    ``FSERVE_NEW`` new tokens, 16 seeded requests two a tick, f = 0.2,
+    scale 3, greedy), and for ``FSERVE_PAGED`` the paged arena's ragged
+    step over bf16 and int8 pages and its signature step; each graphed and
+    (but the paged signature step) eager: tokens and events equal, one
+    capture per signature bucket (the
+    ragged step one), launches exact per kernel (``_serve_want``; B5 all
+    per row), the wall and ticks of each run, and the busy share (kernel
+    time over wall) of ticks ``FSERVE_WINDOW``, eight requests in flight
+    and none admitted, under ``torch.profiler``, with the graphed run's
+    kernel census there (the gathers and scatters of the pool rows:
+    ``index`` kernels). -> the seconds it took"""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.serve import ContinuousEngine
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    S = FSERVE_S_XLSTM if arch == "xlstm-350m" else FSERVE_S
+    arrivals = [i // 2 for i in range(FSERVE_N)]
+    runs = [("slot", "signature", "bf16")]
+    if arch in FSERVE_PAGED:
+        runs += [("paged", mode, dt) for mode, dt in FSERVE_PAGED_RUNS]
+    for kv, step_mode, kv_dtype in runs:
+        kw = dict(num_slots=8, pass_budget=16, prompt_len=S, max_new=FSERVE_NEW,
+                  stop_on_eos=False, prefills_per_tick=2, seed=0, selective_fraction=0.2,
+                  kv=kv, step_mode=step_mode)
+        if kv == "paged":
+            kw.update(page_size=16, kv_dtype=kv_dtype)
+        what = f"{kv} {step_mode}" + (f" {kv_dtype}" if kv == "paged" else "")
+        done = {}
+        # the paged signature step graphed alone: graphed = eager is held on
+        # the ragged step and in the slot arena (the script's time limit)
+        for graphs in (None,) if (kv, step_mode) == ("paged", "signature") else (None, False):
+            eng = ContinuousEngine(model, cfg, graphs=graphs, **kw)
+            reqs = [dataclasses.replace(r, prompt_len=None if kv == "slot" else S)
+                    for r in _serve_requests(cfg, FSERVE_N, (S,), FSERVE_NEW, 5)]
+            reset_launches()
+            out, wall, win, by_name = _serve_window(eng, reqs, arrivals, FSERVE_WINDOW)
+            counts, forms, m = launch_counts(), dict(KD.LAUNCH_FORMS), eng.metrics
+            want = _serve_want(cfg, eng, step_mode)
+            captures = len(eng._sig_graphs) + (eng._ragged_graph is not None)
+            shapes = sorted(k for k in eng._shapes if k[0] in ("step", "pstep", "rstep"))
+            tag = f"fserve {arch} {what} {'graphed' if eng.graphs else 'eager'}"
+            if len(out) != FSERVE_N or any(len(v) != FSERVE_NEW for v in out.values()) or \
+                    not all(0 <= t < cfg.vocab_size for v in out.values() for t in v):
+                fail(f"{tag}: {len(out)} results, lengths {sorted({len(v) for v in out.values()})}")
+            if counts != want or forms != ({"rows": want["decode_attention"]}
+                                           if want["decode_attention"] else {}):
+                fail(f"{tag}: launches {counts}, want {want}; B5 forms {forms}")
+            if captures != (len(shapes) if eng.graphs else 0) or \
+                    m.step_compiles != len(shapes):
+                fail(f"{tag}: {captures} captures, {m.step_compiles} compiles, buckets {shapes}")
+            if eng.pages is not None and eng.pages.n_free != eng.pages.num_pages:
+                fail(f"{tag}: pool not balanced at drain")
+            in_flight = {r.active for r in m.records[FSERVE_WINDOW[0]:FSERVE_WINDOW[1]]}
+            if in_flight != {8}:
+                fail(f"{tag}: the profiled ticks hold {in_flight} requests, want 8")
+            kern_s = sum(t_ for t_, _ in by_name.values()) / 1e9
+            census = ""
+            if eng.graphs:
+                _add(totals, _rows_form(counts) if kv == "slot" and counts["decode_attention"]
+                     else counts)
+                if kern_s:
+                    idx = sum(t_ for n, (t_, _) in by_name.items() if "ndex" in n) / 1e9
+                    top = sorted(by_name.items(), key=lambda kv_: -kv_[1][0])[:5]
+                    census = (f"; the profiled ticks' kernel census: index gathers and scatters "
+                              f"{idx / kern_s:.4f} of kernel time; top " + "; ".join(
+                                  f"{t_ / 1e9 / kern_s:.3f} {k}x {n[:50]}"
+                                  for n, (t_, k) in top))
+            busy = f"{kern_s / win:.4f}" if kern_s else "not measured (no device time)"
+            n_win = FSERVE_WINDOW[1] - FSERVE_WINDOW[0]
+            done[eng.graphs] = (out, m)
+            log(f"[fserve] {arch} ({smi}) {what} {'graphed' if eng.graphs else 'eager'}: "
+                f"wall {wall:.4f} s, ticks {m.ticks}, "
+                f"{sum(len(v) for v in out.values()) / wall:.1f} tokens/s; ticks "
+                f"{FSERVE_WINDOW[0]}-{FSERVE_WINDOW[1] - 1} (8 in flight) "
+                f"{win * 1e3 / n_win:.3f} ms a tick, {kern_s * 1e3 / n_win:.3f} ms of kernels, "
+                f"busy share {busy}; denoiser passes {m.denoiser_passes}, buckets {shapes}, "
+                f"launches exact "
+                f"{ {k: v for k, v in counts.items() if v} }"
+                + (f"; {_graph_summary(eng)}" if eng.graphs else "") + census)
+            del eng
+        if False not in done:
+            continue
+        (go, gm), (eo, em) = done[True], done[False]
+        if go != eo or gm.trace.keys() != em.trace.keys():
+            fail(f"fserve {arch} {what}: graphed and eager differ (tokens equal {go == eo})")
+        log(f"[fserve] {arch} {what}: graphed and eager tokens and events equal; first tokens "
+            f"{go['q0'][:6]}")
+    dt = time.perf_counter() - t0
+    log(f"[fserve] {arch}: {dt:.1f} s")
+    return dt
 
 
 def _family_consistency(model, tag: str) -> str:
@@ -4253,9 +4703,15 @@ def _family_decoder(arch: str, layers, fracs, eager_fracs, totals: dict, smi: st
         f"{ce / fe:.3f}; both prefills {prefill_s:.4f} s; a graphed f=0.2 generate: kernel "
         f"time {kernel_s:.4f} s of a {rows[0.2]['graphed']:.4f} s wall, busy share "
         f"{kernel_s / rows[0.2]['graphed']:.4f}; "
-        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {time.perf_counter() - t0:.1f} "
-        f"s for the family ({', '.join(f'{k} {v:.1f} s' for k, v in laps.items())})")
-    del model, loop
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del loop
+    model._decode_loops.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps["[fserve]"] = _family_serve(model, arch, totals, smi)
+    log(f"[families] {arch}: {time.perf_counter() - t0:.1f} s for the family "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in laps.items())})")
+    del model
     gc.collect()                  # the model and its decode loops hold each other
     torch.cuda.empty_cache()
 

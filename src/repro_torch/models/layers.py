@@ -42,6 +42,27 @@ def layernorm(scale, bias, x, eps: float = 1e-5):
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+def state_rows(state: dict, rows) -> dict:
+    """A recurrent decode state's rows: the pool's rows ``rows`` (B,) int64
+    gathered (a slot arena's step), or with ``rows`` None the state
+    itself."""
+    if rows is None:
+        return state
+    return {name: t.index_select(0, rows) for name, t in state.items()}
+
+
+def put_state(state: dict, new: dict, rows) -> None:
+    """Write a decode step's new state into ``state`` in place: whole, or
+    at the pool's rows ``rows`` (``state_rows``), so that a captured step
+    keeps its addresses. Padding rows all name one spare row, whose value
+    nothing live reads."""
+    for name, t in new.items():
+        if rows is None:
+            state[name].copy_(t)
+        else:
+            state[name].index_copy_(0, rows, t.to(state[name].dtype))
+
+
 def init_embedding(mk, vocab: int, dim: int):
     return {"table": mk((vocab, dim), scale=1.0 / math.sqrt(dim))}
 

@@ -115,19 +115,30 @@ def mla_decode(p, cfg, x, cache, pos, rope):
     """Absorbed decode of one token at ``pos`` (``attention.decode_pos``)
     against the latent cache {c (B,S,r), k_rope (B,S,dr)}: the new latent
     and key are written in place at the device position, then attention
-    runs over positions ``<= pos`` (a mask built on the device). x (B,1,D)
-    -> (out (B,1,D), cache)."""
+    runs over positions ``<= pos`` (a mask built on the device). In the
+    per-row form (``decode_pos`` with rows: a slot arena) the cache is a
+    pool {c (N,S,r), k_rope (N,S,dr)}, and batch row b writes position
+    pos[b] of pool row rows[b] and attends over that row to pos[b]. x
+    (B,1,D) -> (out (B,1,D), cache)."""
     dp = A.decode_pos(pos, x.device)
     dt = x.dtype
     q_n, q_r = _queries(p, cfg, x, rope)
     c_new, kr_new = _compress(p, cfg, x, rope)
     c, k_r = cache["c"], cache["k_rope"]
-    c.index_copy_(1, dp.index, c_new.to(c.dtype))
-    k_r.index_copy_(1, dp.index, kr_new.to(k_r.dtype))
+    S = c.shape[1]
+    if dp.rows is None:
+        c.index_copy_(1, dp.index, c_new.to(c.dtype))
+        k_r.index_copy_(1, dp.index, kr_new.to(k_r.dtype))
+        valid = torch.arange(S, device=c.device) <= dp.pos
+    else:
+        at = (dp.row_index, dp.index)
+        c.index_put_(at, c_new[:, 0].to(c.dtype))
+        k_r.index_put_(at, kr_new[:, 0].to(k_r.dtype))
+        c, k_r = c.index_select(0, dp.row_index), k_r.index_select(0, dp.row_index)
+        valid = (torch.arange(S, device=c.device) <= dp.pos[:, None])[:, None, None, :]
     q_abs = torch.einsum("bqhk,rhk->bqhr", q_n, p.w_uk.to(dt))
     scores = (torch.einsum("bqhr,bsr->bhqs", q_abs, c)
               + torch.einsum("bqhk,bsk->bhqs", q_r, k_r)).float() * _scale(cfg)
-    valid = torch.arange(c.shape[1], device=c.device) <= dp.pos
     scores = torch.where(valid, scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(dt)
     ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, c)

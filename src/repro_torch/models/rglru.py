@@ -13,7 +13,8 @@ Hillis-Steele doubling scan in float32 (log2 S passes of
 ``b[t] += a[t] b[t-d]; a[t] *= a[t-d]``), the counterpart of the
 reference's ``associative_scan``; it multiplies decays and never takes
 ``exp`` of a summed log, which underflows on long prompts. Decode updates
-the state {conv (B,3,W), h (B,W) float32} in place.
+the state {conv (B,3,W), h (B,W) float32} in place, or a slot arena's rows
+of it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.models import layers as L
 
 C_SCALE = 8.0
 CONV_W = 4
@@ -89,18 +91,20 @@ def rglru_forward(p, cfg, x):
     return out, {"conv": u0[:, -(CONV_W - 1):, :].clone(), "h": h[:, -1, :].clone()}
 
 
-def rglru_decode(p, cfg, x, state):
-    """x (B,1,D) and state {conv, h}, updated in place -> (out (B,1,D), state)."""
+def rglru_decode(p, cfg, x, state, rows=None):
+    """x (B,1,D) and state {conv, h}, updated in place -> (out (B,1,D),
+    state). With ``rows`` (B,) int64, ``state`` is a slot arena's pool and
+    batch row b steps pool row rows[b] (``layers.state_rows``)."""
     dt = x.dtype
+    cur = L.state_rows(state, rows)
     u0 = x[:, 0] @ p.w_in.to(dt)                                    # (B,W)
-    hist = torch.cat([state["conv"], u0[:, None, :].to(state["conv"].dtype)], dim=1)
+    hist = torch.cat([cur["conv"], u0[:, None, :].to(cur["conv"].dtype)], dim=1)
     u = torch.einsum("btw,tw->bw", hist.to(dt), p.conv_w.to(dt)) + p.conv_b.to(dt)
     a, b = _gates(p, u)
-    h = a * state["h"] + b
+    h = a * cur["h"] + b
     gate = F.gelu((x[:, 0] @ p.w_gate_br.to(dt)).float(), approximate="tanh")
     out = (h * gate).to(dt) @ p.w_out.to(dt)
-    state["conv"].copy_(hist[:, 1:])
-    state["h"].copy_(h)
+    L.put_state(state, {"conv": hist[:, 1:], "h": h}, rows)
     return out[:, None, :], state
 
 

@@ -202,7 +202,8 @@ def block_forward(p, cfg, kind: str, x, rope, *, moe: bool = False, window=None)
 
 def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, window=None):
     """One-token step; updates ``cache`` (a KV cache, latents or a recurrent
-    state) in place. -> (y, cache)."""
+    state) in place; with a per-row ``pos`` (``attention.decode_pos`` with
+    rows), the rows of a slot arena's pool. -> (y, cache)."""
     h = _norm(cfg, p.norm1, x)
     if kind in ATTN:
         if cfg.mla is not None:
@@ -211,12 +212,10 @@ def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, w
             mix, cache = A.attn_decode_ring(p.attn, cfg, h, cache, pos, rope, window=window)
         else:
             mix, cache = A.attn_decode(p.attn, cfg, h, cache, pos, rope, window=window)
-    elif kind == "rglru":
-        mix, cache = RG.rglru_decode(p.mix, cfg, h, cache)
-    elif kind == "mlstm":
-        mix, cache = XL.mlstm_decode(p.mix, cfg, h, cache)
-    elif kind == "slstm":
-        mix, cache = XL.slstm_decode(p.mix, cfg, h, cache)
+    elif kind in ("rglru", "mlstm", "slstm"):
+        decode = {"rglru": RG.rglru_decode, "mlstm": XL.mlstm_decode,
+                  "slstm": XL.slstm_decode}[kind]
+        mix, cache = decode(p.mix, cfg, h, cache, rows=A.decode_pos(pos, x.device).row_index)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     x, _ = _ffn(p, cfg, x + mix, moe)
@@ -368,10 +367,12 @@ class Transformer(nn.Module):
         """One token at ``pos`` for the whole stack; the caches are updated in
         place. ``pos`` a 0-d or one-element int32 tensor on the device (the
         step then reads no value on the host and can be captured in a CUDA
-        graph) or a Python int; with ``rows`` (GQA attention stacks: a slot
-        arena), the (B,) cache row of each batch row, read and written in
-        place, and a (B,) int32 tensor of per-row positions (RoPE, the cache
-        write and the attention mask per row). -> (hidden (B,1,D), caches)."""
+        graph) or a Python int; with ``rows`` (a slot arena: ``caches`` are
+        pools of ``cache_specs`` rows, rings a row for windowed layers), the
+        (B,) pool row of each batch row, read and written in place (KV rows
+        and latents at the row's position, recurrent states whole), and a
+        (B,) int32 tensor of per-row positions (RoPE, the cache write and
+        the attention mask per row). -> (hidden (B,1,D), caches)."""
         cfg = self.cfg
         x = token_embeds
         pos = A.decode_pos(pos, x.device, rows)

@@ -26,7 +26,8 @@ through an eager stand-in for the capture). Under autograd a sequence longer tha
 boundaries only and recomputes within a chunk (the reference's chunked
 BPTT). sLSTM's input projections run once for the whole sequence before
 the loop, and its four recurrent products as one. Decode updates the state
-dicts in place: mLSTM {C (B,H,dh,dh), n (B,H,dh), m (B,H)}, sLSTM {c, n,
+dicts in place (or, with ``rows``, a slot arena's rows of its pools):
+mLSTM {C (B,H,dh,dh), n (B,H,dh), m (B,H)}, sLSTM {c, n,
 m, h (B,D)}, all float32.
 """
 
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.models import layers as L
 
 PROJ_FACTOR = 2    # d_inner = 2 * d_model (the paper's mLSTM proj factor)
 BPTT_CHUNK = 64    # ~sqrt(4096): state saves at chunk edges against saves within a chunk
@@ -196,14 +198,14 @@ def mlstm_forward(p, cfg, x, *, bptt_chunk: int = BPTT_CHUNK):
     return _mlstm_out(p, x, hs.reshape(B, S, -1)), {"C": C, "n": n, "m": m}
 
 
-def mlstm_decode(p, cfg, x, state):
-    """x (B,1,D), state {C, n, m} updated in place -> (out (B,1,D), state)."""
+def mlstm_decode(p, cfg, x, state, rows=None):
+    """x (B,1,D), state {C, n, m} updated in place (with ``rows``, a slot
+    arena's pool rows: ``rglru.rglru_decode``) -> (out (B,1,D), state)."""
+    cur = L.state_rows(state, rows)
     u = x[:, 0] @ p.w_up.to(x.dtype)
-    (C, n, m), h = mlstm_step((state["C"], state["n"], state["m"]), _mlstm_qkvif(p, cfg, u))
+    (C, n, m), h = mlstm_step((cur["C"], cur["n"], cur["m"]), _mlstm_qkvif(p, cfg, u))
     out = _mlstm_out(p, x[:, 0], h.reshape(x.shape[0], -1))
-    state["C"].copy_(C)
-    state["n"].copy_(n)
-    state["m"].copy_(m)
+    L.put_state(state, {"C": C, "n": n, "m": m}, rows)
     return out[:, None, :], state
 
 
@@ -287,14 +289,15 @@ def slstm_forward(p, cfg, x, *, bptt_chunk: int = BPTT_CHUNK):
     return _slstm_out(p, hs), {"c": c, "n": n, "m": m, "h": h}
 
 
-def slstm_decode(p, cfg, x, state):
-    """x (B,1,D), state {c, n, m, h} updated in place -> (out (B,1,D), state)."""
+def slstm_decode(p, cfg, x, state, rows=None):
+    """x (B,1,D), state {c, n, m, h} updated in place (with ``rows``, a
+    slot arena's pool rows) -> (out (B,1,D), state)."""
     names = ("c", "n", "m", "h")
-    new, h = slstm_step(p, cfg, _slstm_recurrent(p, cfg), tuple(state[k] for k in names),
+    cur = L.state_rows(state, rows)
+    new, h = slstm_step(p, cfg, _slstm_recurrent(p, cfg), tuple(cur[k] for k in names),
                         _slstm_inputs(p, x[:, 0]))
     out = _slstm_out(p, h.to(x.dtype))
-    for k, t in zip(names, new):
-        state[k].copy_(t)
+    L.put_state(state, dict(zip(names, new)), rows)
     return out[:, None, :], state
 
 

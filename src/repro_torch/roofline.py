@@ -50,13 +50,81 @@ class StepCost:
         return max(self.compute_s, self.memory_s)
 
 
+def _ffn_params(cfg, i: int, kind: str) -> int:
+    """Multiply-adds a row of layer i's FFN takes: SwiGLU; or a MoE layer as
+    ``moe_forward`` runs it, the router and every expert's SwiGLU over its
+    C = top_k buffer slots a row (a decode row is one routing group of one
+    token), and the shared expert."""
+    if kind not in ("attn", "swa", "rglru") or cfg.d_ff <= 0:
+        return 0
+    d, m = cfg.d_model, cfg.moe
+    if m is None or i < m.first_k_dense:
+        return 3 * d * cfg.d_ff
+    n = d * m.num_experts + m.top_k * m.num_experts * 3 * d * m.expert_d_ff
+    if m.num_shared_experts:
+        n += 3 * d * (m.shared_d_ff or m.expert_d_ff)
+    return n
+
+
+def _mix_params(cfg, kind: str) -> int:
+    """Multiply-adds a row of a block's mixer takes through its weights."""
+    d, H = cfg.d_model, cfg.num_heads
+    if kind in ("attn", "swa") and cfg.mla is not None:
+        a = cfg.mla
+        dn, dr, dv, r = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim, a.kv_lora_rank
+        # wq, w_dkv, the absorbed q_nope . W_uk and ctx . W_uv, wo
+        return d * H * (dn + dr) + d * (r + dr) + r * H * dn + r * H * dv + H * dv * d
+    if kind in ("attn", "swa"):
+        hd = cfg.resolved_head_dim
+        return d * H * hd * 2 + d * cfg.num_kv_heads * hd * 2
+    if kind == "rglru":
+        return 5 * d * d                   # w_in, w_gate_br, w_a, w_x, w_out
+    if kind == "mlstm":
+        di = 2 * d                         # xlstm.PROJ_FACTOR
+        return 2 * d * di + 3 * di * di + 2 * di * H + di * d
+    if kind == "slstm":
+        return 4 * d * d + 4 * d * (d // H) + 2 * d * 2 * d
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
 def matmul_params(cfg) -> int:
-    """Weights one token's decode forward multiplies by: each layer's q, k,
-    v and o projections and SwiGLU, and the unembedding."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    attn = d * cfg.num_heads * hd * 2 + d * cfg.num_kv_heads * hd * 2
-    mlp = 3 * d * cfg.d_ff if cfg.d_ff > 0 else 0
-    return cfg.num_layers * (attn + mlp) + d * cfg.vocab_size
+    """Multiply-adds one token's decode forward takes through weights: each
+    layer's mixer (q, k, v and o projections; MLA's projections in the
+    absorbed form; a recurrent block's), its FFN (``_ffn_params``), and the
+    unembedding. For a dense GQA stack, the weights it multiplies by."""
+    n = sum(_mix_params(cfg, kind) + _ffn_params(cfg, i, kind)
+            for i, kind in enumerate(cfg.blocks))
+    return n + cfg.d_model * cfg.vocab_size
+
+
+def _row_cost(cfg, kind: str, kv_tokens: int, kv_dtype: str) -> tuple[int, int]:
+    """(FLOPs, bytes) a row of one layer spends on its cache beyond the
+    weights: for GQA, 4 per head, head dim and key, the keys capped at a
+    window, and each key's K and V values (int8: and their float32 scales
+    per kv head); for MLA, 2 per head and latent value for the scores over
+    the r + dr values of a key and 2 per head and r for the context, each
+    key's bf16 latent; for a recurrent layer no keys, its state read and
+    written once and 6 FLOPs per state element (mLSTM's decay, outer
+    product, sum and C q; the elementwise gates of the rest)."""
+    d, H = cfg.d_model, cfg.num_heads
+    if kind in ("attn", "swa") and cfg.mla is not None:
+        r, dr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+        return (2 * H * (r + dr) + 2 * H * r) * kv_tokens, (r + dr) * 2 * kv_tokens
+    if kind in ("attn", "swa"):
+        K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        keys = kv_tokens if kind == "attn" or cfg.sliding_window is None \
+            else min(kv_tokens, cfg.sliding_window)
+        per_key = 2 * K * hd * _KV_BYTES[kv_dtype] + (2 * K * 4 if kv_dtype == "int8" else 0)
+        return 4 * H * hd * keys, per_key * keys
+    if kind == "rglru":
+        elems, nbytes = 4 * d, 3 * d * 2 + 4 * d              # conv (3, W) bf16, h float32
+    elif kind == "mlstm":
+        dh = 2 * d // H
+        elems = H * dh * dh + H * dh + H                      # C, n, m float32
+        nbytes = 4 * elems
+    else:
+        elems, nbytes = 4 * d, 4 * 4 * d                      # c, n, m, h float32
+    return 6 * elems, 2 * nbytes
 
 
 def decode_step(cfg, *, forwards: tuple[int, ...], kv_tokens: int, weight_bytes: int,
@@ -64,24 +132,21 @@ def decode_step(cfg, *, forwards: tuple[int, ...], kv_tokens: int, weight_bytes:
     """One decode step of the serve engine: ``forwards`` lists the rows of
     each decode forward it runs (the ragged step one forward of R rows; a
     signature step one a FULL group's stream and one for its COND group),
-    every row attending ``kv_tokens`` keys (its block table's capacity),
-    and ``out_rows`` rows go through the combine.
+    every row attending ``kv_tokens`` keys (its block table's capacity, or
+    its slot row's), and ``out_rows`` rows go through the combine.
 
-    FLOPs: 2 per weight and row, 4 per head, head dim, key and row for the
-    attention, 5 per logit of a combined row. Bytes: ``weight_bytes`` (the
-    weights the forward reads, the embedding table once) per forward; per
-    row, layer and key the K and V values at the pool's dtype and, for
-    int8, their float32 scales per kv head; each forward's float32 logits
-    written, and the combine's output."""
+    FLOPs: 2 per multiply-add of ``matmul_params`` and row, each layer's
+    cache work per row (``_row_cost``), 5 per logit of a combined row.
+    Bytes: ``weight_bytes`` (the weights the forward reads, the embedding
+    table once, every expert) per forward; each row's cache bytes per layer
+    (``_row_cost``); each forward's float32 logits written, and the
+    combine's output."""
     if kv_dtype not in _KV_BYTES:
         raise ValueError(f"kv_dtype {kv_dtype!r} not in {tuple(_KV_BYTES)}")
     rows = sum(forwards)
-    K, hd, L, V = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.num_layers, cfg.vocab_size
-    flops = 2 * matmul_params(cfg) * rows
-    flops += 4 * cfg.num_heads * hd * kv_tokens * rows * L
-    flops += 5 * V * out_rows
-    kv_per_key = 2 * K * hd * _KV_BYTES[kv_dtype] + (2 * K * 4 if kv_dtype == "int8" else 0)
-    nbytes = weight_bytes * len(forwards)
-    nbytes += kv_per_key * kv_tokens * rows * L
+    V = cfg.vocab_size
+    cache = [_row_cost(cfg, kind, kv_tokens, kv_dtype) for kind in cfg.blocks]
+    flops = (2 * matmul_params(cfg) + sum(f for f, _ in cache)) * rows + 5 * V * out_rows
+    nbytes = weight_bytes * len(forwards) + sum(b for _, b in cache) * rows
     nbytes += 4 * V * (rows + out_rows)
     return StepCost(float(flops), float(nbytes))

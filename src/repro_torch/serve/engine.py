@@ -14,10 +14,12 @@ Two KV arenas (``kv``):
   ``num_slots`` rows a layer: linear caches of ``prompt_len + max_new``
   positions, or, for a layer whose sliding window W is shorter, rings of W
   slots with their slot positions (a ring a row, as the reference's
-  per-row decode caches); every request uses the engine-wide
-  ``prompt_len``. Each admission prefills its row; the step reads and
-  writes the rows of its groups in place through their slot indices, each
-  row at its own position (B5's per-row form, or its ring-a-row form).
+  per-row decode caches); MLA latents of that capacity; recurrent states,
+  a row each. Every request uses the engine-wide ``prompt_len``. Each
+  admission prefills its row; the step reads and writes the rows of its
+  groups in place through their slot indices, each row at its own position
+  (B5's per-row form, or its ring-a-row form; latents by index; states
+  gathered, stepped and scattered back).
   Holes left by departures are compacted (``_maybe_defrag``) past
   ``defrag_threshold``.
 * ``"paged"`` shares one page pool between both streams of every request
@@ -101,11 +103,15 @@ counted, not read off a compiled executable, and the autotuner's budget
 rounding is fixed (ROADMAP C).
 
 A mesh or sharding rules (``mesh``, ``rules``) raise ``NotImplementedError``
-(ROADMAP A8). The engine serves GQA attention stacks (``attn``/``swa``
-blocks, dense FFNs): a MoE, MLA, recurrent or encoder stack raises at
-construction, the paged arena's ``ValueError`` first where the reference
-raises it (MLA latents and recurrent states have no pages), else
-``NotImplementedError`` (ROADMAP A7.1).
+(ROADMAP A8). The engine serves every decoder stack of ``Transformer``:
+GQA (with qk-norm, windows, MoE FFNs), MLA and recurrent (RG-LRU, mLSTM,
+sLSTM) stacks in the slot arena, a row of each pool leaf a slot; GQA stacks
+also on pages. The paged arena raises the reference's ``ValueError`` for
+MLA latents and recurrent states, which have no pages. An encoder has no
+decode step: it raises ``ValueError`` at construction, where the reference
+builds the engine and fails at its first tick (ROADMAP C). MoE layers route
+each decode row as its own group (the reference's vmap of batch-of-one
+rows) and each prefill row over the padded shape the reference runs.
 """
 
 from __future__ import annotations
@@ -374,11 +380,10 @@ class ContinuousEngine:
             raise NotImplementedError("a mesh or sharding rules are not ported yet (ROADMAP A8)")
         if kv == "paged":
             T.check_pageable(cfg)       # the reference's ValueError first
-        if cfg.moe is not None or cfg.mla is not None or cfg.is_encoder \
-                or not set(cfg.blocks) <= set(T.ATTN):
-            raise NotImplementedError(f"{cfg.name}: the engine serves GQA attention stacks; "
-                                      "MoE, MLA, recurrent and encoder stacks are not ported "
-                                      "to it yet (ROADMAP A7.1)")
+        if cfg.is_encoder:
+            # the reference builds this engine and fails at its first tick
+            # (ROADMAP C): the port refuses it here
+            raise ValueError(f"{cfg.name}: an encoder has no decode step to serve")
         if guidance_policy == "interval" and combine == "cfg":
             # the interval policy's semantics live in the combine stage
             combine = "interval"
@@ -700,7 +705,8 @@ class ContinuousEngine:
 
     def kv_hbm_bytes(self) -> dict:
         """Reserved vs peak-in-use KV arena bytes, from the page price or the
-        row's shape alone (asking never allocates the pool)."""
+        sum of one slot row's leaves (``_pool_specs`` on the meta device:
+        asking never allocates the pool)."""
         if self.kv == "paged":
             return {"kv": "paged", "kv_dtype": self.kv_dtype,
                     "reserved_bytes": self.num_pages * self.page_bytes,
@@ -708,14 +714,8 @@ class ContinuousEngine:
                     "peak_in_use_bytes": self.metrics.peak_bytes_in_use,
                     "num_pages": self.num_pages,
                     "page_size": self.page_size}
-        # one stream's row a layer: bf16 {k, v} (capacity, K, hd), or a
-        # ring's (W, K, hd) and its int32 slot positions (W,)
-        cfg = self.cfg
-        row_bytes = 0
-        for W in self._rings():
-            slots = self.capacity if W is None else W
-            row_bytes += 2 * slots * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-            row_bytes += 0 if W is None else 4 * W
+        row_bytes = sum(t.numel() * t.element_size()
+                        for layer in self._pool_specs(1, "meta") for t in layer.values())
         peak_active = max((r.active for r in self.metrics.records), default=0)
         return {"kv": "slot", "reserved_bytes": 2 * self.num_slots * row_bytes,
                 "row_bytes": 2 * row_bytes,
@@ -920,26 +920,36 @@ class ContinuousEngine:
         windows = (self.model._window(kind, False) for kind in self.cfg.blocks)
         return [w if w is not None and w < self.capacity else None for w in windows]
 
+    def _pool_specs(self, rows: int, device) -> list:
+        """One stream's zero pool of ``rows`` rows a layer, the leaves of
+        ``prepare_decode_caches`` a row (``transformer.cache_specs``): GQA
+        {k, v} (rows, capacity, K, hd) bf16, or for a windowed layer rings
+        {k, v (rows, W, K, hd), slot_pos (rows, W)}; MLA latents {c, k_rope}
+        (rows, capacity, *); recurrent states (rows, ...)."""
+        specs = T.cache_specs(self.cfg, rows, self.capacity, device=device)
+        for i, (kind, W) in enumerate(zip(self.cfg.blocks, self._rings())):
+            if kind in T.ATTN and self.cfg.mla is None:
+                specs[i] = A.cache_spec(self.cfg, rows, self.capacity, device=device) \
+                    if W is None else A.ring_pool_spec(self.cfg, rows, W, device=device)
+        return specs
+
     def _init_pools(self) -> None:
-        """The slot arena's cond and uncond pools, per layer {k, v}
-        (num_slots + 1, capacity, K, hd) bf16, or for a windowed layer rings
-        {k, v (num_slots + 1, W, K, hd), slot_pos (num_slots + 1, W)}. Row
-        ``num_slots`` is a spare that a group's padding rows read and write
-        (the reference's out-of-range slot index: reads clamp, writes
-        drop)."""
-        def layer(W):
-            if W is None:
-                return A.cache_spec(self.cfg, self.num_slots + 1, self.capacity,
-                                    device=self.device)
-            return A.ring_pool_spec(self.cfg, self.num_slots + 1, W, device=self.device)
-        self._pool_c, self._pool_u = ([layer(W) for W in self._rings()] for _ in range(2))
+        """The slot arena's cond and uncond pools (``_pool_specs``) of
+        ``num_slots + 1`` rows. Row ``num_slots`` is a spare that a group's
+        padding rows read and write (the reference's out-of-range slot
+        index: reads clamp, writes drop); no live row reads it."""
+        self._pool_c, self._pool_u = (self._pool_specs(self.num_slots + 1, self.device)
+                                      for _ in range(2))
 
     def _prefill_slot(self, req: ServeRequest, slot: int, key: int) -> int:
         """Both streams' prefill of one request into row ``slot`` of the two
-        pools: a linear row's first ``prompt_len`` positions (what it holds
-        past them is never read: a step writes each position before it
-        attends to it), a ring row's last W positions and their slot
-        positions (``cache_from_prefill``); -> token 0."""
+        pools, every leaf: a linear row's or MLA latents' first
+        ``prompt_len`` positions (what a row holds past them is never read:
+        a step writes each position before it attends to it), a ring row's
+        last W positions and their slot positions (``cache_from_prefill``),
+        a recurrent state whole; -> token 0. MoE layers route the prompt as
+        one group of ``prompt_len`` tokens, as the reference's prefill of
+        (1, prompt_len)."""
         S = self.prompt_len
         self._seen(("prefill", _bucket(S), 1), step=False)
         tok = self._dev(self._tokenize(req.prompt, S)[None], torch.long)
@@ -947,22 +957,20 @@ class ContinuousEngine:
         l_u, caches_u = AR.prefill(self.model, AR.null_prompt(tok))
         for pool, caches in ((self._pool_c, caches_c), (self._pool_u, caches_u)):
             for layer, c in zip(pool, caches):
-                n = S
                 if "slot_pos" in layer:
-                    n = layer["k"].shape[1]
-                    c = A.cache_from_prefill(c, window=n, seq_len=S)
-                    layer["slot_pos"][slot] = c["slot_pos"]
-                for name in ("k", "v"):
-                    layer[name][slot, :n] = c[name][0]
+                    c = A.cache_from_prefill(c, window=layer["k"].shape[1], seq_len=S)
+                    layer["slot_pos"][slot] = c.pop("slot_pos")
+                for name, t in c.items():
+                    layer[name][slot][tuple(slice(0, n) for n in t.shape[1:])] = t[0]
         scale = self._dev(np.asarray([self._eff_scale(req.uid, 0)], np.float32))
         logits = self._combine(l_u, l_c, scale)
         return int(self._sample(logits, [req.uid], [req.temperature], [key], [0])[0])
 
     def _maybe_defrag(self) -> None:
         """Compact the slot pools once holes pass ``defrag_threshold``: the
-        rows (rings with their slot positions) permuted in place, so the
-        captured steps' addresses hold; the host arrays and the scheduler
-        re-slotted."""
+        rows of every leaf (rings with their slot positions, latents,
+        float32 recurrent states) permuted in place, so the captured steps'
+        addresses hold; the host arrays and the scheduler re-slotted."""
         if self.pool.fragmentation() <= self.defrag_threshold:
             return
         src = self.pool.defrag_plan()

@@ -338,15 +338,21 @@ def test_no_kernel_launches_on_the_cpu(llama):
 
 
 def test_unported_families_raise():
-    """The decoder takes every family now; the serve engine does not yet
-    (ROADMAP A7.1): it raises at construction for a MoE, recurrent or
-    encoder stack."""
+    """The serve engine takes every decoder stack the decoder takes: a MoE
+    and an RG-LRU variant of the reduced llama3.2-1b construct and serve a
+    request in the slot arena; an encoder, which has no decode step,
+    raises ``ValueError`` at construction."""
     from repro_torch.configs.base import MoEConfig
-    from repro_torch.serve import ContinuousEngine
+    from repro_torch.serve import ContinuousEngine, ServeRequest
     cfg = get_smoke_config("llama3.2-1b")
-    for bad in (dict(moe=MoEConfig(num_experts=4, top_k=2, expert_d_ff=64)),
-                dict(block_pattern=("rglru",)), dict(is_encoder=True)):
-        bcfg = dataclasses.replace(cfg, **bad)
-        model = TT.Transformer.init(bcfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="A7.1"):
-            ContinuousEngine(model, bcfg)
+    for variant in (dict(moe=MoEConfig(num_experts=4, top_k=2, expert_d_ff=64)),
+                    dict(block_pattern=("rglru",))):
+        vcfg = dataclasses.replace(cfg, **variant)
+        model = TT.Transformer.init(vcfg, torch.Generator().manual_seed(0), device="cpu")
+        eng = ContinuousEngine(model, vcfg, num_slots=2, prompt_len=8, max_new=4)
+        out = eng.serve([ServeRequest(uid="a", prompt="one request", max_new_tokens=4)])
+        assert len(out["a"]) >= 1 and eng.metrics.completed == 1
+    ecfg = dataclasses.replace(cfg, is_encoder=True)
+    model = TT.Transformer.init(ecfg, device="cpu")
+    with pytest.raises(ValueError, match="encoder has no decode step"):
+        ContinuousEngine(model, ecfg)

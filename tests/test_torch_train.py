@@ -378,18 +378,19 @@ def test_launch_train_improves_its_loss(tmp_path):
 
 
 def test_serve_engine_refuses_the_families_it_does_not_serve():
-    """The serve engine takes GQA attention stacks: a recurrent stack raises
-    ``NotImplementedError`` naming ROADMAP A7.1 in the slot arena, and an
-    MLA stack the reference's ``ValueError`` in the paged arena."""
+    """The serve engine refuses what the reference refuses: the paged arena
+    raises its ``ValueError`` for MLA latents and recurrent states, which
+    have no pages; and an encoder, which has no decode step, raises at
+    construction in either arena (the reference fails at its first tick)."""
     from repro_torch.serve import ContinuousEngine
-    for arch, kw, err, match in (("recurrentgemma-9b", {}, NotImplementedError, "A7.1"),
-                                 ("xlstm-350m", {}, NotImplementedError, "A7.1"),
-                                 ("deepseek-v2-lite-16b", {}, NotImplementedError, "A7.1"),
-                                 ("deepseek-v2-lite-16b", dict(kv="paged"), ValueError, "MLA"),
-                                 ("recurrentgemma-9b", dict(kv="paged"), ValueError, "rglru")):
+    for arch, kw, match in (("deepseek-v2-lite-16b", dict(kv="paged"), "MLA"),
+                            ("recurrentgemma-9b", dict(kv="paged"), "rglru"),
+                            ("xlstm-350m", dict(kv="paged"), "mlstm"),
+                            ("hubert-xlarge", {}, "encoder"),
+                            ("hubert-xlarge", dict(kv="paged"), "encoder")):
         cfg = get_smoke_config(arch)
         model = Transformer.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(err, match=match):
+        with pytest.raises(ValueError, match=match):
             ContinuousEngine(model, cfg, **kw)
 
 
