@@ -209,9 +209,25 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    only), tokens and events equal, one capture a bucket, launches exact,
    wall, ticks and a steady tick's busy
    share; then hubert-xlarge at full depth: a forward over 4 x 512 frames
-   and masked-prediction AdamW steps with float32 parameters.
+   and masked-prediction AdamW steps with float32 parameters;
+26. the launchers (``[launch]``): the serve CLI in-process
+   (``launch.serve.main``) at llama3.2-1b's full width, random float32
+   weights, 16 requests of 128 tokens, 32 new, f = 0.2: ``--mode static``,
+   ``--mode continuous --kv paged --reservation lazy --prefix-cache
+   content`` and that over ``--replicas 2``, each run's wall, launches
+   exact (B3, B4, B5 per row, B6, B7), the paged engines' counters and
+   events equal the port simulator's on the CLI's trace; then the
+   dry-run's bundles on the card (``dryrun --device cuda``): ``sd-unet``
+   denoise (bf16, batch 64), llama3.2-1b ``long_500k`` and xlstm-350m
+   ``decode_32k``, full and cond, each built on meta and run on random
+   arguments: ms, peak memory, the bytes the arguments asked of the
+   allocator equal to the meta prediction, launches exact, and the SD
+   step's cond/full ratio; last, the dry-run on meta at every shape of
+   llama3.2-1b and xlstm-350m (``dryrun --all`` takes ~125 s of the
+   host's CPU, past the phase's time: it runs on the CPU).
 
-Phases 18-24 run after phase 13, on its model; phase 25 runs last.
+Phases 18-24 run after phase 13, on its model; phase 26 runs last, after
+phase 25.
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -1157,10 +1173,10 @@ def _ring_slots(W: int, pos: int, gen):
     """A ring's (W,) int32 slot positions at ``pos``: position p at slot
     p % W, slots before position 0 and eight random others empty (-1)."""
     import torch
-    slots = torch.arange(W, device="cuda", dtype=torch.int32)
+    slots = torch.arange(W, device=gen.device, dtype=torch.int32)
     slot_pos = pos - (pos - slots) % W
     slot_pos = torch.where(slot_pos < 0, -1, slot_pos).to(torch.int32)
-    slot_pos[torch.randperm(W, generator=gen, device="cuda")[:8]] = -1
+    slot_pos[torch.randperm(W, generator=gen, device=gen.device)[:8]] = -1
     slot_pos[pos % W] = pos
     return slot_pos
 
@@ -2068,14 +2084,15 @@ PAGED = ("ragged_paged_decode_attention", "ragged_paged_decode_attention_int8",
          "paged_decode_attention", "paged_decode_attention_int8")
 
 
-def _paged_case(gen, dtype, int8: bool, H: int = 32, K: int = 8, hd: int = 64):
-    """Inputs of the paged kernels at the serve path's shapes: positions
-    spread over the tables' 640 keys, every fourth row at phase 0, each
-    row's live pages distinct pool pages (a few past the pool, which the
-    kernels clamp to its last page), the rest of its table past the pool."""
+def _paged_case(gen, dtype, int8: bool, H: int = 32, K: int = 8, hd: int = 64, *,
+                R: int = SERVE_R, ps: int = SERVE_PS, P: int = SERVE_PAGES, nb: int = SERVE_NB):
+    """Inputs of the paged kernels, by default at the serve path's shapes
+    (R rows, a pool of P pages of ps keys, tables of nb pages): positions
+    spread over the tables' keys, every fourth row at phase 0, each row's
+    live pages distinct pool pages (a few past the pool, which the kernels
+    clamp to its last page), the rest of its table past the pool."""
     import torch
     dev = gen.device
-    R, ps, P, nb = SERVE_R, SERVE_PS, SERVE_PAGES, SERVE_NB
     pos = torch.linspace(0, nb * ps - 1, R, device=dev).round().int()
     phase = (torch.arange(R, device=dev) % 4 != 0).int()
     bt = torch.full((R, nb), P + 3, dtype=torch.int32, device=dev)
@@ -4335,6 +4352,22 @@ FSERVE_PAGED = ("mixtral-8x7b", "chameleon-34b")
 FSERVE_PAGED_RUNS = (("ragged", "bf16"), ("ragged", "int8"), ("signature", "bf16"))
 
 
+def _gqa_layers(cfg) -> int:
+    """Layers that run B4 a prefill forward and B5 or a paged kernel a
+    decode forward: the GQA attention layers (MLA runs neither)."""
+    return 0 if cfg.mla is not None else sum(k in ("attn", "swa") for k in cfg.blocks)
+
+
+def _norms_a_forward(cfg) -> int:
+    """B6 launches a forward: a norm of each block (two where it has an
+    FFN, two more for q/k norms, one more for MLA's kv norm) and the final
+    norm."""
+    attn = ("attn", "swa")
+    return 1 + sum(1 + (k in attn + ("rglru",) and cfg.d_ff > 0)
+                   + 2 * (k in attn and cfg.qk_norm and cfg.mla is None)
+                   + (k in attn and cfg.mla is not None) for k in cfg.blocks)
+
+
 def _serve_want(cfg, eng, step_mode: str) -> dict:
     """Exact launches of one serve run of ``eng`` (of any decoder): B4 once
     a GQA layer and prefill forward (two a slot admission, two a paged
@@ -4345,11 +4378,7 @@ def _serve_want(cfg, eng, step_mode: str) -> dict:
     step that combines (a signature step's FULL group, every ragged
     step)."""
     m = eng.metrics
-    attn = ("attn", "swa")
-    gqa = 0 if cfg.mla is not None else sum(k in attn for k in cfg.blocks)
-    norms = 1 + sum(1 + (k in attn + ("rglru",) and cfg.d_ff > 0)
-                    + 2 * (k in attn and cfg.qk_norm and cfg.mla is None)
-                    + (k in attn and cfg.mla is not None) for k in cfg.blocks)
+    gqa, norms = _gqa_layers(cfg), _norms_a_forward(cfg)
     dec = _decode_forwards(m, step_mode)
     admits = [k for k in m.trace.keys() if k[0] == "admit"]
     groups = len(admits) if eng.kv == "slot" else len({k[1] for k in admits})
@@ -4798,6 +4827,399 @@ def phase_families(smi: str) -> dict:
     return totals
 
 
+# -- the launchers (phase 26) -------------------------------------------------------
+
+LAUNCH_CLI = ["--arch", "llama3.2-1b", "--requests", "16", "--prompt-len", "128",
+              "--max-new", "32", "--fraction", "0.2"]
+LAUNCH_PAGED = ["--mode", "continuous", "--kv", "paged", "--reservation", "lazy",
+                "--prefix-cache", "content"]
+LAUNCH_MODES = (("static", ["--mode", "static"]), ("continuous", LAUNCH_PAGED),
+                ("fleet", LAUNCH_PAGED + ["--replicas", "2"]))
+LAUNCH_BUNDLES = (("sd-unet", "denoise"), ("llama3.2-1b", "long_500k"),
+                  ("xlstm-350m", "decode_32k"))
+# ``dryrun --all`` on meta takes ~125 s of the host's CPU, past the phase's
+# ~120 s with the rest: the script runs the two archs of the CPU tests
+LAUNCH_DRY_ARCHS = ("llama3.2-1b", "xlstm-350m")
+DRY_RUNS = 3                  # ``launch/dryrun.TIMED_RUNS``
+
+
+def _cli_want(cfg, eng) -> dict:
+    """Exact launches of one ``ContinuousEngine`` run the serve CLI drove:
+    ``_serve_want``, but on pages a prefill group is one admission tick's
+    admissions that are not content-cache hits (a hit runs no forward), and
+    each hit's token 0 is one B3 launch over the founder's cached logits."""
+    want = _serve_want(cfg, eng, eng.step_mode)
+    if eng.kv != "paged":
+        return want
+    m = eng.metrics
+    hits = {ev.uid for ev in m.trace if ev.kind == "prefix_hit"}
+    groups = len({ev.tick for ev in m.trace if ev.kind == "admit" and ev.uid not in hits})
+    dec = _decode_forwards(m, eng.step_mode)
+    want.update(flash_attention=2 * groups * _gqa_layers(cfg),
+                rmsnorm=_norms_a_forward(cfg) * (2 * groups + dec),
+                cfg_combine_rowscale=groups + len(hits) + m.step_launches)
+    return want
+
+
+def _cli_trace_sim(eng, args, replicas: int):
+    """The port simulator on the serve CLI's trace (``_trace_requests`` of
+    the CLI's own parsed ``args``: its seeded Poisson arrivals,
+    ``PAPER_PROMPTS`` labelled by their token ids) with ``eng``'s knobs.
+    -> the metrics of each replica."""
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.launch import serve as TS
+    from repro_torch.serve import SimRequest, simulate, simulate_fleet
+    from repro_torch.serve.state import content_key
+
+    reqs, arrivals = TS._trace_requests(args)
+    plan = GuidancePlan.suffix(args.max_new, args.fraction, guidance_scale=args.guidance_scale)
+    trace = [SimRequest(r.uid, a, plan, prompt_len=args.prompt_len,
+                        content=content_key(eng._tokenize(r.prompt, args.prompt_len)))
+             for r, a in zip(reqs, arrivals)]
+    kw = dict(num_slots=eng.num_slots, pass_budget=eng.scheduler.pass_budget, kv="paged",
+              page_size=eng.page_size, prefills_per_tick=eng.prefills_per_tick,
+              step_mode=eng.step_mode, reservation=eng.reservation,
+              prefix_cache=eng.prefix_cache)
+    if replicas == 1:
+        return [simulate(trace, **kw).metrics]
+    return simulate_fleet(trace, replicas, policy=args.route, seed=args.seed, **kw).metrics
+
+
+def _launch_cli(mode: str, extra: list, totals: dict) -> None:
+    """One serve CLI run in-process (``launch.serve.main``): its wall, its
+    printed summary, launches exact per kernel (B5 all per row: the slot
+    arenas of the static facade), and on the paged runs engine == the port
+    simulator, counter for counter and event for event."""
+    import torch
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.launch import serve as TS
+
+    argv = LAUNCH_CLI + extra
+    reset_launches()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = TS.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, forms = launch_counts(), dict(KD.LAUNCH_FORMS)
+    if mode == "static":
+        engines = [e._engine for e in out.values()]
+        paged = []
+    elif mode == "continuous":
+        engines, paged = [out["continuous"], out["static"]._engine], [out["continuous"]]
+    else:
+        engines = paged = list(out.engines)
+    cfg = engines[0].cfg
+    want = {k: 0 for k in counts}
+    for eng in engines:
+        for k, v in _cli_want(cfg, eng).items():
+            want[k] += v
+    slot = sum(_cli_want(cfg, e)["decode_attention"] for e in engines if e.kv == "slot")
+    if counts != want or forms != ({"rows": slot} if slot else {}):
+        fail(f"launch {mode}: launches {counts}, want {want}; B5 forms {forms}")
+    _add(totals, _rows_form(counts) if slot else counts)
+    if paged:
+        sims = _cli_trace_sim(paged[0], TS.parse_args(argv), len(paged))
+        for i, (eng, sm) in enumerate(zip(paged, sims)):
+            _engine_equals_sim(f"launch {mode} replica {i}", eng.metrics, sm)
+            diff = {k: (getattr(eng.metrics, k), getattr(sm, k))
+                    for k in ("prefix_hits", "prefix_misses")
+                    if getattr(eng.metrics, k) != getattr(sm, k)}
+            if diff:
+                fail(f"launch {mode} replica {i}: engine != simulator {diff}")
+    passes = sum(e.metrics.denoiser_passes for e in engines)
+    log(f"[launch] serve CLI --mode {mode}{' --replicas 2' if mode == 'fleet' else ''} "
+        f"({' '.join(argv)}): wall {wall:.4f} s (float32 weights drawn, every engine built "
+        f"and warmed, its trace served), denoiser passes {passes}"
+        + (f", engine == simulator on {len(paged)} paged engine(s) (counters, events, "
+           f"prefix hits {[e.metrics.prefix_hits for e in paged]})" if paged else "")
+        + f"; launches exact { {k: v for k, v in counts.items() if v} }")
+
+
+def _bundle_want(arch: str, variant: str) -> dict:
+    """Exact launches of a bundle's four runs on the card (a warm-up and 3
+    timed): a serve step's forwards (two FULL, one COND) each B6 a norm and
+    B5 (its ring form under the SWA substitute) a GQA layer, B1 once a
+    FULL step; the SD step B1 once a FULL step (its UNet runs no kernel)."""
+    from repro_torch.configs import get_config
+    runs, full = 1 + DRY_RUNS, variant == "full"
+    want = {"cfg_combine": runs} if full else {}
+    if arch != "sd-unet":
+        cfg, fwd = get_config(arch), (2 if full else 1)
+        want.update(rmsnorm=_norms_a_forward(cfg) * fwd * runs,
+                    decode_attention=_gqa_layers(cfg) * fwd * runs)
+    return want
+
+
+def _dry_run_bundles(smi: str, totals: dict) -> None:
+    """``dryrun --device cuda`` on ``LAUNCH_BUNDLES``, full and cond: each
+    built on meta, then run on the card with random arguments; the bytes
+    the arguments asked of the card's allocator equal the meta prediction
+    (``memory_allocated`` grows by at least it in 512-byte blocks); ms (3
+    runs by CUDA events after a warm-up), peak memory, outputs finite,
+    launches exact."""
+    import torch
+    from repro_torch.launch import dryrun as DR
+
+    ms = {}
+    for arch, shape in LAUNCH_BUNDLES:
+        for variant in ("full", "cond"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_launches()
+            rec = DR.run_one(arch, shape, variant=variant, verbose=False, device="cuda")
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            if rec["status"] != "ok":
+                fail(f"launch dryrun {arch}:{shape}:{variant}: {rec.get('error')}\n"
+                     f"{rec.get('traceback', '')}")
+            d, rl = rec["device"], rec["roofline"]
+            if d["status"] != "ok" or d["requested"] != d["argument_bytes"] \
+                    or d["allocated"] < d["predicted_allocated"] or not d["finite"]:
+                fail(f"launch dryrun {arch}:{shape}:{variant}: on the card {d}")
+            want = _bundle_want(arch, variant)
+            if counts != {k: want.get(k, 0) for k in counts}:
+                fail(f"launch dryrun {arch}:{shape}:{variant}: launches {counts}, want {want}")
+            _add(totals, counts)
+            ms[(arch, variant)] = min(d["ms"])
+            log(f"[launch] dryrun --device cuda {arch}:{shape}:{variant} ({smi}): ms "
+                f"{' '.join(f'{t:.3f}' for t in d['ms'])}, peak {d['peak_bytes'] / 1e9:.3f} GB, "
+                f"arguments {d['argument_bytes']} B on meta = {d['requested']} B requested of "
+                f"the card's allocator; memory_allocated grew {d['allocated']} B "
+                f"({d['predicted_allocated']} B in 512 B blocks; the rest whole segment tails), "
+                f"outputs finite; meta: counted FLOPs {rl['counted_flops']:.4e}, roofline compute "
+                f"{rl['compute_s'] * 1e3:.4f} ms, memory {rl['memory_s'] * 1e3:.4f} ms "
+                f"({rl['dominant']}); launches { {k: v for k, v in counts.items() if v} }")
+    log(f"[launch] sd-unet denoise step cond/full: {ms[('sd-unet', 'cond')]:.3f} / "
+        f"{ms[('sd-unet', 'full')]:.3f} ms = "
+        f"{ms[('sd-unet', 'cond')] / ms[('sd-unet', 'full')]:.4f} (bf16, batch 64, best of 3)")
+
+
+# the kernel wrappers phase 26's runs reach, by module of ``repro_torch.kernels``
+LAUNCH_WRAPPERS = {"cfg_combine": ("cfg_combine", "cfg_combine_rowscale"),
+                   "flash_attention": ("flash_attention",),
+                   "decode_attention": ("decode_attention",),
+                   "rmsnorm": ("rmsnorm",),
+                   "paged_decode_attention": PAGED}
+
+
+def _spec(x):
+    import torch
+    return (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else x
+
+
+@contextlib.contextmanager
+def _recording_signatures(sigs: dict):
+    """Counts in ``sigs`` every call of the wrappers in ``LAUNCH_WRAPPERS``
+    while the block runs, by its signature: (name, each positional
+    argument's (shape, dtype) or value, each keyword's, sorted). It reads
+    no tensor, so the calls a CUDA graph capture makes are recorded too.
+    Each wrapper is swapped in its module and in every ``repro_torch``
+    module that imported it by name (``core/guidance``)."""
+    import importlib
+    swaps = []
+    for mod_name, names in LAUNCH_WRAPPERS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        for name in names:
+            fn = getattr(mod, name)
+
+            def spy(*a, _fn=fn, _name=name, **kw):
+                key = (_name, tuple(map(_spec, a)),
+                       tuple(sorted((k, _spec(v)) for k, v in kw.items())))
+                sigs[key] = sigs.get(key, 0) + 1
+                return _fn(*a, **kw)
+
+            for m in [m for n, m in sys.modules.items() if n.startswith("repro_torch")]:
+                if getattr(m, name, None) is fn:
+                    swaps.append((m, name, fn))
+                    setattr(m, name, spy)
+    try:
+        yield sigs
+    finally:
+        for m, name, fn in swaps:
+            setattr(m, name, fn)
+
+
+def _signature_call(key, gen):
+    """``key``'s call made anew on random inputs of its shapes and dtypes,
+    with the data its kernel's sweep gives such a call: positions spread
+    over the second half of a linear cache, a ring wrapped (``_ring_slots``),
+    rows permuted over a pool with spare rows, paged tables as
+    ``_paged_case`` lays them out. -> (row name of the kernels line, out,
+    plain version's out, tolerance); fails on a form it has no check for."""
+    import torch
+    from repro_torch.kernels import cfg_combine as KC
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import paged_decode_attention as KP
+    from repro_torch.kernels import rmsnorm as KR
+
+    name, args, kw = key
+    kw, dev = dict(kw), gen.device
+
+    def rnd(spec):
+        shape, dtype = spec
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def attn_tol(dtype):
+        return dict(per_row=ATTN_BF16_STEPS * BF16_STEP if dtype == torch.bfloat16 else 1e-5)
+
+    if name == "cfg_combine" and not kw:
+        u, c, scale = rnd(args[0]), rnd(args[1]), args[2]
+        return name, KC.cfg_combine(u, c, scale), KC.cfg_combine_plain(u, c, scale), None
+    if name == "cfg_combine_rowscale" and not kw:
+        u, c = rnd(args[0]), rnd(args[1])
+        (R,), dtype = args[2]
+        scales = torch.tensor([4.0, 1.0], device=dev, dtype=dtype).repeat(R)[:R]
+        return (name, KC.cfg_combine_rowscale(u, c, scales),
+                KC.cfg_combine_rowscale_plain(u, c, scales), None)
+    if name == "rmsnorm" and not kw:
+        x, sc, eps = rnd(args[0]) * 3, rnd(args[1]), args[2]
+        tol = dict(elementwise=2 * BF16_STEP) if x.dtype == torch.bfloat16 \
+            else dict(rel_to_max=1e-5)
+        return name, KR.rmsnorm(x, sc, eps), KR.rmsnorm_plain(x, sc, eps), tol
+    if name == "flash_attention" and set(kw) <= {"causal", "window"}:
+        q, k, v = map(rnd, args)
+        return (name, KF.flash_attention(q, k, v, **kw), KF.flash_attention_plain(q, k, v, **kw),
+                attn_tol(q.dtype))
+    if name == "decode_attention" and set(kw) <= {"window", "slot_pos", "rows"}:
+        q, k, v = map(rnd, args[:3])
+        (n,), _ = args[3]
+        B, (N, cap) = q.shape[0], k.shape[:2]
+        window, slot, rows = kw.get("window"), kw.get("slot_pos"), kw.get("rows")
+        tol = attn_tol(q.dtype)
+        r = torch.randperm(N, generator=gen, device=dev)[:B]
+        if slot is None and (n == 1 or n == B):
+            pos = torch.linspace(cap // 2, cap - 1, n, device=dev).round().to(torch.int32)
+            if rows is None:
+                return (name, KD.decode_attention(q, k, v, pos, window=window),
+                        KD.decode_attention_plain(q, k, v, pos, window=window), tol)
+            if n == B:
+                return ("decode_attention_rows",
+                        KD.decode_attention(q, k, v, pos, window=window, rows=r.int()),
+                        KD.decode_attention_plain(q, k[r], v[r], pos, window=window), tol)
+        elif rows is None and n == 1 and slot[0] == (cap,):
+            p = 8 * cap + cap // 3
+            slot_pos = _ring_slots(cap, p, gen)
+            pos = torch.tensor([p], dtype=torch.int32, device=dev)
+            return (name, KD.decode_attention(q, k, v, pos, window=window, slot_pos=slot_pos),
+                    KD.decode_attention_plain(q, k, v, p,
+                                              valid=KD.ring_valid(slot_pos, p, window)), tol)
+        elif rows is not None and slot[0] == (N, cap) and n == B:
+            # row b's ring, wrapped, on cache row r[b]; the other rows empty
+            pos = torch.linspace(cap + 64, 3 * cap, B, device=dev).round().to(torch.int32)
+            sp = torch.full((N, cap), -1, dtype=torch.int32, device=dev)
+            sp[r] = torch.stack([_ring_slots(cap, p, gen) for p in pos.tolist()])
+            return ("decode_attention_ring_rows",
+                    KD.decode_attention(q, k, v, pos, window=window, slot_pos=sp, rows=r.int()),
+                    KD.decode_attention_plain(q, k[r], v[r], pos,
+                                              valid=KD.ring_valid(sp[r], pos[:, None], window)),
+                    tol)
+    if name in PAGED and set(kw) <= {"window"}:
+        int8 = name.endswith("int8")
+        (R, H, hd), dtype = args[0]
+        (P, ps, K, _), _ = args[1]
+        (_, nb), _ = args[5 if int8 else 3]
+        q, kv, bt, pos, phase = _paged_case(gen, dtype, int8, H, K, hd, R=R, ps=ps, P=P, nb=nb)
+        if [_spec(t) for t in kv] != list(args[1:5 if int8 else 3]):
+            fail(f"{name}: the pools of {key} are not _paged_case's")
+        return (name, _paged_call(KP, name, q, kv, bt, pos, phase, **kw)(),
+                _paged_plain(KP, name, q, kv, bt, pos, phase, **kw)(), attn_tol(dtype))
+    fail(f"[launch] no kernel check for the signature {key}")
+
+
+def _fmt_sig(key) -> str:
+    name, args, kw = key
+
+    def one(x):
+        return f"{'x'.join(map(str, x[0]))} {str(x[1])[6:]}" \
+            if isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple) else repr(x)
+    return f"{name}({', '.join([one(a) for a in args] + [f'{k}={one(v)}' for k, v in kw])})"
+
+
+def _check_signatures(sigs: dict, totals: dict) -> dict:
+    """Each call signature phase 26's runs gave a wrapper, made anew on the
+    card at its shapes and dtypes and held against its plain version at the
+    tolerance of its kernel's sweep (B1 and B3 bit-exact); each paged
+    signature also in its int8-page form at the same geometry (the CLI's
+    ``--kv-dtype int8``). Fails if a kernel (or B5 form: its kernels-line
+    row) launched in the runs has no signature checked. -> {row name of
+    the kernels line: max abs error}"""
+    import torch
+    keys = sorted(sigs, key=repr)
+    for key in list(keys):
+        name, args, kw = key
+        if name in ("ragged_paged_decode_attention", "paged_decode_attention"):
+            hd, ((P, ps, K, _), _) = args[0][0][2], args[1]
+            pages, scales = ((P, ps, K, hd), torch.int8), ((P, ps, K, 1), torch.float32)
+            keys.append((name + "_int8", (args[0], pages, scales, pages, scales) + args[3:], kw))
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    errs, notes = {}, []
+    for key in keys:
+        row, out, ref, tol = _signature_call(key, gen)
+        tag = f"at phase 26's signature {_fmt_sig(key)}"
+        if tol is None:
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            if not torch.equal(out, ref):
+                fail(f"{row} {tag}: not bit-exact, max err {e}")
+            rel = 0.0
+        else:
+            e, rel = _err_ok(row, tag, out, ref, **tol)
+        errs[row] = max(errs.get(row, 0.0), e)
+        notes.append(f"{_fmt_sig(key)}{f' ({sigs[key]} calls)' if key in sigs else ' (int8 form)'}: "
+                     f"err {e:.3g}" + (f" = {rel / BF16_STEP:.2f} bf16 steps of its yardstick"
+                                       if tol else " (bit-exact)"))
+    missing = [k for k, v in totals.items() if v and k not in errs]
+    if missing:
+        fail(f"[launch] launched in phase 26 with no call signature checked: {missing}")
+    log(f"[launch] every call signature of the CLI runs and the bundles ({len(sigs)}, and "
+        f"{len(keys) - len(sigs)} int8 forms), made anew on the card and held against the "
+        f"plain version: " + "; ".join(notes))
+    return errs
+
+
+def phase_launch(smi: str) -> tuple[dict, dict]:
+    """``[launch]``: the serve CLI at full width (static, continuous paged
+    lazy with the content cache, and that over two replicas) and the
+    dry-run's bundles on the card, every call signature they gave a kernel
+    then held against its plain version; the meta dry-run at every shape of
+    ``LAUNCH_DRY_ARCHS``. -> (launches per kernel of its runs, max abs
+    error per row of the kernels line at its signatures)"""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun as DR
+    totals, sigs = {}, {}
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _recording_signatures(sigs):
+        for mode, extra in LAUNCH_MODES:
+            _launch_cli(mode, extra, totals)
+            gc.collect()
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _dry_run_bundles(smi, totals)
+    t2 = time.perf_counter()
+    errs = _check_signatures(sigs, totals)
+    t3 = time.perf_counter()
+    recs = [DR.run_one(a, s, verbose=False) for a in LAUNCH_DRY_ARCHS for s in SHAPES]
+    bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if r["status"] != "ok"]
+    if bad:
+        fail(f"launch dryrun on meta: {bad}")
+    log(f"[launch] dryrun on meta, {' and '.join(LAUNCH_DRY_ARCHS)} at every shape: "
+        f"{len(recs)} ok of {len(recs)} in {time.perf_counter() - t3:.1f} s (``--all``, "
+        f"the ten archs, runs on the CPU: PERF.md); argument GB "
+        + ", ".join(f"{r['arch']}:{r['shape']} "
+                    f"{r['memory_analysis']['argument_size'] / 1e9:.3f}" for r in recs))
+    log(f"[launch] wall {time.perf_counter() - t0:.1f} s: CLI runs {t1 - t0:.1f} s, bundles on "
+        f"the card {t2 - t1:.1f} s, signature checks {t3 - t2:.1f} s, meta dry-run "
+        f"{time.perf_counter() - t3:.1f} s")
+    return totals, errs
+
+
 def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -4870,6 +5292,10 @@ def main() -> None:
     lap("phases 14-17")
     family_launches = phase_families(smi)
     lap("phase 25")
+    launch_launches, launch_errs = phase_launch(smi)
+    lap("phase 26")
+    for name, e in launch_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
 
     cu = "src/repro_torch/csrc/"
     kernels = {
@@ -4899,17 +5325,18 @@ def main() -> None:
         sl = sum(d.get(name, 0) for d in slot_paths)
         a5 = a5_launches.get(name, 0)
         cl, tr = claims_launches.get(name, 0), train_launches.get(name, 0)
-        fam = family_launches.get(name, 0)
-        if sd + ar + sv + sl + a5 + cl + tr + fam == 0:
+        fam, la = family_launches.get(name, 0), launch_launches.get(name, 0)
+        if sd + ar + sv + sl + a5 + cl + tr + fam + la == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
             f"{sv} in the paged serve runs', {sl} in the slot, lazy, facade and windowed slot "
             f"runs', {a5} in phase 24's (async, tier, content, fleet, autotune), {cl} in "
             f"the claims' generates on the trained pipeline, {tr} in the timed LM training "
-            f"steps, {fam} in phase 25's (the other families)")
+            f"steps, {fam} in phase 25's (the other families), {la} in phase 26's (the "
+            f"serve CLI and the dry-run's bundles on the card)")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar + sv + sl + a5 + cl + tr + fam, **r))
+                        launches=sd + ar + sv + sl + a5 + cl + tr + fam + la, **r))
     log(f"[time] the whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)

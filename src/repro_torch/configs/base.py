@@ -1,5 +1,5 @@
-"""Config dataclasses. Copy of ``repro/configs/base.py`` without the
-dry-run input shapes."""
+"""Config dataclasses and the dry-run's input shapes. Copy of
+``repro/configs/base.py``."""
 
 from __future__ import annotations
 
@@ -121,3 +121,19 @@ class UNetConfig:
                           attn_resolutions=(2,), num_heads=2, text_dim=64,
                           text_len=16, latent_size=8, time_dim=64,
                           norm_groups=8)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -118,10 +118,11 @@ def load():
 
 
 def on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix or on
-    any other device."""
+    """True for CUDA tensors, False for CPU tensors and for meta tensors
+    (shapes without data: the dry-run's steps take the plain versions, as
+    the CPU does); raises on a mix or on any other device."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return False
     if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
         raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}: "

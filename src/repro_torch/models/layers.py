@@ -166,6 +166,21 @@ class Maker:
         return (w * scale).to(self.dtype)
 
 
+class SpecMaker:
+    """Shapes without memory: ``init_model``, ``init_unet`` or any init
+    function called with it returns ``torch.empty`` tensors of ``dtype`` on
+    the meta device, drawing nothing. Counterpart of ``repro``'s
+    ``SpecMaker`` (its ``jax.ShapeDtypeStruct`` leaves): the step builders
+    build full-size models, caches and optimizer states with it, and a step
+    runs on them under the meta device's shape rules."""
+
+    def __init__(self, dtype=torch.bfloat16):
+        self.dtype = dtype
+
+    def __call__(self, shape, *, init="normal", scale=None):
+        return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
+
+
 def tree_module(tree) -> nn.Module:
     """A module whose children mirror a nested dict/list of tensors: dicts
     become modules, lists ``ModuleList`` (``None`` entries kept), tensors

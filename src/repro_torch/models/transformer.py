@@ -85,7 +85,7 @@ class Encoder(nn.Module):
 
     @classmethod
     def from_state_dict(cls, cfg, state: dict):
-        skeleton = cls(cfg, init_encoder(cfg, L.Maker(None, torch.float32, "meta")))
+        skeleton = cls(cfg, init_encoder(cfg, L.SpecMaker(torch.float32)))
         skeleton.load_state_dict(state, assign=True)
         return skeleton
 
@@ -312,7 +312,7 @@ class Transformer(nn.Module):
     def from_state_dict(cls, cfg, state: dict):
         """From ``repro_torch.convert.from_jax_model_params`` (or
         ``state_dict()``); the tensors stay on their device."""
-        skeleton = cls(cfg, init_model(cfg, L.Maker(None, torch.float32, "meta")))
+        skeleton = cls(cfg, init_model(cfg, L.SpecMaker(torch.float32)))
         skeleton.load_state_dict(state, assign=True)
         return skeleton
 

@@ -191,7 +191,7 @@ class UNet(nn.Module):
     @classmethod
     def from_state_dict(cls, cfg, state: dict):
         """A UNet holding ``state``'s tensors as they are (dtype and device)."""
-        skeleton = cls(cfg, init_unet(cfg, L.Maker(None, torch.float32, "meta")))
+        skeleton = cls(cfg, init_unet(cfg, L.SpecMaker(torch.float32)))
         skeleton.load_state_dict(state, assign=True)
         return skeleton
 

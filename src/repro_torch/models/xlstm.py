@@ -54,8 +54,14 @@ def time_scan(step, state: tuple, xs: tuple, *, bptt_chunk: int = BPTT_CHUNK):
     with the same steps on the same values, which takes a full-width
     prefill from some twenty launches a step to one graph replay (ROADMAP
     B'9). Under autograd, with 0 < bptt_chunk < S and S % bptt_chunk == 0,
-    each chunk of steps runs under ``torch.utils.checkpoint``."""
+    each chunk of steps runs under ``torch.utils.checkpoint``. On meta
+    tensors (the dry-run's shapes) one step runs and its output is
+    broadcast to S steps: the reference's cost lowering counts a scan body
+    once too, and ``launch/steps.recurrent_supplement`` adds the rest."""
     S = xs[0].shape[1]
+    if xs[0].is_meta:
+        state, y = step(state, tuple(x[:, 0] for x in xs))
+        return state, y[:, None].expand((y.shape[0], S) + tuple(y.shape[1:]))
     if xs[0].is_cuda and not torch.is_grad_enabled() and S > 2 \
             and not torch.cuda.is_current_stream_capturing():
         return _replayed_scan(step, state, xs)

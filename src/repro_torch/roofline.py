@@ -15,7 +15,9 @@ no sparsity, at the full 700 W power limit):
 * ``H100_HBM_BYTES_S``: 3.35e12 B/s, HBM3;
 * ``H100_HOST_LINK_BYTES_S``: 64e9 B/s, PCIe Gen5 x16 in one direction
   (the data sheet's 128 GB/s counts both), the link a host-tier swap
-  crosses.
+  crosses;
+* ``H100_HBM_CAPACITY``: 80e9 B, the card's memory (the dry-run's count of
+  cards a step's arguments need).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from dataclasses import dataclass
 H100_BF16_FLOPS = 989e12          # H100 SXM5 data sheet: bf16 tensor cores, dense
 H100_HBM_BYTES_S = 3.35e12        # H100 SXM5 data sheet: HBM3
 H100_HOST_LINK_BYTES_S = 64e9     # H100 SXM5 data sheet: PCIe Gen5 x16, one direction
+H100_HBM_CAPACITY = 80e9          # H100 SXM5 data sheet: 80 GB of HBM3
 
 _KV_BYTES = {"bf16": 2, "int8": 1}
 

@@ -179,8 +179,10 @@ def test_wrappers_check_inputs_and_never_fall_back():
         K.cfg_combine_rowscale(u, c, torch.ones(3))
     with pytest.raises(ValueError):
         K.apg_combine(u, c, 2.0, diff=torch.zeros(2, 5))
-    # a tensor that is on no CPU takes no plain path: it raises
-    with pytest.raises(ValueError):
-        K.cfg_combine(u.to("meta"), c.to("meta"), 2.0)
+    # meta tensors (the dry-run's shapes) take the plain path as CPU
+    # tensors do, and launch nothing; a mix of devices raises
+    K.reset_launches()
+    assert K.cfg_combine(u.to("meta"), c.to("meta"), 2.0).is_meta
+    assert sum(K.LAUNCHES.values()) == 0
     with pytest.raises(ValueError):
         K.apg_combine(u.to("meta"), c, 2.0)

@@ -97,9 +97,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_kernel_wrappers_take_no_plain_version_for_cuda_requests():
-    """Every wrapper decides by its tensors' device alone: CPU tensors take
-    the plain version and launch nothing; a tensor on any other device goes
-    to the kernel or raises, and without CUDA that raises."""
+    """Every wrapper decides by its tensors' device alone: CPU tensors and
+    meta tensors (the dry-run's shapes) take the plain version and launch
+    nothing; CUDA tensors go to the kernel or raise, and without CUDA that
+    raises; a mix of devices raises."""
     from repro_torch.kernels import cfg_combine as KC
     from repro_torch.kernels import decode_attention as KD
     from repro_torch.kernels import flash_attention as KF
@@ -121,8 +122,10 @@ def test_kernel_wrappers_take_no_plain_version_for_cuda_requests():
         assert call().device.type == "cpu"
     assert sum(v for m in modules for v in m.LAUNCHES.values()) == 0
     for call in calls("meta"):
-        with pytest.raises(ValueError, match="CUDA"):
-            call()
+        assert call().device.type == "meta"
+    assert sum(v for m in modules for v in m.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        KR.rmsnorm(torch.zeros(4, 8), torch.zeros(8, device="meta"))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: a CUDA request would launch")
     for call in calls("cuda"):

@@ -210,19 +210,22 @@ def test_head_rmsnorm_matches_reference():
 
 
 def test_wrappers_refuse_what_is_neither_cpu_nor_one_cuda_device():
-    """A tensor off the CPU never takes the plain version: tensors on the
-    ``meta`` device (neither CPU nor CUDA) raise instead."""
+    """A CUDA tensor never takes the plain version. Meta tensors (shapes
+    without data: the dry-run's) take it as CPU tensors do, launching
+    nothing, and tensors on two devices raise."""
     m = dict(device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        KF.flash_attention(torch.empty(1, 8, 2, 8, **m), torch.empty(1, 8, 1, 8, **m),
-                           torch.empty(1, 8, 1, 8, **m))
-    with pytest.raises(ValueError, match="CUDA"):
-        KD.decode_attention(torch.empty(1, 2, 8, **m), torch.empty(1, 8, 1, 8, **m),
-                            torch.empty(1, 8, 1, 8, **m), 3)
-    with pytest.raises(ValueError, match="CUDA"):
-        KR.rmsnorm(torch.empty(4, 8, **m), torch.empty(8, **m))
+    out = KF.flash_attention(torch.empty(1, 8, 2, 8, **m), torch.empty(1, 8, 1, 8, **m),
+                             torch.empty(1, 8, 1, 8, **m))
+    assert out.is_meta and out.shape == (1, 8, 2, 8)
+    out = KD.decode_attention(torch.empty(1, 2, 8, **m), torch.empty(1, 8, 1, 8, **m),
+                              torch.empty(1, 8, 1, 8, **m), 3)
+    assert out.is_meta and out.shape == (1, 2, 8)
+    assert KR.rmsnorm(torch.empty(4, 8, **m), torch.empty(8, **m)).is_meta
     with pytest.raises(ValueError, match="CUDA"):
         KR.rmsnorm(torch.empty(4, 8), torch.empty(8, **m))
+    with pytest.raises(ValueError, match="CUDA"):
+        KD.decode_attention(torch.empty(1, 2, 8), torch.empty(1, 8, 1, 8, **m),
+                            torch.empty(1, 8, 1, 8), 3)
     _no_launches()
 
 

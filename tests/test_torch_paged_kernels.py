@@ -167,9 +167,15 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
         c8 = _case(3, int8=True) if name.endswith("int8") else c
         assert _run_port(name, c8).device.type == "cpu"
     assert sum(KP.LAUNCHES.values()) == 0
+    # meta tensors (the dry-run's shapes) take the plain version too; a mix
+    # of devices raises
     z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device="meta")  # noqa: E731
+    out = KP.ragged_paged_decode_attention(z(2, 4, 8), z(3, 4, 2, 8), z(3, 4, 2, 8),
+                                           z(2, 2, dt=torch.int32), z(2, dt=torch.int32),
+                                           z(2, dt=torch.int32))
+    assert out.is_meta and out.shape == (2, 4, 8) and sum(KP.LAUNCHES.values()) == 0
     with pytest.raises(ValueError, match="CUDA"):
-        KP.ragged_paged_decode_attention(z(2, 4, 8), z(3, 4, 2, 8), z(3, 4, 2, 8),
+        KP.ragged_paged_decode_attention(z(2, 4, 8), torch.zeros(3, 4, 2, 8), z(3, 4, 2, 8),
                                          z(2, 2, dt=torch.int32), z(2, dt=torch.int32),
                                          z(2, dt=torch.int32))
     if torch.cuda.is_available():
