@@ -190,9 +190,9 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    (the roofline per pass beside a replay's device time over R, the
    roofline no slower than the card, the budget, the swap break-even);
 25. the other model families (``[families]``), each at full width with
-   random bf16 weights from a seed: deepseek-v2-lite-16b at full depth
-   (MLA + MoE), mixtral-8x7b (4 of 32 layers), recurrentgemma-9b (6 of
-   38), xlstm-350m (full depth) and chameleon-34b (4 of 48), each first
+   random bf16 weights from a seed: deepseek-v2-lite-16b (14 of 27
+   layers: MLA + MoE), mixtral-8x7b (4 of 32 layers), recurrentgemma-9b
+   (6 of 38), xlstm-350m (12 of 24) and chameleon-34b (4 of 48), each first
    held to its own teacher-forced forward (prefill plus three decode
    steps, float32 activations), then ``guided_decode`` on B = 4 prompts of
    512 tokens, 64 new, graphed at f in {0, 0.2} (and 1 on deepseek, with
@@ -224,10 +224,22 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    allocator equal to the meta prediction, launches exact, and the SD
    step's cond/full ratio; last, the dry-run on meta at every shape of
    llama3.2-1b and xlstm-350m (``dryrun --all`` takes ~125 s of the
-   host's CPU, past the phase's time: it runs on the CPU).
+   host's CPU, past the phase's time: it runs on the CPU);
+27. the sharding slice and the env knobs (``[a84]``): ``guided_decode``
+   at phase 10's shape under ``REPRO_KV_QUANT=int8`` (int8 linear caches,
+   dequantized for B5), graphed and eager at f = 0 and 0.2, launches
+   exact, graphed logits bit-equal to eager, tokens against the bf16
+   caches', FULL and COND device ms against bf16's, and B5 against its
+   plain version on a dequantized cache; ``ContinuousEngine`` on a
+   one-device nccl ``DeviceMesh`` (``launch.mesh.make_host_mesh``), paged
+   bf16 and int8, equal to the meshless engine (tokens, counters, events),
+   its pool leaves DTensors sharded on the pages dim; every call signature
+   of those runs held against its plain version as phase 26's are; and the
+   meta dry-run with ``--mesh data,model=16,16`` and ``--multi-pod`` at
+   every shape of phase 26's two archs.
 
-Phases 18-24 run after phase 13, on its model; phase 26 runs last, after
-phase 25.
+Phases 18-24 run after phase 13, on its model; phase 26 runs after phase
+25, and phase 27 last.
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -4330,12 +4342,14 @@ def phase_train_main() -> dict:
 FAMILY_B, FAMILY_S, FAMILY_NEW = 4, 512, 64       # guided_decode's shape on every decoder
 # arch, layers kept (None: full depth), COND fractions, the fractions with a
 # timed eager generate besides f = 0.2's eager teacher-forced run (deepseek's
-# eager f = 0 generate, 12.6 s, and xlstm's, 7.0 s, are left out)
+# eager f = 0 generate, 12.6 s, and xlstm's, 7.0 s, are left out). deepseek
+# and xlstm ran at full depth (27, 24) until phase 27 came; half depth pays
+# for its minute under the script's 1200 s (PERF.md §7).
 FAMILIES = (
-    ("deepseek-v2-lite-16b", None, (0.0, 0.2, 1.0), (1.0,)),
+    ("deepseek-v2-lite-16b", 14, (0.0, 0.2, 1.0), (1.0,)),
     ("mixtral-8x7b", 4, (0.0, 0.2), (0.0,)),
     ("recurrentgemma-9b", 6, (0.0, 0.2), (0.0,)),
-    ("xlstm-350m", None, (0.0, 0.2), ()),
+    ("xlstm-350m", 12, (0.0, 0.2), ()),
     ("chameleon-34b", 4, (0.0, 0.2), (0.0,)),
 )
 FAMILY_TEACHER_S = 128    # the teacher-forced consistency check's prompt
@@ -5139,8 +5153,9 @@ def _fmt_sig(key) -> str:
     return f"{name}({', '.join([one(a) for a in args] + [f'{k}={one(v)}' for k, v in kw])})"
 
 
-def _check_signatures(sigs: dict, totals: dict) -> dict:
-    """Each call signature phase 26's runs gave a wrapper, made anew on the
+def _check_signatures(sigs: dict, totals: dict, label: str = "launch") -> dict:
+    """Each call signature the runs of a phase (``label``, its log tag: phase
+    26's ``launch``, phase 27's ``a84``) gave a wrapper, made anew on the
     card at its shapes and dtypes and held against its plain version at the
     tolerance of its kernel's sweep (B1 and B3 bit-exact); each paged
     signature also in its int8-page form at the same geometry (the CLI's
@@ -5159,7 +5174,7 @@ def _check_signatures(sigs: dict, totals: dict) -> dict:
     errs, notes = {}, []
     for key in keys:
         row, out, ref, tol = _signature_call(key, gen)
-        tag = f"at phase 26's signature {_fmt_sig(key)}"
+        tag = f"at [{label}]'s signature {_fmt_sig(key)}"
         if tol is None:
             torch.cuda.synchronize()
             e = (out.float() - ref.float()).abs().max().item()
@@ -5174,8 +5189,8 @@ def _check_signatures(sigs: dict, totals: dict) -> dict:
                                        if tol else " (bit-exact)"))
     missing = [k for k, v in totals.items() if v and k not in errs]
     if missing:
-        fail(f"[launch] launched in phase 26 with no call signature checked: {missing}")
-    log(f"[launch] every call signature of the CLI runs and the bundles ({len(sigs)}, and "
+        fail(f"[{label}] launched with no call signature checked: {missing}")
+    log(f"[{label}] every call signature of the runs ({len(sigs)}, and "
         f"{len(keys) - len(sigs)} int8 forms), made anew on the card and held against the "
         f"plain version: " + "; ".join(notes))
     return errs
@@ -5217,6 +5232,197 @@ def phase_launch(smi: str) -> tuple[dict, dict]:
     log(f"[launch] wall {time.perf_counter() - t0:.1f} s: CLI runs {t1 - t0:.1f} s, bundles on "
         f"the card {t2 - t1:.1f} s, signature checks {t3 - t2:.1f} s, meta dry-run "
         f"{time.perf_counter() - t3:.1f} s")
+    return totals, errs
+
+
+A84_F = (0.0, 0.2)           # [a84] (a): the int8 linear cache's fractions
+A84_N = 8                    # [a84] (b): requests of the mesh engine's trace
+A84_MESHES = (("--mesh", "data,model=16,16"), ("--multi-pod",))
+
+
+def _counters(metrics) -> dict:
+    """A serve run's counters without its wall times."""
+    return {k: v for k, v in metrics.summary().items() if k not in ("wall_s", "tick_s")}
+
+
+def _a84_int8_decode(model, toks, totals: dict, rows: dict) -> None:
+    """(a): ``guided_decode`` at phase 10's shape with int8 linear caches:
+    its greedy logits (``teacher_forced_logits(tokens=None)``, the greedy
+    generate's) graphed and eager, each with its launches; the bf16 caches'
+    greedy run beside it."""
+    import torch
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
+    from repro_torch.core import ar_decode as AR
+    from repro_torch.core.selective import GuidancePlan
+    from repro_torch.kernels import decode_attention as KD
+    from repro_torch.kernels.quant import dequantize_kv
+
+    plans = {f: GuidancePlan.suffix(DECODE_NEW, f, DECODE_SCALE) for f in A84_F}
+    bf16 = {f: AR.teacher_forced_logits(model, toks, plan, None) for f, plan in plans.items()}
+    with torch.no_grad():
+        ref_ms = [_graph_ms(fn) for fn in _decode_steps(model, toks, DECODE_S)]
+    os.environ["REPRO_KV_QUANT"] = "int8"
+    try:
+        with torch.no_grad():
+            full, cond = _decode_steps(model, toks, DECODE_S)
+            q8_ms = [_graph_ms(full), _graph_ms(cond)]
+        for f, plan in plans.items():
+            want = _expected_launches(cfg, plan)
+            logits = {}
+            for graphs in (None, False):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits[graphs] = AR.teacher_forced_logits(model, toks, plan, None, graphs=graphs)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = launch_counts()
+                if counts != want:
+                    fail(f"a84 int8 f={f} graphs={graphs}: launches {counts}, want {want}")
+                _add(totals, counts)
+                log(f"[a84] int8 linear caches, f={f} {'graphed' if graphs is None else 'eager'} "
+                    f"greedy generate: {dt:.3f} s (graphs' capture included), launches exact "
+                    f"{ {k: v for k, v in want.items() if v} }")
+            if not torch.equal(logits[None], logits[False]):
+                fail(f"a84 int8 f={f}: graphed logits differ from eager's, max "
+                     f"{(logits[None] - logits[False]).abs().max().item():.3g}")
+            toks8, toks16 = logits[None].argmax(-1), bf16[f].argmax(-1)
+            first = [int(r.nonzero()[0]) if r.any() else DECODE_NEW for r in toks8 != toks16]
+            note = ""
+            if f == A84_F[-1]:
+                # int8 fed the bf16 run's tokens: the caches' own difference, no flip carried
+                fed = AR.teacher_forced_logits(model, toks, plan, toks16)
+                d = (fed - bf16[f]).abs().max().item() / bf16[f].abs().max().item()
+                moved = (fed.argmax(-1) != toks16).float().mean().item()
+                note = (f"; fed the bf16 tokens, int8 logits within {d:.4f} of max|logit| of "
+                        f"bf16's, argmax differs on {moved:.4f} of the steps")
+                del fed
+            log(f"[a84] int8 f={f}: graphed logits bit-equal to eager; "
+                f"{(toks8 == toks16).sum().item()} of {toks16.numel()} greedy tokens equal the "
+                f"bf16 caches', rows first differ at steps {first}{note}")
+            del logits
+        # B5 at the int8 path's shape, on a cache dequantized as the step reads it
+        with torch.no_grad():
+            _, cc = AR.prefill(model, toks)
+            cc = model.prepare_decode_caches(cc, seq_len=DECODE_S,
+                                             capacity=DECODE_S + DECODE_NEW)
+        c = cc[0]
+        k = dequantize_kv(c["k"], c["k_scale"], torch.bfloat16)
+        v = dequantize_kv(c["v"], c["v_scale"], torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(84)
+        q = torch.randn(DECODE_B, cfg.num_heads, cfg.resolved_head_dim, generator=gen,
+                        device="cuda").bfloat16()
+        pos = torch.tensor([DECODE_S - 1], dtype=torch.int32, device="cuda")
+        e, rel = _err_ok("decode_attention", "on the dequantized int8 cache", KD.decode_attention(
+            q, k, v, pos), KD.decode_attention_plain(q, k, v, pos),
+            per_row=ATTN_BF16_STEPS * BF16_STEP)
+        rows["decode_attention"] = max(rows.get("decode_attention", 0.0), e)
+        log(f"[a84] B5 on layer 0's dequantized int8 cache ({tuple(k.shape)}, pos "
+            f"{DECODE_S - 1}): max abs err {e:.3g} = {rel / BF16_STEP:.2f} bf16 steps of its "
+            "row's max")
+        del cc, c, k, v
+    finally:
+        del os.environ["REPRO_KV_QUANT"]
+    log(f"[a84] device ms a step (graph replay, B={DECODE_B}, capacity "
+        f"{DECODE_S + DECODE_NEW}): FULL {q8_ms[0]:.4f} int8 against {ref_ms[0]:.4f} bf16 "
+        f"({q8_ms[0] / ref_ms[0]:.3f}x), COND {q8_ms[1]:.4f} against {ref_ms[1]:.4f} "
+        f"({q8_ms[1] / ref_ms[1]:.3f}x)")
+    del bf16
+    model._decode_loops = {}
+    torch.cuda.empty_cache()
+
+
+def _a84_mesh_engine(model, totals: dict) -> None:
+    """(b): the paged engine on a one-device nccl mesh against the meshless."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.configs.llama3_2_1b import CONFIG as cfg
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import ContinuousEngine
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    log(f"[a84] make_host_mesh(): {mesh} in {time.perf_counter() - t0:.2f} s")
+    reqs = lambda: _serve_requests(cfg, A84_N, (64, 128), 32, seed=84)  # noqa: E731
+    arrivals = [0, 0, 1, 1, 2, 3, 5, 8]
+    try:
+        for kv_dtype in ("bf16", "int8"):
+            runs = {}
+            for m in (None, mesh):
+                kw = dict(kv="paged", kv_dtype=kv_dtype, page_size=16, num_slots=4,
+                          pass_budget=8, prompt_len=128, max_new=32, stop_on_eos=False, seed=0,
+                          selective_fraction=0.2, mesh=m)
+                reset_launches()
+                t0 = time.perf_counter()
+                eng = ContinuousEngine(model, cfg, **kw)
+                out = eng.serve_trace(reqs(), arrivals)
+                torch.cuda.synchronize()
+                runs[m is not None] = (eng, out, time.perf_counter() - t0, launch_counts())
+            (e0, o0, w0, c0), (e1, o1, w1, c1) = runs[False], runs[True]
+            if o1 != o0:
+                fail(f"a84 mesh engine {kv_dtype}: tokens differ from the meshless engine's")
+            if _counters(e1.metrics) != _counters(e0.metrics):
+                fail(f"a84 mesh engine {kv_dtype}: counters differ")
+            if e1.metrics.trace.keys() != e0.metrics.trace.keys():
+                fail(f"a84 mesh engine {kv_dtype}: events differ")
+            if c1 != c0:
+                fail(f"a84 mesh engine {kv_dtype}: launches {c1} against {c0}")
+            leaves = [d for layer in e1.placed["p"] for d in layer.values()]
+            if not leaves or not all(isinstance(d, DTensor) and d.placements[0] == Shard(0)
+                                     for d in leaves):
+                fail(f"a84 mesh engine {kv_dtype}: pool leaves are not DTensors on Shard(0)")
+            if e1._pool_p[0]["k"].data_ptr() != e1.placed["p"][0]["k"].to_local().data_ptr():
+                fail(f"a84 mesh engine {kv_dtype}: the steps do not write the DTensor's storage")
+            _add(totals, c1)
+            log(f"[a84] mesh engine {kv_dtype} on {mesh} (nccl, world 1): {len(leaves)} pool "
+                f"leaves DTensors, placements {leaves[0].placements}; tokens, counters, events "
+                f"and launches equal the meshless engine's ({e1.metrics.ticks} ticks); wall "
+                f"{w1:.3f} s against {w0:.3f} s; launches {c1}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+
+def _a84_dryrun() -> None:
+    """(c): the meta dry-run on the production meshes."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun as DR
+    for flags in A84_MESHES:
+        t0 = time.perf_counter()
+        recs = []
+        for arch in LAUNCH_DRY_ARCHS:
+            recs += DR.main([*flags, "--arch", arch])
+        bad = [(r["arch"], r["shape"], r.get("error")) for r in recs if r["status"] != "ok"]
+        if bad or len(recs) != len(LAUNCH_DRY_ARCHS) * len(SHAPES):
+            fail(f"a84 dryrun {' '.join(flags)}: {bad}")
+        log(f"[a84] dryrun {' '.join(flags)} on meta: {len(recs)} ok in "
+            f"{time.perf_counter() - t0:.1f} s; one device's argument GB "
+            + ", ".join(f"{r['arch']}:{r['shape']} "
+                        f"{r['memory_analysis']['argument_size'] / 1e9:.4f}" for r in recs))
+
+
+def phase_a84(smi: str) -> tuple[dict, dict]:
+    """``[a84]``: the int8 linear cache's guided decode, the mesh engine and
+    the meta dry-run on the production meshes (phase 27). -> (launches per
+    kernel of its runs, max abs error per row of the kernels line)."""
+    totals, sigs, errs = {}, {}, {}
+    t0 = time.perf_counter()
+    model, toks = _decode_model()
+    with _recording_signatures(sigs):
+        _a84_int8_decode(model, toks, totals, errs)
+        t1 = time.perf_counter()
+        _a84_mesh_engine(model, totals)
+    del model
+    t2 = time.perf_counter()
+    for name, e in _check_signatures(sigs, totals, label="a84").items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    t3 = time.perf_counter()
+    _a84_dryrun()
+    log(f"[a84] wall {time.perf_counter() - t0:.1f} s: int8 decode {t1 - t0:.1f} s, mesh "
+        f"engine {t2 - t1:.1f} s, signature checks {t3 - t2:.1f} s, meta dry-run "
+        f"{time.perf_counter() - t3:.1f} s; {smi}")
     return totals, errs
 
 
@@ -5294,7 +5500,9 @@ def main() -> None:
     lap("phase 25")
     launch_launches, launch_errs = phase_launch(smi)
     lap("phase 26")
-    for name, e in launch_errs.items():
+    a84_launches, a84_errs = phase_a84(smi)
+    lap("phase 27")
+    for name, e in list(launch_errs.items()) + list(a84_errs.items()):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
 
     cu = "src/repro_torch/csrc/"
@@ -5326,17 +5534,19 @@ def main() -> None:
         a5 = a5_launches.get(name, 0)
         cl, tr = claims_launches.get(name, 0), train_launches.get(name, 0)
         fam, la = family_launches.get(name, 0), launch_launches.get(name, 0)
-        if sd + ar + sv + sl + a5 + cl + tr + fam + la == 0:
+        a84 = a84_launches.get(name, 0)
+        if sd + ar + sv + sl + a5 + cl + tr + fam + la + a84 == 0:
             fail(f"{name}: launched no time on the main paths")
         log(f"[launches] {name}: {sd} in the SD generate's run, {ar} in guided_decode's, "
             f"{sv} in the paged serve runs', {sl} in the slot, lazy, facade and windowed slot "
             f"runs', {a5} in phase 24's (async, tier, content, fleet, autotune), {cl} in "
             f"the claims' generates on the trained pipeline, {tr} in the timed LM training "
             f"steps, {fam} in phase 25's (the other families), {la} in phase 26's (the "
-            f"serve CLI and the dry-run's bundles on the card)")
+            f"serve CLI and the dry-run's bundles on the card), {a84} in phase 27's (int8 "
+            f"linear caches, the mesh engine)")
         r = {k: v for k, v in rows[name].items() if k != "host_us"}
         out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
-                        launches=sd + ar + sv + sl + a5 + cl + tr + fam + la, **r))
+                        launches=sd + ar + sv + sl + a5 + cl + tr + fam + la + a84, **r))
     log(f"[time] the whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(smi)

@@ -46,8 +46,16 @@ allocator (its ``requested_bytes``) and against what
 512-byte blocks, more where the allocator hands a large tensor the rest of
 its 2 MiB-rounded segment unsplit.
 
-``--mesh`` and ``--multi-pod`` (sharded meshes) are not ported yet (ROADMAP
-A8.4).
+``--multi-pod`` (the 2x16x16 production mesh) or ``--mesh axes=shape``
+(``data,model=16,16`` is the 16x16 one): the bundle is built with that
+``MeshShape`` (``launch/steps.py``: a ``P`` for every argument by the rule
+tables) and the record is one device's:
+``argument_size`` and ``bytes_per_device`` count each argument's
+``local_shape`` (outputs as above, unsplit), ``flops`` and
+``model_flops`` are divided by the mesh's devices, ``chips`` is their
+count. The step itself still runs once on meta, unsharded; collectives
+are not priced (``collective_s`` 0: the reference's HLO collective parsing
+has no counterpart), so a sharded record is a floor.
 """
 
 from __future__ import annotations
@@ -64,7 +72,9 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import resolve_device
 from repro_torch import roofline as RL
 from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.dist.sharding import MeshShape
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import chips, make_production_mesh
 
 ALLOC_BLOCK = 512          # the CUDA caching allocator rounds every block to this
 TIMED_RUNS = 3
@@ -76,11 +86,32 @@ def _round_block(n: int) -> int:
     return -(-n // ALLOC_BLOCK) * ALLOC_BLOCK
 
 
+def _custom_mesh(spec: str) -> MeshShape:
+    """``"data,model=16,16"`` (the reference's form) or ``"data=16,model=16"``
+    -> MeshShape((16, 16), ("data", "model"))."""
+    if spec.count("=") > 1:
+        pairs = [part.partition("=") for part in spec.split(",")]
+        return MeshShape(tuple(int(n) for _, _, n in pairs), tuple(a for a, _, _ in pairs))
+    axes_s, _, shape_s = spec.partition("=")
+    return MeshShape(tuple(int(x) for x in shape_s.split(",")), tuple(axes_s.split(",")))
+
+
+def mesh_for(multi_pod: bool, mesh_spec: str | None):
+    """-> (the mesh or None, the record's mesh name)."""
+    if mesh_spec:
+        return _custom_mesh(mesh_spec), mesh_spec
+    if multi_pod:
+        return make_production_mesh(multi_pod=True), "2x16x16"
+    return None, MESH
+
+
 def measure(bundle: ST.StepBundle, *, model_flops: float = 0.0,
-            supplement: dict | None = None) -> dict:
+            supplement: dict | None = None, mesh: MeshShape | None = None) -> dict:
     """Runs ``bundle.fn`` once on its meta specs under ``FlopCounterMode``.
-    -> the record's ``memory_analysis`` and ``roofline``."""
+    -> the record's ``memory_analysis`` and ``roofline``, one device's
+    share under ``mesh`` (the bundle built on it)."""
     supplement = supplement or {"flops": 0.0, "bytes": 0.0}
+    n = 1 if mesh is None else chips(mesh)
     args = bundle.in_specs
     arg_leaves = ST.leaves(args)
     arg_ids = {id(t) for t in arg_leaves}
@@ -88,11 +119,14 @@ def measure(bundle: ST.StepBundle, *, model_flops: float = 0.0,
     with counter:
         out = bundle.fn(*args)
     outs = ST.leaves(out)
-    arg_bytes = sum(t.numel() * t.element_size() for t in arg_leaves)
+    total_arg_bytes = sum(t.numel() * t.element_size() for t in arg_leaves)
+    arg_bytes = total_arg_bytes if mesh is None \
+        else ST.local_bytes(args, bundle.in_shardings, mesh)
     out_bytes = sum(t.numel() * t.element_size() for t in outs)
     new_out_bytes = sum(t.numel() * t.element_size() for t in outs if id(t) not in arg_ids)
-    flops = float(counter.get_total_flops()) + supplement["flops"]
-    byts = float(arg_bytes + new_out_bytes) + supplement["bytes"]
+    flops = (float(counter.get_total_flops()) + supplement["flops"]) / n
+    model_flops = model_flops / n
+    byts = float(arg_bytes + new_out_bytes) + supplement["bytes"] / n
     cost = RL.StepCost(flops=flops, bytes=byts)
     compute_s, memory_s = cost.compute_s, cost.memory_s
     terms = {"compute": compute_s, "memory": memory_s, "collective": 0.0}
@@ -100,7 +134,7 @@ def measure(bundle: ST.StepBundle, *, model_flops: float = 0.0,
         "memory_analysis": {"argument_size": arg_bytes, "output_size": out_bytes,
                             "temp_size": None, "code_size": None},
         "roofline": {
-            "name": bundle.name, "chips": 1, "flops": flops, "bytes": byts,
+            "name": bundle.name, "chips": n, "flops": flops, "bytes": byts,
             "counted_flops": float(counter.get_total_flops()),
             "supplement": supplement, "coll_bytes": 0.0, "coll_breakdown": {},
             "model_flops": model_flops, "bytes_per_device": arg_bytes + new_out_bytes,
@@ -108,7 +142,7 @@ def measure(bundle: ST.StepBundle, *, model_flops: float = 0.0,
             "dominant": max(terms, key=terms.get),
             "useful_ratio": model_flops / flops if flops else 0.0,
         },
-        "cards": max(1, math.ceil(arg_bytes / RL.H100_HBM_CAPACITY)),
+        "cards": max(1, math.ceil(total_arg_bytes / RL.H100_HBM_CAPACITY)),
     }
 
 
@@ -160,14 +194,16 @@ def run_on_device(bundle: ST.StepBundle, device, *, high: int) -> dict:
 
 def _print_ok(rec: dict) -> None:
     mem, rl = rec["memory_analysis"], rec["roofline"]
-    print(f"[ok] {rl['name']} device={rec['device_kind']} build+run={rec['compile_s']}s",
+    print(f"[ok] {rl['name']} mesh={rec['mesh']} device={rec['device_kind']} "
+          f"build+run={rec['compile_s']}s",
           flush=True)
     print(f"     memory: args={mem['argument_size'] / 1e9:.3f}GB "
           f"out={mem['output_size'] / 1e9:.3f}GB cards={rec['cards']}", flush=True)
     print(f"     flops: counted={rl['counted_flops']:.3e} "
           f"supplement={rl['supplement']['flops']:.3e} model={rl['model_flops']:.3e}",
           flush=True)
-    print(f"     roofline (1 H100): compute={rl['compute_s']:.3e}s "
+    where = "1 H100" if rl["chips"] == 1 else f"one of {rl['chips']} H100s, no collectives"
+    print(f"     roofline ({where}): compute={rl['compute_s']:.3e}s "
           f"memory={rl['memory_s']:.3e}s collective=0 dominant={rl['dominant']} "
           f"useful={rl['useful_ratio']:.2f}", flush=True)
     d = rec.get("device")
@@ -181,9 +217,9 @@ def _print_ok(rec: dict) -> None:
               flush=True)
 
 
-def _finish(rec: dict, bundle, t0: float, *, device, high: int,
+def _finish(rec: dict, bundle, t0: float, *, device, high: int, mesh=None,
             model_flops: float = 0.0, supplement=None, verbose: bool = True) -> None:
-    rec.update(measure(bundle, model_flops=model_flops, supplement=supplement))
+    rec.update(measure(bundle, model_flops=model_flops, supplement=supplement, mesh=mesh))
     rec["device_kind"] = "meta"
     if device is not None and torch.device(device).type == "cuda":
         rec["device"] = run_on_device(bundle, device, high=high)
@@ -201,16 +237,20 @@ def _error(rec: dict, label: str, e: Exception, verbose: bool) -> None:
         print(f"[ERR] {label} {rec['error']}", flush=True)
 
 
-def run_one(arch: str, shape_name: str, *, variant: str = "full", verbose: bool = True,
-            device=None) -> dict:
+def run_one(arch: str, shape_name: str, *, multi_pod: bool = False, variant: str = "full",
+            verbose: bool = True, device=None, mesh_spec: str | None = None) -> dict:
     """One (arch x shape) record. ``device``: None or "meta" for the meta
-    run alone, "cuda" to run the step on the card as well."""
+    run alone, "cuda" to run the step on the card as well (one device: no
+    mesh). ``multi_pod``/``mesh_spec``: the record of one device of that
+    mesh."""
     if arch == "sd-unet":
-        return run_sd(variant=variant, verbose=verbose, device=device)
+        return run_sd(multi_pod=multi_pod, variant=variant, verbose=verbose, device=device,
+                      mesh_spec=mesh_spec)
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     reason = ST.skip_reason(cfg, shape)
-    rec = {"arch": arch, "shape": shape_name, "variant": variant, "mesh": MESH}
+    mesh, name = mesh_for(multi_pod, mesh_spec)
+    rec = {"arch": arch, "shape": shape_name, "variant": variant, "mesh": name}
     if reason:
         rec.update(status="skipped", reason=reason)
         return rec
@@ -219,22 +259,25 @@ def run_one(arch: str, shape_name: str, *, variant: str = "full", verbose: bool 
     useful = ST.model_flops(cfg, shape) / (2 if variant == "cond" and shape.kind == "decode"
                                            else 1)
     try:
-        bundle = ST.build(cfg, shape, None, variant=variant)
-        _finish(rec, bundle, t0, device=device, high=cfg.vocab_size, model_flops=useful,
+        bundle = ST.build(cfg, shape, mesh, variant=variant)
+        _finish(rec, bundle, t0, device=device, high=cfg.vocab_size, mesh=mesh,
+                model_flops=useful,
                 supplement=ST.recurrent_supplement(cfg, shape), verbose=verbose)
     except Exception as e:  # noqa: BLE001 — a dry-run failure IS the signal
         _error(rec, f"{arch}:{shape_name}", e, verbose)
     return rec
 
 
-def run_sd(*, variant: str = "full", verbose: bool = True, device=None) -> dict:
+def run_sd(*, multi_pod: bool = False, variant: str = "full", verbose: bool = True,
+           device=None, mesh_spec: str | None = None) -> dict:
     """One guided denoising step of the production-scale SD UNet (bf16,
     batch 64): the paper's own workload in the dry-run harness."""
-    rec = {"arch": "sd-unet", "shape": "denoise", "variant": variant, "mesh": MESH}
+    mesh, name = mesh_for(multi_pod, mesh_spec)
+    rec = {"arch": "sd-unet", "shape": "denoise", "variant": variant, "mesh": name}
     t0 = time.time()
     try:
-        bundle = ST.build_sd_denoise(None, variant=variant)
-        _finish(rec, bundle, t0, device=device, high=1000, verbose=verbose)
+        bundle = ST.build_sd_denoise(mesh, variant=variant)
+        _finish(rec, bundle, t0, device=device, high=1000, mesh=mesh, verbose=verbose)
     except Exception as e:  # noqa: BLE001
         _error(rec, "sd-unet", e, verbose)
     return rec
@@ -247,16 +290,18 @@ def main(argv=None) -> list:
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported yet (ROADMAP A8.4)")
+                    help="one device of the 2x16x16 (pod, data, model) mesh")
     ap.add_argument("--variant", default="full", choices=["full", "cond"])
-    ap.add_argument("--mesh", default=None, help="not ported yet (ROADMAP A8.4)")
+    ap.add_argument("--mesh", default=None,
+                    help="a mesh 'axes=shape', e.g. 'data,model=16,16' (the 16x16 "
+                         "production mesh; also 'data=16,model=16') or "
+                         "'data,expert,model=16,8,2'")
     ap.add_argument("--out", default=None, help="append JSONL here")
     ap.add_argument("--device", default="meta", choices=["meta", "cuda"],
                     help="meta: shapes only (default); cuda: also run each step on the card")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.mesh:
-        raise SystemExit("--mesh and --multi-pod need the sharding tables, "
-                         "not ported yet (ROADMAP A8.4)")
+    if (args.multi_pod or args.mesh) and args.device == "cuda":
+        ap.error("--device cuda runs a step on one card: it takes no --mesh or --multi-pod")
 
     jobs = []
     archs = list_archs() if (args.all or args.arch is None) else [args.arch]
@@ -270,7 +315,8 @@ def main(argv=None) -> list:
     t0 = time.time()
     results = []
     for a, s in jobs:
-        rec = run_one(a, s, variant=args.variant, device=args.device)
+        rec = run_one(a, s, multi_pod=args.multi_pod, variant=args.variant,
+                      device=args.device, mesh_spec=args.mesh)
         results.append(rec)
         if args.out:
             with open(args.out, "a") as f:

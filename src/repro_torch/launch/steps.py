@@ -28,14 +28,22 @@ the port's decode steps update their caches: the train step's parameters
 and optimizer state, the serve steps' caches. ``fn`` returns them all the
 same, in the reference's output structure.
 
-The reference's shardings and logical-axis rules have no counterpart yet:
-``in_shardings``, ``out_shardings`` and ``rules`` are ``None``, and a
-``mesh`` other than ``None`` raises (ROADMAP A8.4).
+Shardings: with ``mesh=None`` (one device) ``in_shardings``,
+``out_shardings`` and ``rules`` are ``None``. Given a mesh, ``rules`` is the
+shape's table (``rules_for_shape``) and every argument gets its layout from
+the logical axes the init code names (``models.layers.AxesMaker``): a
+``P`` a tensor on a ``MeshShape`` (the dry-run's production meshes), its
+DTensor placements on a ``DeviceMesh``. The model argument's entry is a
+dict by parameter name (``named_parameters``), as the optimizer state's
+moments are; ``out_shardings`` follows the reference's (None where it lets
+the compiler choose). The step itself runs unsharded: the layouts are
+where a launcher places its arguments, and what the dry-run prices.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -45,6 +53,9 @@ import torch
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import ar_decode as AR
 from repro_torch.core.guidance import cfg_combine
+from repro_torch.dist.sharding import (RULES_LONG, RULES_SERVE, RULES_TRAIN, AxisRules,
+                                       MeshShape, local_shape, logical_to_spec,
+                                       spec_placements, tree_shardings)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train import losses
@@ -58,17 +69,55 @@ class StepBundle:
     name: str
     fn: Callable
     in_specs: tuple          # meta tensors / modules / dicts and lists of them (positional)
-    in_shardings: Any = None     # None until the sharding tables are ported (ROADMAP A8.4)
-    out_shardings: Any = None
-    rules: Any = None
+    in_shardings: Any = None     # P or placements trees (same structure); None: one device
+    out_shardings: Any = None    # None -> unspecified
+    rules: AxisRules | None = None
     donate: tuple = ()       # arg indices fn updates in place (cache/param aliasing)
     init: Callable | None = None     # maker -> argument 0 (``init_model``/``init_unet``)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("a mesh or sharding rules are not ported yet "
-                                  "(ROADMAP A8.4): pass mesh=None, one device")
+def rules_for_shape(shape: InputShape) -> AxisRules:
+    if shape.kind == "train":
+        rules = RULES_TRAIN
+    elif shape.name == "long_500k":
+        rules = RULES_LONG
+    else:
+        rules = RULES_SERVE
+    # REPRO_RULE_OVERRIDE="state=;kv_seq=model,data" rebinds logical axes
+    # without touching the rule tables.
+    ov = os.environ.get("REPRO_RULE_OVERRIDE")
+    if ov:
+        kw = {}
+        for part in ov.split(";"):
+            name, _, axes = part.partition("=")
+            kw[name.strip()] = tuple(a for a in axes.split(",") if a)
+        rules = rules.override(**kw)
+    return rules
+
+
+def _sharding(mesh, rules, logical, shape):
+    """One tensor's layout: its ``P`` on a ``MeshShape``, its placements on
+    a ``DeviceMesh``."""
+    spec = logical_to_spec(logical, rules, shape=shape, mesh=mesh)
+    return spec if isinstance(mesh, MeshShape) else spec_placements(spec, mesh)
+
+
+def flat_axes(tree, prefix: str = "") -> dict:
+    """An axes tree as {dotted path: axes}, the paths ``named_parameters``
+    gives the module built from the same tree (``None`` entries have none)."""
+    if L.is_axes_leaf(tree):
+        return {prefix[:-1]: tree}
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if v is not None:
+            out.update(flat_axes(v, f"{prefix}{k}."))
+    return out
+
+
+def module_shardings(axes_tree, module, mesh, rules) -> dict:
+    """{parameter name: layout} of ``module`` from its init's axes tree."""
+    return tree_shardings(flat_axes(axes_tree), dict(module.named_parameters()), mesh, rules)
 
 
 def _spec(shape, dtype) -> torch.Tensor:
@@ -80,9 +129,9 @@ def _transformer(cfg: ModelConfig, maker) -> T.Transformer:
 
 
 def param_specs(cfg: ModelConfig, *, dtype):
-    """-> (the model on the meta device with ``dtype`` parameters, None: the
-    reference's logical axes come with the sharding tables, A8.4)."""
-    return _transformer(cfg, L.SpecMaker(dtype)), None
+    """-> (the model on the meta device with ``dtype`` parameters, the
+    logical axes tree of its init: ``init_model`` under an ``AxesMaker``)."""
+    return _transformer(cfg, L.SpecMaker(dtype)), T.init_model(cfg, L.AxesMaker())
 
 
 def skip_reason(cfg: ModelConfig, shape: InputShape) -> str | None:
@@ -105,10 +154,9 @@ def supports_long_context(cfg: ModelConfig) -> bool:
 
 def build_train_step(cfg: ModelConfig, shape: InputShape, mesh,
                      opt_cfg: AdamWConfig | None = None) -> StepBundle:
-    _no_mesh(mesh)
     opt_cfg = opt_cfg or AdamWConfig()
     B, S = shape.global_batch, shape.seq_len
-    model, _ = param_specs(cfg, dtype=torch.float32)
+    model, paxes = param_specs(cfg, dtype=torch.float32)
     model.requires_grad_(True)
     opt_specs = init_opt_state(dict(model.named_parameters()))
 
@@ -159,20 +207,41 @@ def build_train_step(cfg: ModelConfig, shape: InputShape, mesh,
         _, opt_state, om = adamw_update(opt_cfg, params, grads, opt_state)
         return model, opt_state, {"loss": loss, **metrics, **om}
 
+    shard = {}
+    if mesh is not None:
+        rules = rules_for_shape(shape)
+        psh = module_shardings(paxes, model, mesh, rules)
+        opt_sh = {"m": psh, "v": psh, "step": _sharding(mesh, rules, (), ())}
+        if cfg.is_encoder:
+            batch_sh = {"features": _sharding(mesh, rules, ("batch", "seq", None),
+                                              (B, S, cfg.d_model)),
+                        "targets": _sharding(mesh, rules, ("batch", "seq"), (B, S)),
+                        "mask": _sharding(mesh, rules, ("batch", "seq"), (B, S))}
+        else:
+            batch_sh = {"tokens": _sharding(mesh, rules, ("batch", "seq"), (B, S))}
+        shard = dict(in_shardings=(psh, opt_sh, batch_sh), out_shardings=(psh, opt_sh, None),
+                     rules=rules)
     return StepBundle(
         name=f"{cfg.name}:{shape.name}:train",
         fn=train_step,
         in_specs=(model, opt_specs, batch_specs),
         donate=(0, 1),
         init=functools.partial(_transformer, cfg),
+        **shard,
     )
 
 
 def build_prefill(cfg: ModelConfig, shape: InputShape, mesh) -> StepBundle:
-    _no_mesh(mesh)
     B, S = shape.global_batch, shape.seq_len
     long_ctx = shape.name == "long_500k"
-    model, _ = param_specs(cfg, dtype=torch.bfloat16)
+    model, paxes = param_specs(cfg, dtype=torch.bfloat16)
+    shard = {}
+    if mesh is not None:
+        rules = rules_for_shape(shape)
+        psh = module_shardings(paxes, model, mesh, rules)
+        inp = (("batch", "seq", None), (B, S, cfg.d_model)) if cfg.is_encoder \
+            else (("batch", "seq"), (B, S))
+        shard = dict(in_shardings=(psh, _sharding(mesh, rules, *inp)), rules=rules)
 
     if cfg.is_encoder:
         @torch.no_grad()
@@ -182,7 +251,7 @@ def build_prefill(cfg: ModelConfig, shape: InputShape, mesh) -> StepBundle:
 
         return StepBundle(f"{cfg.name}:{shape.name}:encode", encode,
                           (model, _spec((B, S, cfg.d_model), torch.bfloat16)),
-                          init=functools.partial(_transformer, cfg))
+                          init=functools.partial(_transformer, cfg), **shard)
 
     @torch.no_grad()
     def prefill(model, tokens):
@@ -195,19 +264,31 @@ def build_prefill(cfg: ModelConfig, shape: InputShape, mesh) -> StepBundle:
 
     return StepBundle(f"{cfg.name}:{shape.name}:prefill", prefill,
                       (model, _spec((B, S), torch.int32)),
-                      init=functools.partial(_transformer, cfg))
+                      init=functools.partial(_transformer, cfg), **shard)
 
 
 def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh, *,
                      variant: str = "full") -> StepBundle:
     """One-token guided decode step with a ``seq_len``-deep cache/state."""
-    _no_mesh(mesh)
     B, S = shape.global_batch, shape.seq_len
     long_ctx = shape.name == "long_500k"
-    model, _ = param_specs(cfg, dtype=torch.bfloat16)
+    model, paxes = param_specs(cfg, dtype=torch.bfloat16)
 
     def caches():
         return T.cache_specs(cfg, B, S, long_ctx=long_ctx, dtype=torch.bfloat16, device=META)
+
+    psh = tok_sh = csh = rules = None
+    if mesh is not None:
+        rules = rules_for_shape(shape)
+        psh = module_shardings(paxes, model, mesh, rules)
+        csh = tree_shardings(T.cache_axes(cfg, S, long_ctx=long_ctx), caches(), mesh, rules)
+        tok_sh = _sharding(mesh, rules, ("batch",), (B,))
+
+    def shard(n_caches: int) -> dict:
+        if mesh is None:
+            return {}
+        return dict(in_shardings=(psh, tok_sh) + (csh,) * n_caches,
+                    out_shardings=(tok_sh,) + (csh,) * n_caches, rules=rules)
 
     tok_spec = _spec((B,), torch.int32)
     pos = S - 1   # cache prefilled to S-1; the step writes position S-1
@@ -222,7 +303,7 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh, *,
 
         return StepBundle(f"{cfg.name}:{shape.name}:serve_full", serve_step,
                           (model, tok_spec, caches(), caches()), donate=(2, 3),
-                          init=functools.partial(_transformer, cfg))
+                          init=functools.partial(_transformer, cfg), **shard(2))
 
     @torch.no_grad()
     def serve_step_cond(model, token, caches_c):
@@ -232,7 +313,7 @@ def build_serve_step(cfg: ModelConfig, shape: InputShape, mesh, *,
 
     return StepBundle(f"{cfg.name}:{shape.name}:serve_cond", serve_step_cond,
                       (model, tok_spec, caches()), donate=(2,),
-                      init=functools.partial(_transformer, cfg))
+                      init=functools.partial(_transformer, cfg), **shard(1))
 
 
 def build(cfg: ModelConfig, shape: InputShape, mesh, *, variant="full") -> StepBundle:
@@ -330,8 +411,6 @@ def build_sd_denoise(mesh, *, variant: str = "full", batch: int = 64):
     from repro_torch.core.sampler import ddim_update
     from repro_torch.models import unet as U
 
-    _no_mesh(mesh)
-
     def init(maker):
         return U.UNet(ucfg, U.init_unet(ucfg, maker))
 
@@ -342,6 +421,18 @@ def build_sd_denoise(mesh, *, variant: str = "full", batch: int = 64):
     txt = _spec((B, ucfg.text_len, ucfg.text_dim), torch.bfloat16)
     scal = _spec((), torch.float32)
     t_spec = _spec((B,), torch.int32)
+    in_sh = out_sh = rules = None
+    if mesh is not None:
+        rules = RULES_SERVE
+        psh = module_shardings(U.init_unet(ucfg, L.AxesMaker()), unet, mesh, rules)
+        lat_sh = _sharding(mesh, rules, ("batch", None, None, None), lat.shape)
+        txt_sh = _sharding(mesh, rules, ("batch", None, None), txt.shape)
+        t_sh = _sharding(mesh, rules, ("batch",), (B,))
+        rep = _sharding(mesh, rules, (), ())
+        in_sh = (psh, lat_sh, t_sh, txt_sh) + ((txt_sh,) if variant == "full" else ()) \
+            + (rep, rep)
+        out_sh = lat_sh
+    shard = dict(in_shardings=in_sh, out_shardings=out_sh, rules=rules)
 
     if variant == "full":
         @torch.no_grad()
@@ -358,7 +449,7 @@ def build_sd_denoise(mesh, *, variant: str = "full", batch: int = 64):
         return StepBundle(f"{ucfg.name}:denoise:full", denoise_step,
                           (unet, lat, t_spec, txt, _spec(txt.shape, txt.dtype), scal,
                            _spec((), torch.float32)),
-                          donate=(1,), init=init)
+                          donate=(1,), init=init, **shard)
 
     @torch.no_grad()
     def denoise_step_cond(unet, x, t, cond, ab_t, ab_prev):
@@ -367,7 +458,7 @@ def build_sd_denoise(mesh, *, variant: str = "full", batch: int = 64):
 
     return StepBundle(f"{ucfg.name}:denoise:cond", denoise_step_cond,
                       (unet, lat, t_spec, txt, scal, _spec((), torch.float32)),
-                      donate=(1,), init=init)
+                      donate=(1,), init=init, **shard)
 
 
 # ---------------------------------------------------------------------------
@@ -402,6 +493,33 @@ def leaves(tree) -> list:
 
 def tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def local_bytes(tree, specs, mesh) -> int:
+    """The bytes one device holds of an argument tree laid out by ``specs``
+    (a ``P`` tree of the same structure; a module's entry a dict by
+    parameter name) on ``mesh``: each tensor's ``local_shape``, each
+    tensor once."""
+    seen, total = set(), 0
+
+    def walk(x, sp):
+        nonlocal total
+        if isinstance(x, torch.nn.Module):
+            for name, t in x.named_parameters():
+                walk(t, sp[name])
+        elif isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen.add(id(x))
+                total += math.prod(local_shape(x.shape, sp, mesh)) * x.element_size()
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, sp[k])
+        else:
+            for v, s in zip(x, sp):
+                walk(v, s)
+
+    walk(tree, specs)
+    return total
 
 
 def materialize(bundle: StepBundle, generator: torch.Generator, device, *,

@@ -21,6 +21,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, list_archs
 from repro_torch.data.synthetic import audio_frames, lm_batches
+from repro_torch.dist.sharding import mesh_sizes
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import Transformer
 from repro_torch.train import losses
 from repro_torch.train.loop import make_train_step, train
@@ -94,7 +96,9 @@ def main(argv=None) -> list:
     if args.reduced:
         cfg = cfg.reduced()
     dev = resolve_device(args.device)
-    print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} device={dev}")
+    mesh = make_host_mesh(device=dev.type)
+    print(f"arch={cfg.name} layers={cfg.num_layers} d={cfg.d_model} device={dev} "
+          f"mesh={mesh_sizes(mesh)}")
 
     model = Transformer.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                              device=dev).requires_grad_(True)

@@ -29,6 +29,7 @@ computes once per forward. Grouped-head products never replicate KV.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -37,7 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import paged_decode_attention as KP
-from repro_torch.kernels.quant import quantize_kv
+from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.models import layers as L
 
 
@@ -45,14 +46,14 @@ def init_attention(cfg, mk):
     D, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     p = {
-        "wq": mk((D, H, hd), scale=1 / math.sqrt(D)),
-        "wk": mk((D, K, hd), scale=1 / math.sqrt(D)),
-        "wv": mk((D, K, hd), scale=1 / math.sqrt(D)),
-        "wo": mk((H, hd, D), scale=1 / math.sqrt(H * hd)),
+        "wq": mk((D, H, hd), ("embed", "heads", "head_dim"), scale=1 / math.sqrt(D)),
+        "wk": mk((D, K, hd), ("embed", "kv_heads", "head_dim"), scale=1 / math.sqrt(D)),
+        "wv": mk((D, K, hd), ("embed", "kv_heads", "head_dim"), scale=1 / math.sqrt(D)),
+        "wo": mk((H, hd, D), ("heads", "head_dim", "embed"), scale=1 / math.sqrt(H * hd)),
     }
     if cfg.qk_norm:
-        p["q_norm"] = mk((hd,), init="ones")
-        p["k_norm"] = mk((hd,), init="ones")
+        p["q_norm"] = mk((hd,), ("head_dim",), init="ones")
+        p["k_norm"] = mk((hd,), ("head_dim",), init="ones")
     return p
 
 
@@ -138,22 +139,62 @@ def decode_pos(pos, device, rows=None) -> DecodePos:
     return DecodePos(pos, pos.long())
 
 
+def kv_quant() -> bool:
+    """``REPRO_KV_QUANT=int8``, read at each call as the reference reads it:
+    linear decode caches (not rings, not the paged pool, which has
+    ``kv_dtype``) hold int8 values and bf16 scales, one a (position, kv
+    head)."""
+    return os.environ.get("REPRO_KV_QUANT") == "int8"
+
+
+def quantize_linear_kv(x):
+    """The linear cache's int8 form: bf16 scales and the 1e-6 amax floor,
+    the reference's ``REPRO_KV_QUANT`` quantization. -> (values, scales)."""
+    return quantize_kv(x, scale_dtype=torch.bfloat16, eps=1e-6)
+
+
+def quantize_linear_cache(cache: dict) -> dict:
+    """{k, v} -> {k, v int8, k_scale, v_scale bf16 (..., 1)}."""
+    (kq, ks), (vq, vs) = quantize_linear_kv(cache["k"]), quantize_linear_kv(cache["v"])
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+def _cache_put(cache, name: str, dp: DecodePos, new) -> None:
+    """Write ``new`` (B,1,...) at the step's position, in place: for every
+    batch row, or at each row's own cache row and position."""
+    if dp.rows is None:
+        cache[name].index_copy_(1, dp.index, new)
+    else:
+        cache[name].index_put_((dp.row_index, dp.index), new[:, 0])
+
+
 def attn_decode(p, cfg, x, cache, pos, rope, *, window=None):
     """One token at ``pos`` (see ``decode_pos``) vs a linear cache {k, v}
     (B,S,K,hd), or (N,S,K,hd) read through per-row cache rows. Writes the new K/V
     at ``pos`` in place by a device index (the reference updates
     functionally), then attends to keys ``<= pos`` (and inside
-    ``window``). x (B,1,D) -> (out (B,1,D), cache)."""
+    ``window``). An int8 cache (``kv_quant``: {k, v int8, k_scale,
+    v_scale}) is written quantized, then read dequantized to x's dtype, as
+    the reference does; the flash-decode kernel runs on that copy. x
+    (B,1,D) -> (out (B,1,D), cache)."""
     dp = decode_pos(pos, x.device)
     q, k_new, v_new = _qkv(p, cfg, x, rope)
-    if dp.rows is None:
-        cache["k"].index_copy_(1, dp.index, k_new)
-        cache["v"].index_copy_(1, dp.index, v_new)
+    if cache["k"].dtype == torch.int8:
+        if "k_scale" not in cache:
+            raise ValueError("an int8 linear cache needs its k_scale and v_scale leaves "
+                             "(REPRO_KV_QUANT=int8 builds them: cache_spec, "
+                             "prepare_decode_caches)")
+        for name, new in (("k", k_new), ("v", v_new)):
+            vals, scales = quantize_linear_kv(new)
+            _cache_put(cache, name, dp, vals)
+            _cache_put(cache, name + "_scale", dp, scales)
+        k = dequantize_kv(cache["k"], cache["k_scale"], x.dtype)
+        v = dequantize_kv(cache["v"], cache["v_scale"], x.dtype)
     else:
-        cache["k"].index_put_((dp.row_index, dp.index), k_new[:, 0])
-        cache["v"].index_put_((dp.row_index, dp.index), v_new[:, 0])
-    ctx = KD.decode_attention(q[:, 0], cache["k"], cache["v"], dp.pos, window=window,
-                              rows=dp.rows)
+        _cache_put(cache, "k", dp, k_new)
+        _cache_put(cache, "v", dp, v_new)
+        k, v = cache["k"], cache["v"]
+    ctx = KD.decode_attention(q[:, 0], k, v, dp.pos, window=window, rows=dp.rows)
     return _out_proj(p, ctx[:, None]), cache
 
 
@@ -182,20 +223,46 @@ def attn_decode_ring(p, cfg, x, cache, pos, rope, *, window: int):
     return _out_proj(p, ctx[:, None]), cache
 
 
-def cache_spec(cfg, batch: int, capacity: int, *, dtype=torch.bfloat16, device=None):
-    """A zero linear decode cache {k, v (batch, capacity, K, hd)} on
-    ``device`` (None: the GPU). (A decode's ring caches come from
-    ``cache_from_prefill``.)"""
+KV_AXES = ("batch", "kv_seq", "kv_heads", "head_dim")
+KV_SCALE_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+def cache_spec(cfg, batch: int, capacity: int, *, ring: bool = False,
+               dtype=torch.bfloat16, device=None):
+    """A zero decode cache {k, v (batch, capacity, K, hd)} on ``device``
+    (None: the GPU): linear, and under ``kv_quant`` int8 with bf16
+    {k_scale, v_scale (batch, capacity, K, 1)}; or with ``ring`` a ring of
+    ``capacity`` slots, never quantized, with slot_pos (capacity,) int32,
+    all -1 (empty)."""
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     device = resolve_device(device)
-    return {"k": torch.zeros(batch, capacity, K, hd, dtype=dtype, device=device),
-            "v": torch.zeros(batch, capacity, K, hd, dtype=dtype, device=device)}
+    quant = kv_quant() and not ring
+    vdt = torch.int8 if quant else dtype
+    out = {"k": torch.zeros(batch, capacity, K, hd, dtype=vdt, device=device),
+           "v": torch.zeros(batch, capacity, K, hd, dtype=vdt, device=device)}
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            out[name] = torch.zeros(batch, capacity, K, 1, dtype=torch.bfloat16, device=device)
+    if ring:
+        out["slot_pos"] = torch.full((capacity,), -1, dtype=torch.int32, device=device)
+    return out
+
+
+def cache_axes(*, ring: bool = False) -> dict:
+    """The logical axes of ``cache_spec``'s leaves (the reference's
+    ``cache_spec`` under an ``AxesMaker``), the knob read as there."""
+    out = {"k": KV_AXES, "v": KV_AXES}
+    if kv_quant() and not ring:
+        out.update(k_scale=KV_SCALE_AXES, v_scale=KV_SCALE_AXES)
+    if ring:
+        out["slot_pos"] = ("kv_seq",)
+    return out
 
 
 def ring_pool_spec(cfg, rows: int, window: int, *, dtype=torch.bfloat16, device=None):
     """``rows`` empty rings of ``window`` slots, one a slot arena row:
     {k, v (rows, window, K, hd), slot_pos (rows, window) int32, all -1}."""
-    pool = cache_spec(cfg, rows, window, dtype=dtype, device=device)
+    pool = cache_spec(cfg, rows, window, ring=True, dtype=dtype, device=device)
     pool["slot_pos"] = torch.full((rows, window), -1, dtype=torch.int32,
                                   device=pool["k"].device)
     return pool
@@ -254,6 +321,19 @@ def paged_cache_spec(cfg, num_pages: int, page_size: int, *, kv_dtype: str = "bf
         for name in ("k_scale", "v_scale"):
             pool[name] = torch.zeros(shape[:3] + (1,), dtype=torch.float32, device=device)
     return pool
+
+
+PAGED_AXES = ("pages", "page", "kv_heads", "head_dim")
+
+
+def paged_cache_axes(*, kv_dtype: str = "bf16") -> dict:
+    """The logical axes of ``paged_cache_spec``'s leaves: the scale leaves
+    carry the values' ``pages``/``page`` names, so a page's values and
+    scales shard alike."""
+    out = {"k": PAGED_AXES, "v": PAGED_AXES}
+    if kv_dtype == "int8":
+        out.update(k_scale=PAGED_AXES[:3] + (None,), v_scale=PAGED_AXES[:3] + (None,))
+    return out
 
 
 def pool_view(pool):

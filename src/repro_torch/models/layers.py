@@ -18,7 +18,7 @@ from repro_torch.kernels import rmsnorm as KR
 
 
 def init_rmsnorm(mk, dim: int):
-    return {"scale": mk((dim,), init="ones")}
+    return {"scale": mk((dim,), ("embed",), init="ones")}
 
 
 def rmsnorm(scale, x, eps: float = 1e-6):
@@ -31,7 +31,8 @@ def head_rmsnorm(scale, x, eps: float = 1e-6):
 
 
 def init_layernorm(mk, dim: int):
-    return {"scale": mk((dim,), init="ones"), "bias": mk((dim,), init="zeros")}
+    return {"scale": mk((dim,), ("embed",), init="ones"),
+            "bias": mk((dim,), ("embed",), init="zeros")}
 
 
 def layernorm(scale, bias, x, eps: float = 1e-5):
@@ -64,7 +65,7 @@ def put_state(state: dict, new: dict, rows) -> None:
 
 
 def init_embedding(mk, vocab: int, dim: int):
-    return {"table": mk((vocab, dim), scale=1.0 / math.sqrt(dim))}
+    return {"table": mk((vocab, dim), ("vocab", "embed"), scale=1.0 / math.sqrt(dim))}
 
 
 def embed(table, ids, dtype=None):
@@ -77,10 +78,10 @@ def dense(w, x):
 
 
 def init_gelu_mlp(mk, d_model: int, d_ff: int):
-    return {"w_in": mk((d_model, d_ff), scale=1.0 / math.sqrt(d_model)),
-            "b_in": mk((d_ff,), init="zeros"),
-            "w_out": mk((d_ff, d_model), scale=1.0 / math.sqrt(d_ff)),
-            "b_out": mk((d_model,), init="zeros")}
+    return {"w_in": mk((d_model, d_ff), ("embed", "mlp"), scale=1.0 / math.sqrt(d_model)),
+            "b_in": mk((d_ff,), ("mlp",), init="zeros"),
+            "w_out": mk((d_ff, d_model), ("mlp", "embed"), scale=1.0 / math.sqrt(d_ff)),
+            "b_out": mk((d_model,), ("embed",), init="zeros")}
 
 
 def gelu_mlp(w_in, b_in, w_out, b_out, x):
@@ -92,9 +93,9 @@ def gelu_mlp(w_in, b_in, w_out, b_out, x):
 
 def init_swiglu(mk, d_model: int, d_ff: int):
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
-    return {"w_gate": mk((d_model, d_ff), scale=s_in),
-            "w_up": mk((d_model, d_ff), scale=s_in),
-            "w_down": mk((d_ff, d_model), scale=s_out)}
+    return {"w_gate": mk((d_model, d_ff), ("embed", "mlp"), scale=s_in),
+            "w_up": mk((d_model, d_ff), ("embed", "mlp"), scale=s_in),
+            "w_down": mk((d_ff, d_model), ("mlp", "embed"), scale=s_out)}
 
 
 def swiglu(p, x):
@@ -143,18 +144,27 @@ def sinusoidal_embedding(positions, dim: int, max_period: float = 10000.0):
 
 
 # -- parameters ----------------------------------------------------------------
+#
+# Every init function takes a maker ``mk(shape, axes, *, init, scale,
+# dtype)``: ``axes`` names each dim logically ("embed", "heads", "batch",
+# ...), as the reference's makers do. The same init code then gives real
+# weights (``Maker``), meta tensors (``SpecMaker``) or the names alone
+# (``AxesMaker``), the rule tables' input (``repro_torch.dist``), so that
+# weights, specs and shardings cannot drift apart.
 
 
 class Maker:
     """Draws weights as ``repro``'s ``ArrayMaker`` scales them: normal times
     ``scale`` (default 1/sqrt(fan-in), fan-in = product of all dims but the
-    last), or zeros, or ones. Numbers come from ``generator``, on ``device``."""
+    last), or zeros, or ones. Numbers come from ``generator``, on ``device``;
+    ``dtype`` per call overrides the maker's."""
 
     def __init__(self, generator, dtype, device):
         self.generator, self.dtype, self.device = generator, dtype, torch.device(device)
 
-    def __call__(self, shape, *, init="normal", scale=None):
-        kw = dict(dtype=self.dtype, device=self.device)
+    def __call__(self, shape, axes, *, init="normal", scale=None, dtype=None):
+        assert len(shape) == len(axes), (shape, axes)
+        kw = dict(dtype=dtype or self.dtype, device=self.device)
         if init == "zeros":
             return torch.zeros(shape, **kw)
         if init == "ones":
@@ -163,7 +173,7 @@ class Maker:
             scale = 1.0 / math.sqrt(max(1, math.prod(shape[:-1])))
         w = torch.randn(shape, generator=self.generator, dtype=torch.float32,
                         device=self.device)
-        return (w * scale).to(self.dtype)
+        return (w * scale).to(kw["dtype"])
 
 
 class SpecMaker:
@@ -177,8 +187,35 @@ class SpecMaker:
     def __init__(self, dtype=torch.bfloat16):
         self.dtype = dtype
 
-    def __call__(self, shape, *, init="normal", scale=None):
-        return torch.empty(tuple(shape), dtype=self.dtype, device="meta")
+    def __call__(self, shape, axes, *, init="normal", scale=None, dtype=None):
+        assert len(shape) == len(axes), (shape, axes)
+        return torch.empty(tuple(shape), dtype=dtype or self.dtype, device="meta")
+
+
+class AxesMaker:
+    """The logical axis names alone: an init function called with it
+    returns its tree with a tuple of names (``None`` for a dim no rule
+    names) at every leaf."""
+
+    def __call__(self, shape, axes, *, init="normal", scale=None, dtype=None):
+        assert len(shape) == len(axes), (shape, axes)
+        return tuple(axes)
+
+
+def is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None))) for a in x)
+
+
+def map_axes(fn, tree):
+    """``fn`` applied to every axes leaf of a nested dict/list tree (``None``
+    entries kept)."""
+    if is_axes_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [None if v is None else map_axes(fn, v) for v in tree]
+    raise TypeError(f"not an axes tree: {type(tree).__name__}")
 
 
 def tree_module(tree) -> nn.Module:

@@ -32,12 +32,12 @@ def init_mla(cfg, mk):
     dn, dr, dv, r = a.qk_nope_head_dim, a.qk_rope_head_dim, a.v_head_dim, a.kv_lora_rank
     s = 1 / math.sqrt(D)
     return {
-        "wq": mk((D, H, dn + dr), scale=s),
-        "w_dkv": mk((D, r + dr), scale=s),
-        "kv_norm": mk((r,), init="ones"),
-        "w_uk": mk((r, H, dn), scale=1 / math.sqrt(r)),
-        "w_uv": mk((r, H, dv), scale=1 / math.sqrt(r)),
-        "wo": mk((H, dv, D), scale=1 / math.sqrt(H * dv)),
+        "wq": mk((D, H, dn + dr), ("embed", "heads", "head_dim"), scale=s),
+        "w_dkv": mk((D, r + dr), ("embed", "kv_lora"), scale=s),
+        "kv_norm": mk((r,), ("kv_lora",), init="ones"),
+        "w_uk": mk((r, H, dn), ("kv_lora", "heads", "head_dim"), scale=1 / math.sqrt(r)),
+        "w_uv": mk((r, H, dv), ("kv_lora", "heads", "head_dim"), scale=1 / math.sqrt(r)),
+        "wo": mk((H, dv, D), ("heads", "head_dim", "embed"), scale=1 / math.sqrt(H * dv)),
     }
 
 
@@ -144,6 +144,10 @@ def mla_decode(p, cfg, x, cache, pos, rope):
     ctx_lat = torch.einsum("bhqs,bsr->bqhr", w, c)
     ctx = torch.einsum("bqhr,rhk->bqhk", ctx_lat, p.w_uv.to(dt))
     return torch.einsum("bqhk,hkd->bqd", ctx, p.wo.to(dt)), cache
+
+
+def mla_cache_axes() -> dict:
+    return {"c": ("batch", "kv_seq", "kv_lora"), "k_rope": ("batch", "kv_seq", "head_dim")}
 
 
 def mla_cache_spec(cfg, batch: int, capacity: int, *, dtype=torch.bfloat16, device=None):

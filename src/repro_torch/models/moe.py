@@ -33,10 +33,10 @@ def init_moe(cfg, mk):
     D = cfg.d_model
     E, Fd = m.num_experts, m.expert_d_ff
     p = {
-        "router": mk((D, E), scale=1 / math.sqrt(D)),
-        "w_gate": mk((E, D, Fd), scale=1 / math.sqrt(D)),
-        "w_up": mk((E, D, Fd), scale=1 / math.sqrt(D)),
-        "w_down": mk((E, Fd, D), scale=1 / math.sqrt(Fd)),
+        "router": mk((D, E), ("embed", "experts"), scale=1 / math.sqrt(D)),
+        "w_gate": mk((E, D, Fd), ("experts", "expert_embed", "mlp"), scale=1 / math.sqrt(D)),
+        "w_up": mk((E, D, Fd), ("experts", "expert_embed", "mlp"), scale=1 / math.sqrt(D)),
+        "w_down": mk((E, Fd, D), ("experts", "mlp", "expert_embed"), scale=1 / math.sqrt(Fd)),
     }
     if m.num_shared_experts:
         p["shared"] = L.init_swiglu(mk, D, m.shared_d_ff or m.expert_d_ff)

@@ -36,16 +36,16 @@ def init_rglru(cfg, mk):
     W = D  # lru width = d_model
     s = 1 / math.sqrt(D)
     return {
-        "w_in": mk((D, W), scale=s),            # recurrent branch
-        "w_gate_br": mk((D, W), scale=s),       # gelu gate branch
-        "conv_w": mk((CONV_W, W), scale=1 / math.sqrt(CONV_W)),
-        "conv_b": mk((W,), init="zeros"),
-        "w_a": mk((W, W), scale=1 / math.sqrt(W)),
-        "b_a": mk((W,), init="zeros"),
-        "w_x": mk((W, W), scale=1 / math.sqrt(W)),
-        "b_x": mk((W,), init="zeros"),
-        "lam": mk((W,), init="ones"),           # softplus -> decay
-        "w_out": mk((W, D), scale=1 / math.sqrt(W)),
+        "w_in": mk((D, W), ("embed", "mlp"), scale=s),          # recurrent branch
+        "w_gate_br": mk((D, W), ("embed", "mlp"), scale=s),     # gelu gate branch
+        "conv_w": mk((CONV_W, W), ("time", "mlp"), scale=1 / math.sqrt(CONV_W)),
+        "conv_b": mk((W,), ("mlp",), init="zeros"),
+        "w_a": mk((W, W), ("mlp", "state"), scale=1 / math.sqrt(W)),
+        "b_a": mk((W,), ("state",), init="zeros"),
+        "w_x": mk((W, W), ("mlp", "state"), scale=1 / math.sqrt(W)),
+        "b_x": mk((W,), ("state",), init="zeros"),
+        "lam": mk((W,), ("state",), init="ones"),               # softplus -> decay
+        "w_out": mk((W, D), ("mlp", "embed"), scale=1 / math.sqrt(W)),
     }
 
 
@@ -106,6 +106,10 @@ def rglru_decode(p, cfg, x, state, rows=None):
     out = (h * gate).to(dt) @ p.w_out.to(dt)
     L.put_state(state, {"conv": hist[:, 1:], "h": h}, rows)
     return out[:, None, :], state
+
+
+def rglru_state_axes() -> dict:
+    return {"conv": ("batch", "time", "state"), "h": ("batch", "state")}
 
 
 def rglru_state_spec(cfg, batch: int, *, dtype=torch.bfloat16, device=None):

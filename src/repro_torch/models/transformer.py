@@ -19,8 +19,9 @@
 The reference stacks the layers into scan segments; here they are one
 ``nn.ModuleList`` in block order (``convert.model_items`` unstacks them in
 that order), and layer i is a MoE layer when the config has experts and
-i >= ``first_k_dense``. The reference's sharding ``rules`` have no
-counterpart: the port runs on one device.
+i >= ``first_k_dense``. The reference's ``rules`` argument (sharding
+hints inside a step) is not taken: the port's steps run on local tensors,
+and its shardings are placed from outside (``repro_torch.dist``).
 """
 
 from __future__ import annotations
@@ -50,10 +51,10 @@ def init_encoder(cfg, mk):
     """``init_model``'s tree for an encoder, with the layers unstacked."""
     D = cfg.d_model
     return {
-        "embed": {"table": mk((cfg.vocab_size, D), scale=1.0 / math.sqrt(D))},
+        "embed": L.init_embedding(mk, cfg.vocab_size, D),
         "layers": [init_encoder_layer(cfg, mk) for _ in range(cfg.num_layers)],
         "final_norm": L.init_layernorm(mk, D),
-        "lm_head": mk((D, cfg.vocab_size), scale=D ** -0.5),
+        "lm_head": mk((D, cfg.vocab_size), ("embed", "vocab"), scale=D ** -0.5),
     }
 
 
@@ -151,7 +152,8 @@ def init_model(cfg, mk):
                    for i, kind in enumerate(cfg.blocks)]
     p["final_norm"] = (L.init_layernorm if cfg.is_encoder else L.init_rmsnorm)(mk, cfg.d_model)
     if not cfg.tie_embeddings:
-        p["lm_head"] = mk((cfg.d_model, cfg.vocab_size), scale=cfg.d_model ** -0.5)
+        p["lm_head"] = mk((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                          scale=cfg.d_model ** -0.5)
     return p
 
 
@@ -246,18 +248,34 @@ def cache_specs(cfg, batch: int, capacity: int, *, long_ctx: bool = False,
         elif kind in ATTN:
             window = layer_window(cfg, kind, long_ctx)
             ring = window is not None and window < capacity
-            c = A.cache_spec(cfg, batch, window if ring else capacity, dtype=dtype,
-                             device=device)
-            if ring:
-                c["slot_pos"] = torch.full((window,), -1, dtype=torch.int32,
-                                           device=c["k"].device)
-            out.append(c)
+            out.append(A.cache_spec(cfg, batch, window if ring else capacity, ring=ring,
+                                    dtype=dtype, device=device))
         elif kind == "rglru":
             out.append(RG.rglru_state_spec(cfg, batch, dtype=dtype, device=device))
         elif kind == "mlstm":
             out.append(XL.mlstm_state_spec(cfg, batch, device=device))
         else:
             out.append(XL.slstm_state_spec(cfg, batch, device=device))
+    return out
+
+
+def cache_axes(cfg, capacity: int, *, long_ctx: bool = False) -> list:
+    """The logical axes of ``cache_specs``' leaves, layer by layer: the
+    reference's ``cache_specs`` under an ``AxesMaker``, unstacked (the
+    ``layers`` dim of its scan segments dropped)."""
+    out = []
+    for kind in cfg.blocks:
+        if kind in ATTN and cfg.mla is not None:
+            out.append(MLA.mla_cache_axes())
+        elif kind in ATTN:
+            window = layer_window(cfg, kind, long_ctx)
+            out.append(A.cache_axes(ring=window is not None and window < capacity))
+        elif kind == "rglru":
+            out.append(RG.rglru_state_axes())
+        elif kind == "mlstm":
+            out.append(XL.mlstm_state_axes())
+        else:
+            out.append(XL.slstm_state_axes())
     return out
 
 
@@ -280,6 +298,12 @@ def paged_cache_specs(cfg, num_pages: int, page_size: int, *, kv_dtype: str = "b
     check_pageable(cfg)
     return [A.paged_cache_spec(cfg, num_pages, page_size, kv_dtype=kv_dtype, device=device)
             for _ in range(cfg.num_layers)]
+
+
+def paged_cache_axes(cfg, *, kv_dtype: str = "bf16") -> list:
+    """The logical axes of ``paged_cache_specs``' leaves, layer by layer."""
+    check_pageable(cfg)
+    return [A.paged_cache_axes(kv_dtype=kv_dtype) for _ in range(cfg.num_layers)]
 
 
 def _pad_seq(t, capacity: int):
@@ -404,8 +428,9 @@ class Transformer(nn.Module):
                               long_ctx: bool = False):
         """Prefill caches -> decode caches: a GQA layer's ring of ``window``
         slots where its window is under ``capacity``, else its linear cache
-        zero-padded to ``capacity``; MLA latents zero-padded to
-        ``capacity``; recurrent states as they are."""
+        zero-padded to ``capacity`` (and under ``attention.kv_quant``
+        quantized after the padding, as the reference does); MLA latents
+        zero-padded to ``capacity``; recurrent states as they are."""
         out = []
         for kind, c in zip(self.cfg.blocks, caches):
             window = self._window(kind, long_ctx)
@@ -416,5 +441,6 @@ class Transformer(nn.Module):
             elif window is not None and window < capacity:
                 out.append(A.cache_from_prefill(c, window=window, seq_len=seq_len))
             else:
-                out.append({n: _pad_seq(t, capacity) for n, t in c.items()})
+                c = {n: _pad_seq(t, capacity) for n, t in c.items()}
+                out.append(A.quantize_linear_cache(c) if A.kv_quant() else c)
         return out

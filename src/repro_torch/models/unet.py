@@ -19,8 +19,11 @@ from repro_torch.models import layers as L
 
 
 def _conv_init(mk, kh, kw, cin, cout):
-    return {"w": mk((cout, cin, kh, kw), scale=1.0 / math.sqrt(kh * kw * cin)),
-            "b": mk((cout,), init="zeros")}
+    """OIHW: the reference's HWIO axes ("time", "time", "embed", "mlp")
+    in this layout's order."""
+    return {"w": mk((cout, cin, kh, kw), ("mlp", "embed", "time", "time"),
+                    scale=1.0 / math.sqrt(kh * kw * cin)),
+            "b": mk((cout,), ("mlp",), init="zeros")}
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -61,15 +64,15 @@ def _silu(x):
 
 
 def _gn_init(mk, c):
-    return {"scale": mk((c,), init="ones"), "bias": mk((c,), init="zeros")}
+    return {"scale": mk((c,), ("mlp",), init="ones"), "bias": mk((c,), ("mlp",), init="zeros")}
 
 
 def init_resblock(mk, cin, cout, time_dim):
     p = {
         "gn1": _gn_init(mk, cin),
         "conv1": _conv_init(mk, 3, 3, cin, cout),
-        "time_proj": {"w": mk((time_dim, cout), scale=1 / math.sqrt(time_dim)),
-                      "b": mk((cout,), init="zeros")},
+        "time_proj": {"w": mk((time_dim, cout), ("embed", "mlp"), scale=1 / math.sqrt(time_dim)),
+                      "b": mk((cout,), ("mlp",), init="zeros")},
         "gn2": _gn_init(mk, cout),
         "conv2": _conv_init(mk, 3, 3, cout, cout),
     }
@@ -91,11 +94,12 @@ def init_attnblock(mk, c, text_dim):
     s = 1 / math.sqrt(c)
     return {
         "gn": _gn_init(mk, c),
-        "self": {k: mk((c, c), scale=s) for k in ("wq", "wk", "wv", "wo")},
-        "cross": {"wq": mk((c, c), scale=s),
-                  "wk": mk((text_dim, c), scale=1 / math.sqrt(text_dim)),
-                  "wv": mk((text_dim, c), scale=1 / math.sqrt(text_dim)),
-                  "wo": mk((c, c), scale=s)},
+        "self": {k: mk((c, c), ("heads", "embed") if k == "wo" else ("embed", "heads"), scale=s)
+                 for k in ("wq", "wk", "wv", "wo")},
+        "cross": {"wq": mk((c, c), ("embed", "heads"), scale=s),
+                  "wk": mk((text_dim, c), ("embed", "heads"), scale=1 / math.sqrt(text_dim)),
+                  "wv": mk((text_dim, c), ("embed", "heads"), scale=1 / math.sqrt(text_dim)),
+                  "wo": mk((c, c), ("heads", "embed"), scale=s)},
     }
 
 
@@ -129,10 +133,11 @@ def init_unet(cfg, mk):
     td = cfg.time_dim
     p = {
         "time_mlp": {
-            "w1": mk((cfg.base_channels, td), scale=1 / math.sqrt(cfg.base_channels)),
-            "b1": mk((td,), init="zeros"),
-            "w2": mk((td, td), scale=1 / math.sqrt(td)),
-            "b2": mk((td,), init="zeros"),
+            "w1": mk((cfg.base_channels, td), ("embed", "mlp"),
+                     scale=1 / math.sqrt(cfg.base_channels)),
+            "b1": mk((td,), ("mlp",), init="zeros"),
+            "w2": mk((td, td), ("mlp", "mlp"), scale=1 / math.sqrt(td)),
+            "b2": mk((td,), ("mlp",), init="zeros"),
         },
         "conv_in": _conv_init(mk, 3, 3, cfg.in_channels, ch[0]),
         "down": [], "up": [],

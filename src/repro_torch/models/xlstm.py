@@ -20,8 +20,9 @@ counter on the device and writes the state and its output in place, and
 the loop replays it: the same kernels on the same values, without the
 host's cost of some twenty launches a step
 (``tests/test_torch_recurrent.py`` holds its control flow to the loop
-through an eager stand-in for the capture). Under autograd a sequence longer than
-``bptt_chunk`` (64 by default) that it divides runs chunk by chunk under
+through an eager stand-in for the capture). Under autograd a sequence
+longer than ``bptt_chunk`` (``REPRO_BPTT_CHUNK``, 64 by default) that it
+divides runs chunk by chunk under
 ``torch.utils.checkpoint``: the backward keeps the state at chunk
 boundaries only and recomputes within a chunk (the reference's chunked
 BPTT). sLSTM's input projections run once for the whole sequence before
@@ -34,6 +35,7 @@ m, h (B,D)}, all float32.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +48,14 @@ PROJ_FACTOR = 2    # d_inner = 2 * d_model (the paper's mLSTM proj factor)
 BPTT_CHUNK = 64    # ~sqrt(4096): state saves at chunk edges against saves within a chunk
 
 
-def time_scan(step, state: tuple, xs: tuple, *, bptt_chunk: int = BPTT_CHUNK):
+def bptt_chunk_default() -> int:
+    """``REPRO_BPTT_CHUNK``, read at each call as the reference reads it:
+    the chunk of the backward's recomputation, ``BPTT_CHUNK`` unset, 0 for
+    naive BPTT (every step's state kept)."""
+    return int(os.environ.get("REPRO_BPTT_CHUNK", str(BPTT_CHUNK)))
+
+
+def time_scan(step, state: tuple, xs: tuple, *, bptt_chunk: int | None = None):
     """Runs ``state, y = step(state, x_t)`` over axis 1 of the tensors
     ``xs`` (B, S, ...) -> (final state, ys (B, S, ...)). The loop over time
     is the semantics. On CUDA tensors without autograd the loop is replayed
@@ -54,7 +63,8 @@ def time_scan(step, state: tuple, xs: tuple, *, bptt_chunk: int = BPTT_CHUNK):
     with the same steps on the same values, which takes a full-width
     prefill from some twenty launches a step to one graph replay (ROADMAP
     B'9). Under autograd, with 0 < bptt_chunk < S and S % bptt_chunk == 0,
-    each chunk of steps runs under ``torch.utils.checkpoint``. On meta
+    each chunk of steps runs under ``torch.utils.checkpoint`` (``None``:
+    ``bptt_chunk_default()``). On meta
     tensors (the dry-run's shapes) one step runs and its output is
     broadcast to S steps: the reference's cost lowering counts a scan body
     once too, and ``launch/steps.recurrent_supplement`` adds the rest."""
@@ -73,6 +83,8 @@ def time_scan(step, state: tuple, xs: tuple, *, bptt_chunk: int = BPTT_CHUNK):
             ys.append(y)
         return state, torch.stack(ys, dim=1)
 
+    if bptt_chunk is None:
+        bptt_chunk = bptt_chunk_default()
     if not torch.is_grad_enabled() or bptt_chunk <= 0 or S <= bptt_chunk or S % bptt_chunk:
         return run(state, 0, S)
     chunks = []
@@ -137,16 +149,16 @@ def init_mlstm(cfg, mk):
     H = cfg.num_heads
     s, si = 1 / math.sqrt(D), 1 / math.sqrt(Din)
     return {
-        "w_up": mk((D, Din), scale=s),
-        "w_gate": mk((D, Din), scale=s),
-        "wq": mk((Din, Din), scale=si),
-        "wk": mk((Din, Din), scale=si),
-        "wv": mk((Din, Din), scale=si),
-        "w_i": mk((Din, H), scale=si),
-        "b_i": mk((H,), init="zeros"),
-        "w_f": mk((Din, H), scale=si),
-        "b_f": mk((H,), init="ones"),
-        "w_down": mk((Din, D), scale=1 / math.sqrt(Din)),
+        "w_up": mk((D, Din), ("embed", "mlp"), scale=s),
+        "w_gate": mk((D, Din), ("embed", "mlp"), scale=s),
+        "wq": mk((Din, Din), ("mlp", "heads"), scale=si),
+        "wk": mk((Din, Din), ("mlp", "heads"), scale=si),
+        "wv": mk((Din, Din), ("mlp", "heads"), scale=si),
+        "w_i": mk((Din, H), ("mlp", "heads"), scale=si),
+        "b_i": mk((H,), ("heads",), init="zeros"),
+        "w_f": mk((Din, H), ("mlp", "heads"), scale=si),
+        "b_f": mk((H,), ("heads",), init="ones"),
+        "w_down": mk((Din, D), ("mlp", "embed"), scale=1 / math.sqrt(Din)),
     }
 
 
@@ -186,7 +198,7 @@ def _mlstm_out(p, x, h):
     return (h * gate).to(x.dtype) @ p.w_down.to(x.dtype)
 
 
-def mlstm_forward(p, cfg, x, *, bptt_chunk: int = BPTT_CHUNK):
+def mlstm_forward(p, cfg, x, *, bptt_chunk: int | None = None):
     """x (B,S,D) -> (out (B,S,D), state {C, n, m})."""
     B, S, _ = x.shape
     H = cfg.num_heads
@@ -215,6 +227,11 @@ def mlstm_decode(p, cfg, x, state, rows=None):
     return out[:, None, :], state
 
 
+def mlstm_state_axes() -> dict:
+    return {"C": ("batch", "heads", "state", "head_dim"), "n": ("batch", "heads", "state"),
+            "m": ("batch", "heads")}
+
+
 def mlstm_state_spec(cfg, batch: int, *, device=None):
     H, device = cfg.num_heads, resolve_device(device)
     dh = PROJ_FACTOR * cfg.d_model // H
@@ -233,12 +250,13 @@ def init_slstm(cfg, mk):
     H = cfg.num_heads
     dh = D // H
     s, sh = 1 / math.sqrt(D), 1 / math.sqrt(dh)
-    p = {f"w_{g}": mk((D, D), scale=s) for g in GATES}            # input projections
-    p.update({f"r_{g}": mk((H, dh, dh), scale=sh) for g in GATES})  # block-diagonal recurrence
-    p.update({"b_z": mk((D,), init="zeros"), "b_i": mk((D,), init="zeros"),
-              "b_f": mk((D,), init="ones"), "b_o": mk((D,), init="zeros")})
-    p["w_up"] = mk((D, 2 * D), scale=s)                                # the block's small MLP
-    p["w_down"] = mk((2 * D, D), scale=1 / math.sqrt(2 * D))
+    p = {f"w_{g}": mk((D, D), ("embed", "mlp"), scale=s) for g in GATES}   # input projections
+    p.update({f"r_{g}": mk((H, dh, dh), ("heads", "state", "head_dim"), scale=sh)
+              for g in GATES})                                            # block-diagonal recurrence
+    p.update({f"b_{g}": mk((D,), ("mlp",), init="ones" if g == "f" else "zeros")
+              for g in GATES})
+    p["w_up"] = mk((D, 2 * D), ("embed", "mlp"), scale=s)                  # the block's small MLP
+    p["w_down"] = mk((2 * D, D), ("mlp", "embed"), scale=1 / math.sqrt(2 * D))
     return p
 
 
@@ -280,7 +298,7 @@ def _slstm_out(p, h):
     return F.gelu(u.float(), approximate="tanh").to(h.dtype) @ p.w_down.to(h.dtype)
 
 
-def slstm_forward(p, cfg, x, *, bptt_chunk: int = BPTT_CHUNK):
+def slstm_forward(p, cfg, x, *, bptt_chunk: int | None = None):
     """x (B,S,D) -> (out (B,S,D), state {c, n, m, h})."""
     B, S, D = x.shape
     r_all = _slstm_recurrent(p, cfg)
@@ -305,6 +323,10 @@ def slstm_decode(p, cfg, x, state, rows=None):
     out = _slstm_out(p, h.to(x.dtype))
     L.put_state(state, dict(zip(names, new)), rows)
     return out[:, None, :], state
+
+
+def slstm_state_axes() -> dict:
+    return {k: ("batch", "state") for k in ("c", "n", "m", "h")}
 
 
 def slstm_state_spec(cfg, batch: int, *, device=None):

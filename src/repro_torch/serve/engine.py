@@ -102,8 +102,16 @@ reference's while greedy tokens are the parity contract; the roofline is
 counted, not read off a compiled executable, and the autotuner's budget
 rounding is fixed (ROADMAP C).
 
-A mesh or sharding rules (``mesh``, ``rules``) raise ``NotImplementedError``
-(ROADMAP A8). The engine serves every decoder stack of ``Transformer``:
+``mesh`` places the arena's pools by the rule tables (``rules``, the
+serve table by default): a ``DeviceMesh`` of one device
+(``launch.mesh.make_host_mesh``) holds every pool leaf as a ``DTensor``
+(``placed``) whose local tensor the steps, graphs and kernels run on, so
+outputs equal the meshless engine's. With a mesh the default page count
+rounds up to a multiple of the pages axis' shard count, as the
+reference's does. A mesh of more devices raises ``NotImplementedError``
+(nothing holds the arena's multi-GPU execution against anything), and a
+``MeshShape`` (sizes without devices) raises when the pools are built.
+The engine serves every decoder stack of ``Transformer``:
 GQA (with qk-norm, windows, MoE FFNs), MLA and recurrent (RG-LRU, mLSTM,
 sLSTM) stacks in the slot arena, a row of each pool leaf a slot; GQA stacks
 also on pages. The paged arena raises the reference's ``ValueError`` for
@@ -127,6 +135,7 @@ from repro_torch.core.policy import (GUIDANCE_POLICIES, DivergenceGuidancePolicy
                                      DynamicPlanCursor, GuidancePolicy, make_policy)
 from repro_torch.core.selective import GuidancePlan, Mode, PlanCursor, round_half_up
 from repro_torch.data.tokenizer import EOS, PAD, encode
+from repro_torch.dist.sharding import RULES_SERVE, MeshShape, spec_placements
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.serve.autotune import BudgetAutotuner
@@ -138,7 +147,8 @@ from repro_torch.serve.scheduler import (Scheduler, TickPlan, admission_cutoff, 
 from repro_torch.serve.state import (ContentPrefixRegistry, HostPagePool, PageAllocator,
                                      PrefixShareRegistry, StatePool, content_key,
                                      fresh_lazy_needs, host_pages_for_bytes, kv_page_bytes,
-                                     pages_for, plan_swap_out, resume_lazy_needs,
+                                     paged_pool_shardings, pages_for, pages_shard_count,
+                                     plan_swap_out, pool_partition_specs, resume_lazy_needs,
                                      stream_page_needs)
 
 KV_MODES = ("slot", "paged")
@@ -376,8 +386,11 @@ class ContinuousEngine:
             raise ValueError(f"combine {combine!r} not in {COMBINE_MODES}")
         if not 0.0 <= interval[0] < interval[1] <= 1.0:
             raise ValueError(f"interval {interval!r} must satisfy 0 <= start < stop <= 1")
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("a mesh or sharding rules are not ported yet (ROADMAP A8)")
+        if mesh is not None and not isinstance(mesh, MeshShape) and mesh.size() > 1:
+            raise NotImplementedError(
+                f"a mesh of {mesh.size()} devices: the arena's multi-GPU execution is not "
+                "ported (ROADMAP §A: nothing holds it against anything, one card to test on); "
+                "pass a one-device mesh (launch.mesh.make_host_mesh) or none")
         if kv == "paged":
             T.check_pageable(cfg)       # the reference's ValueError first
         if cfg.is_encoder:
@@ -399,6 +412,12 @@ class ContinuousEngine:
         self.max_new = max_new
         self.capacity = prompt_len + max_new
         self.selective_fraction = selective_fraction
+        if mesh is not None and rules is None:
+            # the serve rules already name the pages/page logical axes
+            rules = RULES_SERVE
+        self.rules = rules
+        self.mesh = mesh
+        self.placed: dict = {}                 # pool name -> its DTensor leaves, with a mesh
         self.tick_mode = tick_mode
         self.stop_on_eos = stop_on_eos
         self.guidance_policy = guidance_policy
@@ -434,11 +453,19 @@ class ContinuousEngine:
         self._prefix: PrefixShareRegistry | None = None
         self._resume: dict[str, _ResumeState] = {}
         self.page_bytes = 0
+        self._pool_shards = pages_shard_count(self.rules, mesh) \
+            if (kv == "paged" and mesh is not None) else 1
         if kv == "paged":
             # fails fast on stacks the paged arena cannot hold
             self.page_bytes = kv_page_bytes(cfg, page_size, kv_dtype)
-            self.num_pages = num_pages if num_pages is not None \
-                else 2 * num_slots * self.nb_max
+            if num_pages is not None:
+                # an explicit count is honored as is: an indivisible pool
+                # falls down the allocator's chain instead of resizing
+                self.num_pages = num_pages
+            else:
+                # uniform shard shapes: one whole page multiple a shard
+                s = self._pool_shards
+                self.num_pages = -(-2 * num_slots * self.nb_max // s) * s
             self.pages = PageAllocator(self.num_pages, page_size, kv_dtype=kv_dtype)
             if reservation == "lazy":
                 self._prefix = PrefixShareRegistry(self.pages)
@@ -940,6 +967,13 @@ class ContinuousEngine:
         index: reads clamp, writes drop); no live row reads it."""
         self._pool_c, self._pool_u = (self._pool_specs(self.num_slots + 1, self.device)
                                       for _ in range(2))
+        if self.mesh is not None:
+            specs = pool_partition_specs(self.cfg, self.num_slots, self.capacity,
+                                         rules=self.rules, mesh=self._device_mesh())
+            placements = [{n: spec_placements(sp, self.mesh) for n, sp in layer.items()}
+                          for layer in specs]
+            self._pool_c = self._place("c", self._pool_c, placements)
+            self._pool_u = self._place("u", self._pool_u, placements)
 
     def _prefill_slot(self, req: ServeRequest, slot: int, key: int) -> int:
         """Both streams' prefill of one request into row ``slot`` of the two
@@ -960,6 +994,8 @@ class ContinuousEngine:
                 if "slot_pos" in layer:
                     c = A.cache_from_prefill(c, window=layer["k"].shape[1], seq_len=S)
                     layer["slot_pos"][slot] = c.pop("slot_pos")
+                elif "k_scale" in layer:                 # REPRO_KV_QUANT=int8 rows
+                    c = A.quantize_linear_cache(c)
                 for name, t in c.items():
                     layer[name][slot][tuple(slice(0, n) for n in t.shape[1:])] = t[0]
         scale = self._dev(np.asarray([self._eff_scale(req.uid, 0)], np.float32))
@@ -1430,8 +1466,33 @@ class ContinuousEngine:
         GPU pool: allocated here, not in the tick that first swaps)."""
         self._pool_p = T.paged_cache_specs(self.cfg, self.num_pages, self.page_size,
                                            kv_dtype=self.kv_dtype, device=self.device)
+        if self.mesh is not None:
+            placements = paged_pool_shardings(self.cfg, self.num_pages, self.page_size,
+                                              rules=self.rules, mesh=self._device_mesh(),
+                                              kv_dtype=self.kv_dtype)
+            self._pool_p = self._place("p", self._pool_p, placements)
         if self._host is not None:
             self._host.attach(self._pool_p)
+
+    def _device_mesh(self):
+        if isinstance(self.mesh, MeshShape):
+            raise NotImplementedError("a MeshShape has sizes and no devices: the arena cannot "
+                                      "be placed on it (ROADMAP §A: multi-GPU execution is "
+                                      "not ported); pass a one-device DeviceMesh "
+                                      "(launch.mesh.make_host_mesh)")
+        return self.mesh
+
+    def _place(self, name: str, pool: list, placements: list) -> list:
+        """Each leaf of ``pool`` distributed on the mesh by its placements;
+        the DTensors are kept in ``placed[name]``, and -> their local
+        tensors, which share their storage: what the steps write in place,
+        the DTensors hold. The reference's specs are for its pool sizes;
+        the port's spare page or row past them rides along (one device:
+        nothing splits)."""
+        from torch.distributed.tensor import distribute_tensor
+        self.placed[name] = [{n: distribute_tensor(t, self.mesh, pl[n]) for n, t in layer.items()}
+                             for layer, pl in zip(pool, placements)]
+        return [{n: d.to_local() for n, d in layer.items()} for layer in self.placed[name]]
 
     def _seen(self, key: tuple, *, step: bool) -> None:
         """Note the first use of a step shape: what the reference counts as

@@ -7,7 +7,9 @@ from the config here, not from abstract specs), ``pages_for_pool_bytes``,
 the eager and lazy page needs, ``PageAllocator`` with the share registries
 and ``content_key``, ``HostPagePool`` (its bookkeeping, and its storage
 arena on torch tensors, pinned beside a GPU pool) with ``plan_swap_out``.
-The sharding helpers are not ported (ROADMAP A8).
+The pooled arenas' sharding helpers (``pooled_cache_axes``,
+``pool_partition_specs``, ``paged_partition_specs``, ``pages_shard_count``,
+``paged_pool_shardings``) over ``repro_torch.dist``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.selective import Mode, PlanCursor
+from repro_torch.dist.sharding import (AxisRules, as_mesh_shape, logical_to_spec, mesh_sizes,
+                                       tree_shardings)
+from repro_torch.models import transformer as T
+from repro_torch.models.layers import is_axes_leaf, map_axes
 from repro_torch.models.transformer import check_pageable
 
 class StatePool:
@@ -889,3 +895,102 @@ def plan_swap_out(pages: PageAllocator, host: HostPagePool | None, uid: str,
     if total == 0 or total < min_pages or total > host.num_pages:
         return None
     return needs
+
+
+# ---------------------------------------------------------------------------
+# Pooled-arena sharding
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape) -> torch.Tensor:
+    return torch.empty(tuple(shape), device="meta")
+
+
+def _pool_leaf(names: tuple) -> tuple:
+    """A cache leaf's names as a pool row's: the row axis plays ``batch``.
+    The reference stacks batch-1 caches under a new slot axis and
+    neutralises their interior batch dim; the port's rows are that dim."""
+    return ("batch",) + (names[1:] if names[:1] == ("batch",) else names)
+
+
+def _pool_shape(names: tuple, shape, rows: int) -> tuple:
+    return (rows,) + (tuple(shape)[1:] if names[:1] == ("batch",) else tuple(shape))
+
+
+def pooled_cache_axes(cfg, capacity: int, *, long_ctx: bool = False) -> list:
+    """Logical axes of the slot arena's pools, layer by layer: each leaf of
+    ``transformer.cache_axes`` with the row axis as ``batch`` (a ring's
+    slot positions get one a row)."""
+    return map_axes(_pool_leaf, T.cache_axes(cfg, capacity, long_ctx=long_ctx))
+
+
+def _walk2(fn, axes, specs):
+    if is_axes_leaf(axes):
+        return fn(axes, specs)
+    if isinstance(axes, dict):
+        return {k: _walk2(fn, axes[k], specs[k]) for k in axes}
+    return [_walk2(fn, a, s) for a, s in zip(axes, specs)]
+
+
+def pool_partition_specs(cfg, num_slots: int, capacity: int, *, rules: AxisRules, mesh,
+                         long_ctx: bool = False, dtype=None) -> list:
+    """The ``P`` tree of the slot arena's pools of ``num_slots`` rows under
+    ``rules`` on ``mesh``: the allocator on each leaf's pooled names and
+    shape, so the divisibility fallbacks (``kv_heads -> kv_seq``) act as on
+    the unpooled decode caches."""
+    axes = T.cache_axes(cfg, capacity, long_ctx=long_ctx)
+    specs = T.cache_specs(cfg, 1, capacity, long_ctx=long_ctx, device="meta")
+
+    def one(names, spec):
+        return logical_to_spec(_pool_leaf(names), rules,
+                               shape=_pool_shape(names, spec.shape, num_slots), mesh=mesh)
+
+    return _walk2(one, axes, specs)
+
+
+def _paged_leaves(cfg, num_pages: int, page_size: int, kv_dtype: str) -> list:
+    """Meta tensors of the reference's pool shapes, ``num_pages`` pages (the
+    port's pool adds one spare page past them, which no spec names)."""
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    layer = {"k": _meta((num_pages, page_size, K, hd)), "v": _meta((num_pages, page_size, K, hd))}
+    if kv_dtype == "int8":
+        layer.update(k_scale=_meta((num_pages, page_size, K, 1)),
+                     v_scale=_meta((num_pages, page_size, K, 1)))
+    return [dict(layer) for _ in range(cfg.num_layers)]
+
+
+def paged_partition_specs(cfg, num_pages: int, page_size: int, *, rules: AxisRules, mesh,
+                          dtype=None, kv_dtype: str = "bf16") -> list:
+    """The ``P`` tree of the paged KV pool under ``rules``: the pool's own
+    ``pages``/``page`` names are rule-table entries, and int8 scale leaves
+    carry them too, so a page's values and scales land on one device."""
+    axes = T.paged_cache_axes(cfg, kv_dtype=kv_dtype)
+    return tree_shardings(axes, _paged_leaves(cfg, num_pages, page_size, kv_dtype),
+                          as_mesh_shape(mesh), rules)
+
+
+def pages_shard_count(rules: AxisRules, mesh) -> int:
+    """How many ways ``rules``/``mesh`` split the page-pool axis: the product
+    of the sizes of the ``pages`` rule's candidate axes present on the mesh
+    (the fully absorbed count, which page-count divisibility must meet for
+    uniform shard shapes). 1 without a mesh or such axes."""
+    if mesh is None:
+        return 1
+    rule = rules.rule("pages")
+    if rule is None:
+        return 1
+    sizes = mesh_sizes(mesh)
+    n = 1
+    for ax in rule.axes:
+        n *= sizes.get(ax, 1)
+    return max(1, n)
+
+
+def paged_pool_shardings(cfg, num_pages: int, page_size: int, *, rules: AxisRules, mesh,
+                         dtype=None, kv_dtype: str = "bf16") -> list:
+    """The paged pool's DTensor placements on ``mesh`` (a ``DeviceMesh``),
+    leaf for leaf: ``paged_partition_specs`` resolved against it."""
+    axes = T.paged_cache_axes(cfg, kv_dtype=kv_dtype)
+    return tree_shardings(axes, _paged_leaves(cfg, num_pages, page_size, kv_dtype), mesh,
+                          rules)
+

@@ -163,3 +163,17 @@ def test_chip_smoke_refuses_the_cpu(tmp_path):
     res = _smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_examples_default_to_cuda():
+    """Every example twin runs on the GPU unless ``--device`` says otherwise:
+    without CUDA its ``main`` raises before any work."""
+    import importlib
+    names = sorted(p.stem for p in (PORT / "examples").glob("*.py") if p.stem != "__init__")
+    assert names == ["quickstart", "serve_guided", "train_lm", "window_sweep"]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise here")
+    for name in names:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main([])

@@ -42,6 +42,7 @@ from repro.serve import ContinuousEngine as JEngine
 from repro.serve import ServeRequest as JRequest
 from repro_torch import convert
 from repro_torch.configs.registry import get_smoke_config
+from repro_torch.dist import MeshShape
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve import ContinuousEngine, ServeRequest
 from repro_torch.serve.state import kv_page_bytes, pages_for
@@ -268,10 +269,15 @@ def test_divergence_policy_switches_like_the_reference(world):
     assert teng.metrics.policy_switches == jeng.metrics.policy_switches > 0
 
 
-@pytest.mark.parametrize("kw", [dict(kv="paged", mesh=object())], ids=["mesh"])
+@pytest.mark.parametrize("kw", [dict(kv="paged", mesh=MeshShape((2, 1), ("data", "model")))],
+                         ids=["mesh"])
 def test_out_of_slice_options_raise(world, kw):
+    """A mesh of more than one device: the arena's multi-GPU execution is
+    not ported. A ``MeshShape`` holds its sizes (the page rounding reads
+    them) and raises when the pools are placed."""
+    eng = ContinuousEngine(world.model, world.cfg, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousEngine(world.model, world.cfg, **kw)
+        eng._init_paged_pool()
 
 
 @pytest.mark.parametrize("kw", [dict(kv="paged", reservation="lazy", host_pool_bytes=1 << 20),

@@ -34,6 +34,7 @@ from repro.launch import steps as JST
 from repro.launch.mesh import make_host_mesh
 from repro_torch import roofline as RL
 from repro_torch.configs import SHAPES, InputShape, get_config, get_smoke_config, list_archs
+from repro_torch.dist import MeshShape
 from repro_torch.kernels import build as KB
 from repro_torch.kernels import rmsnorm as KR
 from repro_torch.launch import dryrun as DR
@@ -111,15 +112,18 @@ def test_sd_bundle_bytes_equal_the_reference(variant, mesh):
 
 
 def test_a_mesh_raises_naming_the_sharding_slice():
+    """The sharding slice is ported: a mesh builds every bundle with its
+    layouts, and the dry-run takes ``--mesh`` and ``--multi-pod``; only a
+    card run of a sharded record is refused (one card runs one device's
+    step unsharded)."""
     cfg = get_config("llama3.2-1b")
-    for build in (lambda: ST.build(cfg, SHAPES["decode_32k"], object()),
-                  lambda: ST.build_sd_denoise(object())):
-        with pytest.raises(NotImplementedError, match="A8.4"):
-            build()
-    with pytest.raises(SystemExit, match="A8.4"):
-        DR.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--mesh", "data=1"])
-    with pytest.raises(SystemExit, match="A8.4"):
-        DR.main(["--multi-pod"])
+    mesh = MeshShape((16, 16), ("data", "model"))
+    for b in (ST.build(cfg, SHAPES["decode_32k"], mesh), ST.build_sd_denoise(mesh)):
+        assert b.rules is not None and len(b.in_shardings) == len(b.in_specs)
+    rec = DR.main(["--arch", "llama3.2-1b", "--shape", "decode_32k", "--mesh", "data=1"])[0]
+    assert rec["status"] == "ok" and rec["mesh"] == "data=1"
+    with pytest.raises(SystemExit):
+        DR.main(["--multi-pod", "--arch", "sd-unet", "--device", "cuda"])
 
 
 @pytest.fixture(scope="module")
@@ -197,7 +201,7 @@ def test_meta_takes_the_plain_versions_and_a_mix_raises():
     y = KR.rmsnorm(meta, torch.empty(64, device="meta", dtype=torch.bfloat16), 1e-6)
     assert y.is_meta and y.shape == meta.shape and y.dtype == meta.dtype
     assert sum(KR.LAUNCHES.values()) == 0
-    spec = L.SpecMaker(torch.float32)((3, 5), init="ones")
+    spec = L.SpecMaker(torch.float32)((3, 5), ("embed", "mlp"), init="ones")
     assert spec.is_meta and spec.shape == (3, 5) and spec.dtype == torch.float32
 
 
