@@ -236,10 +236,27 @@ Phases, each of which ends the script with a non-zero exit if it fails:
    its pool leaves DTensors sharded on the pages dim; every call signature
    of those runs held against its plain version as phase 26's are; and the
    meta dry-run with ``--mesh data,model=16,16`` and ``--multi-pod`` at
-   every shape of phase 26's two archs.
+   every shape of phase 26's two archs;
+28. the sharded serve arena (``[a85]``): B7-B10's shard form at phase 13's
+   shape, the pool's 640 pages split into 2 and 4 ranges (tables of local
+   ids, -1 for another range's page): each range's (o, lse) against its
+   plain version, the ranges merged (``dist.exchange.merge_partials``)
+   against the whole launch within B7's bf16 tolerance, one range bit-equal
+   to it, rows with no key of a range zeros and -inf, and each range's
+   launch timed in turns with the whole launch; then two processes on
+   ``cuda:0`` over a gloo group (two ranks on one card cannot form an NCCL
+   group) serving llama3.2-1b at full width (8 of its 16 layers), 8
+   requests, on meshes (2, 1)
+   (pages, or a slot pool's rows, split over data) and (1, 2) (kv heads
+   split over model), paged ragged and signature over bf16 and int8 pages
+   and the slot arena, eagerly: both ranks bit-equal (tokens, logits,
+   counters, events, launches), passes, counters, events and launches
+   equal the meshless engine's eager run, every step's logits up to the
+   first argmax that differs within ``SERVE_LOGIT_TOL``, and token
+   agreement reported.
 
 Phases 18-24 run after phase 13, on its model; phase 26 runs after phase
-25, and phase 27 last.
+25, then phase 27 and phase 28 last.
 
 ``python3 chip_smoke.py --decode-steps [SRC]``, ``--serve-steps [SRC]``,
 ``--paged-kernels [SRC]`` and ``--apg-kernels [SRC]`` time and profile the
@@ -2097,12 +2114,14 @@ PAGED = ("ragged_paged_decode_attention", "ragged_paged_decode_attention_int8",
 
 
 def _paged_case(gen, dtype, int8: bool, H: int = 32, K: int = 8, hd: int = 64, *,
-                R: int = SERVE_R, ps: int = SERVE_PS, P: int = SERVE_PAGES, nb: int = SERVE_NB):
+                R: int = SERVE_R, ps: int = SERVE_PS, P: int = SERVE_PAGES, nb: int = SERVE_NB,
+                inside_out_of_range: bool = True):
     """Inputs of the paged kernels, by default at the serve path's shapes
     (R rows, a pool of P pages of ps keys, tables of nb pages): positions
     spread over the tables' keys, every fourth row at phase 0, each row's
     live pages distinct pool pages (a few past the pool, which the kernels
-    clamp to its last page), the rest of its table past the pool."""
+    clamp to its last page, unless ``inside_out_of_range`` is off), the rest
+    of its table past the pool."""
     import torch
     dev = gen.device
     pos = torch.linspace(0, nb * ps - 1, R, device=dev).round().int()
@@ -2112,7 +2131,7 @@ def _paged_case(gen, dtype, int8: bool, H: int = 32, K: int = 8, hd: int = 64, *
     for r in range(R):
         live = int(pos[r]) // ps + 1
         bt[r, :live] = perm[(r * 37) % (P - live):][:live]
-        if r % 3 == 1:
+        if r % 3 == 1 and inside_out_of_range:
             bt[r, live // 2] = P + r                   # out of range inside the span
     q = torch.randn(R, H, hd, generator=gen, device=dev).to(dtype)
     shape = (P, ps, K, hd)
@@ -5016,7 +5035,7 @@ LAUNCH_WRAPPERS = {"cfg_combine": ("cfg_combine", "cfg_combine_rowscale"),
                    "flash_attention": ("flash_attention",),
                    "decode_attention": ("decode_attention",),
                    "rmsnorm": ("rmsnorm",),
-                   "paged_decode_attention": PAGED}
+                   "paged_decode_attention": PAGED + ("paged_decode_attention_shard",)}
 
 
 def _spec(x):
@@ -5104,7 +5123,10 @@ def _signature_call(key, gen):
         B, (N, cap) = q.shape[0], k.shape[:2]
         window, slot, rows = kw.get("window"), kw.get("slot_pos"), kw.get("rows")
         tol = attn_tol(q.dtype)
-        r = torch.randperm(N, generator=gen, device=dev)[:B]
+        # distinct rows, or with repeats where the batch outnumbers the pool's
+        # rows (a rank's slot rows, its spare taking the other ranks')
+        r = torch.randperm(N, generator=gen, device=dev)[:B] if B <= N else \
+            torch.randint(N, (B,), generator=gen, device=dev)
         if slot is None and (n == 1 or n == B):
             pos = torch.linspace(cap // 2, cap - 1, n, device=dev).round().to(torch.int32)
             if rows is None:
@@ -5141,6 +5163,30 @@ def _signature_call(key, gen):
             fail(f"{name}: the pools of {key} are not _paged_case's")
         return (name, _paged_call(KP, name, q, kv, bt, pos, phase, **kw)(),
                 _paged_plain(KP, name, q, kv, bt, pos, phase, **kw)(), attn_tol(dtype))
+    if name == "paged_decode_attention_shard" \
+            and set(kw) <= {"phase", "k_scales", "v_scales", "window"}:
+        int8 = kw.get("k_scales") is not None
+        base = ("ragged_" if kw.get("phase") is not None else "") + "paged_decode_attention" \
+            + ("_int8" if int8 else "")
+        (R, H, hd), dtype = args[0]
+        (P, ps, K, _), _ = args[1]
+        (_, nb), _ = args[3]
+        # a pool of 2P pages in two ranges: the call is the upper range's, its
+        # table local ids, -1 where the lower range holds a page
+        q, kv, bt, pos, phase = _paged_case(gen, dtype, int8, H, K, hd, R=R, ps=ps, P=2 * P,
+                                            nb=nb, inside_out_of_range=False)
+        ph = phase if kw.get("phase") is not None else None
+        want = list(args[1:3]) + ([kw["k_scales"], kw["v_scales"]] if int8 else [])
+        got = [_spec(t[P:]) for t in ((kv[0], kv[2], kv[1], kv[3]) if int8 else kv)]
+        if got != want:
+            fail(f"{base}_shard: the pools of {key} are not _paged_case's")
+        win = dict(window=kw.get("window"))
+        o, lse = _shard_launches(KP, base, q, kv, bt, pos, ph, 2, **win)[1]()
+        po = _shard_launches(KP, base, q, kv, bt, pos, ph, 2, plain=True, **win)[1]()[0]
+        exact = _shard_launches(KP, base, q, kv, bt, pos, ph, 2, plain=True, f32=True, **win)
+        _shard_checks(base + "_shard", f"at the signature {_fmt_sig(key)}", o, lse,
+                      exact[1]()[1])
+        return base + "_shard", o, po, attn_tol(dtype)
     fail(f"[launch] no kernel check for the signature {key}")
 
 
@@ -5155,9 +5201,10 @@ def _fmt_sig(key) -> str:
 
 def _check_signatures(sigs: dict, totals: dict, label: str = "launch") -> dict:
     """Each call signature the runs of a phase (``label``, its log tag: phase
-    26's ``launch``, phase 27's ``a84``) gave a wrapper, made anew on the
-    card at its shapes and dtypes and held against its plain version at the
-    tolerance of its kernel's sweep (B1 and B3 bit-exact); each paged
+    26's ``launch``, phase 27's ``a84``, phase 28's ``a85``) gave a wrapper,
+    made anew on the card at its shapes and dtypes and held against its
+    plain version at the tolerance of its kernel's sweep (B1 and B3
+    bit-exact; the shard form's lse as ``_shard_checks`` holds it); each paged
     signature also in its int8-page form at the same geometry (the CLI's
     ``--kv-dtype int8``). Fails if a kernel (or B5 form: its kernels-line
     row) launched in the runs has no signature checked. -> {row name of
@@ -5426,6 +5473,373 @@ def phase_a84(smi: str) -> tuple[dict, dict]:
     return totals, errs
 
 
+A85_SPLITS = (2, 4)          # [a85] (a): the page ranges the shard form is held over
+A85_N = 8                    # [a85] (b): requests of the two-rank engine's trace
+A85_LAYERS = 8               # [a85] (b): llama3.2-1b's depth, cut from 16 for the time:
+                             # at 16 the two-rank runs alone took 67.6 s of the phase's 60
+A85_RUNS = (("paged", "ragged", "bf16"), ("paged", "ragged", "int8"),
+            ("paged", "signature", "bf16"), ("paged", "signature", "int8"),
+            ("slot", "signature", "bf16"))
+A85_MESHES = ((2, 1), (1, 2))
+SHARD_LSE_TOL = 1e-3         # the shard form's lse against the float32 plain version's, abs
+
+
+def _shard_launches(mod, name, q, kv, bt, pos, phase, d: int, *, plain: bool = False,
+                    f32: bool = False, **kw):
+    """-> d callables, the shard form on each of d page ranges of the pool,
+    its table translated by ``local_table``. With ``plain`` its plain
+    version: for int8 pages on q's values in float32, as ``_paged_plain``
+    holds the int8 kernels; with ``f32`` too on float32 copies of q and
+    bf16 pages (the exact lse the kernel's float32 scores give)."""
+    int8 = name.endswith("int8")
+    n = kv[0].shape[0] // d
+    if plain and (f32 or int8):
+        q = q.float()
+        if not int8:
+            kv = [t.float() for t in kv] if f32 else kv
+    fn = mod.paged_attention_plain if plain else mod.paged_decode_attention_shard
+    extra = dict(shard=True) if plain else {}
+    out = []
+    for i in range(d):
+        cut = [t[i * n:(i + 1) * n] for t in kv]
+        scales = dict(k_scales=cut[1], v_scales=cut[3]) if int8 else {}
+        k, v = (cut[0], cut[2]) if int8 else cut
+        out.append(lambda k=k, v=v, s=scales, t=mod.local_table(bt, i * n, n): (
+            fn(q, k, v, t, pos, phase=phase, **s, **extra, **kw)))
+    return out
+
+
+def _shard_checks(name, tag, o, lse, ref_lse) -> float:
+    """The shard form's lse against the exact one (``_shard_launches``'s
+    ``f32``) within ``SHARD_LSE_TOL``, -inf at the same (row, head)s, and o
+    zeros on a row with no key. -> max abs lse error."""
+    import torch
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isinf(lse), torch.isinf(ref_lse)):
+        fail(f"{name} {tag}: lse -inf at other (row, head)s than the plain version's")
+    fin = torch.isfinite(ref_lse)
+    le = (lse[fin] - ref_lse[fin]).abs().max().item() if bool(fin.any()) else 0.0
+    if not le <= SHARD_LSE_TOL:
+        fail(f"{name} {tag}: lse off by {le:.3g} (> {SHARD_LSE_TOL})")
+    empty = torch.isinf(lse).all(-1)
+    if not torch.equal(o[empty], torch.zeros_like(o[empty])):
+        fail(f"{name} {tag}: rows with no local key are not zeros")
+    return le
+
+
+def _shard_bytes(name, q, kv, bt, pos, phase, d: int, i: int) -> tuple[int, int]:
+    """(bytes, flops) of one rank's shard launch: the K and V rows (and int8
+    scales) of the live keys on its pages, the table entries of its rows'
+    spans, q, pos (and phase), o in float32 and lse."""
+    import torch
+    R, H, hd = q.shape
+    P, ps, K = kv[0].shape[:3]
+    n = P // d
+    ragged = phase is not None
+    live = phase.bool() if ragged else torch.ones_like(pos, dtype=torch.bool)
+    kpos = torch.arange(SERVE_NB * ps, device=q.device)
+    page = bt.long()[:, kpos // ps]
+    mine = (page >= i * n) & (page < (i + 1) * n) & (kpos[None] <= pos.long()[:, None])
+    keys = int(mine[live].sum())
+    entries = int((pos.long().clamp(max=SERVE_NB * ps - 1) // ps + 1)[live].sum())
+    per_key = 2 * K * hd * kv[0].element_size() + (2 * K * 4 if name.endswith("int8") else 0)
+    nbytes = (keys * per_key + int(live.sum()) * H * hd * q.element_size()
+              + R * H * (hd + 1) * 4 + (int(live.sum()) + entries + (R if ragged else 0)) * 4)
+    return nbytes, 4 * H * hd * keys
+
+
+def _a85_kernels(smi: str) -> dict:
+    """(a): B7-B10's shard form at phase 13's shape. -> {name_shard: row}."""
+    import torch
+    from repro_torch.dist.exchange import merge_partials
+    from repro_torch.kernels import paged_decode_attention as KP
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(85)
+    rows = {}
+    tol = ATTN_BF16_STEPS * BF16_STEP
+    for int8 in (False, True):
+        q, kv, bt, pos, phase = _paged_case(gen, bf16, int8, inside_out_of_range=False)
+        for name in [n for n in PAGED if n.endswith("int8") == int8]:
+            ph = phase if name.startswith("ragged") else None
+            errs, lse_errs = [0.0], [0.0]
+            for window in (None, 200):
+                kw = dict(window=window)
+                whole = _paged_call(KP, name, q, kv, bt, pos, phase, **kw)()
+                one = _shard_launches(KP, name, q, kv, bt, pos, ph, 1, **kw)[0]()
+                if not torch.equal(one[0].to(bf16), whole):
+                    fail(f"a85 {name} window={window}: d = 1 differs from the whole launch")
+                for d in A85_SPLITS:
+                    parts = [f() for f in _shard_launches(KP, name, q, kv, bt, pos, ph, d, **kw)]
+                    plain = _shard_launches(KP, name, q, kv, bt, pos, ph, d, plain=True, **kw)
+                    exact = _shard_launches(KP, name, q, kv, bt, pos, ph, d, plain=True,
+                                            f32=True, **kw)
+                    for i, (o, lse) in enumerate(parts):
+                        tag = f"window={window} range {i} of {d}"
+                        errs.append(_err_ok(name + " shard o", tag, o, plain[i]()[0],
+                                            per_row=tol)[0])
+                        lse_errs.append(_shard_checks("a85 " + name, tag, o, lse, exact[i]()[1]))
+                    o, _ = merge_partials(torch.stack([p[0] for p in parts]),
+                                          torch.stack([p[1] for p in parts]))
+                    errs.append(_err_ok(name + " shard merged", f"window={window} d={d}",
+                                        o.to(bf16), whole, per_row=tol)[0])
+                    if ph is not None:
+                        dead = o[ph == 0]
+                        if not torch.equal(dead, torch.zeros_like(dead)):
+                            fail(f"a85 {name} d={d}: phase-0 rows are not exact zeros")
+            # the shard launches of one rank in turns with the whole launch
+            whole = _paged_call(KP, name, q, kv, bt, pos, phase)
+            times = {}
+            for d in A85_SPLITS:
+                fns = _shard_launches(KP, name, q, kv, bt, pos, ph, d)
+                for turn in range(2):
+                    times.setdefault("whole", []).append(time_ms(whole)[0])
+                    times.setdefault(d, []).append([time_ms(f)[0] for f in fns])
+            d0 = A85_SPLITS[0]
+            ms = sum(sum(t) for t in times[d0]) / (len(times[d0]) * d0)
+            plain_ms = time_ms(_shard_launches(KP, name, q, kv, bt, pos, ph, d0, plain=True)[0],
+                               iters=20)[0]
+            nbytes, flops = _shard_bytes(name, q, kv, bt, pos, ph, d0, 0)
+            b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_FLOPS)
+            log(f"[a85] {name} shard form at R={SERVE_R} H=32 K=8 hd=64, pages "
+                f"{SERVE_PAGES}x{SERVE_PS}, tables of {SERVE_NB}, window None/200: each range "
+                f"within {tol:.3g} of its rows' max of the plain version (o), its lse within "
+                f"{SHARD_LSE_TOL} of the float32 plain version's (max {max(lse_errs):.3g}); "
+                f"merged within {tol:.3g} of the whole launch for d in {A85_SPLITS}; d = 1 "
+                f"bit-equal; no-key rows zeros and -inf; max abs err {max(errs):.3g}")
+            log(f"[a85] {name} us a launch in turns (whole, then each range's): " + "; ".join(
+                f"d={d}: whole {times['whole'][k] * 1e3:.2f}, ranges "
+                + "/".join(f"{t * 1e3:.2f}" for t in times[d][j])
+                for k, (d, j) in enumerate((d, j) for d in A85_SPLITS for j in range(2)))
+                + f"; range 0 of {d0}: plain {plain_ms * 1e3:.2f}, bound {b_ms * 1e3:.3f} "
+                f"({b_by}: {nbytes} B, {flops} flop); {smi}")
+            rows[name + "_shard"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                         bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs))
+    return rows
+
+
+A85_WORKER = r'''
+import dataclasses, hashlib, json, sys, time
+import torch
+import torch.distributed as dist
+
+rank, store, out, layers, n_req = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                   int(sys.argv[4]), int(sys.argv[5]))
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+from torch.distributed.device_mesh import init_device_mesh
+import numpy as np
+from repro_torch.configs.llama3_2_1b import CONFIG
+from repro_torch.kernels import (cfg_combine, decode_attention, flash_attention,
+                                 paged_decode_attention as KP, rmsnorm)
+from repro_torch.models.transformer import Transformer
+from repro_torch.serve import ContinuousEngine, ServeRequest
+from chip_smoke import _recording_signatures
+
+MODS = (cfg_combine, flash_attention, decode_attention, rmsnorm, KP)
+cfg = CONFIG if layers <= 0 else dataclasses.replace(CONFIG, num_layers=layers)
+t0 = time.perf_counter()
+model = Transformer.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         dtype=torch.bfloat16)
+torch.cuda.synchronize()
+t_init = time.perf_counter() - t0
+
+
+class Rec(ContinuousEngine):
+    """Keeps the logits of every step's sample (host copies), not the
+    prefills': a step's are where the exchange enters."""
+    rec, in_step = None, False
+
+    def _execute(self, plan):
+        self.in_step = True
+        try:
+            return super()._execute(plan)
+        finally:
+            self.in_step = False
+
+    def _sample(self, logits, uids, temps, keys, steps):
+        if self.in_step:
+            self.rec.append(logits[:len(uids)].float().cpu())
+        return super()._sample(logits, uids, temps, keys, steps)
+
+
+def reqs():
+    rng = np.random.default_rng(85)
+    lens = (32, 64)
+    return [ServeRequest(uid=f"q{i}", prompt=rng.integers(4, cfg.vocab_size, lens[i % 2]).tolist(),
+                         max_new_tokens=16, guidance_scale=3.0, temperature=0.0,
+                         prompt_len=lens[i % 2]) for i in range(n_req)]
+
+
+def run(kv, step_mode, kv_dtype, mesh):
+    kw = dict(kv=kv, step_mode=step_mode, num_slots=4, pass_budget=8, prompt_len=64,
+              max_new=16, stop_on_eos=False, seed=0, selective_fraction=0.5)
+    if kv == "paged":
+        kw.update(page_size=16, kv_dtype=kv_dtype, reservation="lazy")
+    for m in MODS:
+        m.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng = Rec(model, cfg, mesh=mesh, graphs=False, **kw)
+    eng.rec = []
+    toks = eng.serve_trace(reqs(), [0, 0, 1, 1, 2, 3, 5, 8][:n_req])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    logit_bytes = b"".join(r.numpy().tobytes() for r in eng.rec)
+    pools = eng._pool_p if eng._pool_p is not None else eng._pool_c + eng._pool_u
+    summ = {k: v for k, v in eng.metrics.summary().items() if k not in ("wall_s", "tick_s")}
+    return dict(tokens=toks, counters=summ, events=[e.kind for e in eng.metrics.trace],
+                launches={k: v for m in MODS for k, v in m.LAUNCHES.items()},
+                shard=dict(KP.SHARD_LAUNCHES), forms=dict(decode_attention.LAUNCH_FORMS),
+                wall=wall,
+                logits_sha=hashlib.sha256(logit_bytes).hexdigest(),
+                pool_bytes=sum(t.numel() * t.element_size() for l in pools for t in l.values()),
+                split=None if eng._shard is None else [eng._shard.lead.n, eng._shard.heads.n],
+                first=eng.rec), eng
+
+
+res = {"init_s": t_init, "runs": {}}
+firsts, sigs = {}, {"mesh": {}, "meshless": {}}
+for shape in MESHES:
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    for kv, sm, dt in RUNS:
+        key = f"{shape[0]}x{shape[1]} {kv} {sm} {dt}"
+        with _recording_signatures(sigs["mesh"]):
+            r, _ = run(kv, sm, dt, mesh)
+        firsts[key] = r.pop("first")
+        res["runs"][key] = r
+if rank == 0:
+    for kv, sm, dt in RUNS:
+        with _recording_signatures(sigs["meshless"]):
+            r, _ = run(kv, sm, dt, None)
+        firsts[f"meshless {kv} {sm} {dt}"] = r.pop("first")
+        res["runs"][f"meshless {kv} {sm} {dt}"] = r
+torch.save(dict(firsts=firsts, sigs=sigs), out + ".pt")
+with open(out, "w") as f:
+    json.dump(res, f, default=lambda o: o.item())
+dist.barrier()
+dist.destroy_process_group()
+'''
+
+
+def _a85_engine(smi: str) -> tuple[dict, dict]:
+    """(b): two processes on ``cuda:0`` over a gloo group, the engine on
+    meshes (2, 1) and (1, 2) against the meshless engine's eager run; every
+    call signature the runs gave a kernel wrapper (the ranks record them)
+    then made anew here and held against its plain version. -> (rank 0's
+    shard launches by kernel, max abs error per row of the kernels line at
+    the signatures)"""
+    import tempfile
+
+    import torch
+    work = tempfile.mkdtemp(prefix="a85-", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"), ROOT]),
+               OMP_NUM_THREADS="2")
+    code = A85_WORKER.replace("MESHES", repr(A85_MESHES)).replace("RUNS", repr(A85_RUNS))
+    layers = A85_LAYERS
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), os.path.join(work, "store"),
+                               os.path.join(work, f"rank{r}.json"), str(layers), str(A85_N)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"a85 rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    res = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(2)]
+    saved = [torch.load(os.path.join(work, f"rank{r}.json.pt")) for r in range(2)]
+    firsts, sigs = saved[0]["firsts"], saved[0]["sigs"]
+    if saved[1]["sigs"]["mesh"] != sigs["mesh"]:
+        fail("a85: the ranks' call signatures differ")
+    shard, totals = {}, {}
+    for r in res[0]["runs"].values():
+        _add(totals, _a85_row_launches(r))
+    for kv, sm, dt in A85_RUNS:
+        base = res[0]["runs"][f"meshless {kv} {sm} {dt}"]
+        for shape in A85_MESHES:
+            key = f"{shape[0]}x{shape[1]} {kv} {sm} {dt}"
+            a, b = res[0]["runs"][key], res[1]["runs"][key]
+            for field in ("tokens", "counters", "events", "launches", "shard", "logits_sha"):
+                if a[field] != b[field]:
+                    fail(f"a85 {key}: the ranks' {field} differ")
+            for field in ("counters", "events", "launches"):
+                if a[field] != base[field]:
+                    fail(f"a85 {key}: {field} differ from the meshless engine's: {a[field]} "
+                         f"against {base[field]}")
+            # every step's logits up to the first whose argmax differs: until
+            # then both runs fed the same tokens
+            f_mesh, f_base = firsts[key], firsts[f"meshless {kv} {sm} {dt}"]
+            n = min(len(f_mesh), len(f_base))
+            j = next((j for j in range(n) if not torch.equal(f_mesh[j].argmax(-1),
+                                                             f_base[j].argmax(-1))), n - 1)
+            e, rel = 0.0, 0.0
+            for m_, b_ in zip(f_mesh[:j + 1], f_base[:j + 1]):
+                ok, e1, rel1 = _within(m_, b_, rel_to_max=SERVE_LOGIT_TOL)
+                if not ok:
+                    fail(f"a85 {key}: a step's logits off by {rel1:.3g} of max|logit|")
+                e, rel = max(e, e1), max(rel, rel1)
+            same = sum(x == y for u in base["tokens"] for x, y in
+                       zip(a["tokens"][u], base["tokens"][u]))
+            total = sum(len(v) for v in base["tokens"].values())
+            for k, n in a["shard"].items():
+                if shape[0] > 1:
+                    shard[k] = shard.get(k, 0) + n
+            log(f"[a85] {key}: ranks bit-equal (tokens, logits sha {a['logits_sha'][:12]}, "
+                f"counters, events, launches); passes {a['counters']['denoiser_passes']}, "
+                f"counters, events and launches equal the meshless eager run's; split "
+                f"(pages or rows, heads) {a['split']}; pool bytes a rank {a['pool_bytes']} "
+                f"against {base['pool_bytes']}; the logits of samples 0-{j} (to the first "
+                f"argmax that differs, or the last) within {rel:.3g} of max|logit| ({e:.3g}); "
+                f"{same} of "
+                f"{total} tokens equal the meshless run's; wall "
+                f"{a['wall']:.2f} s against {base['wall']:.2f}; shard launches "
+                f"{ {k: v for k, v in a['shard'].items() if v} }")
+    log(f"[a85] two ranks on cuda:0 over gloo, llama3.2-1b full width, {A85_LAYERS} of 16 "
+        "layers, "
+        f"{A85_N} requests: {wall:.1f} s for both processes (model init "
+        f"{res[0]['init_s']:.1f} s); {smi}")
+    calls = {k: sigs["mesh"].get(k, 0) + sigs["meshless"].get(k, 0)
+             for k in set(sigs["mesh"]) | set(sigs["meshless"])}
+    return shard, _check_signatures(calls, totals, label="a85")
+
+
+def _a85_row_launches(run: dict) -> dict:
+    """A worker run's launches by row of the kernels line: the shard form's
+    under ``<kernel>_shard``, B5's per-row form's under
+    ``decode_attention_rows``."""
+    out = dict(run["launches"])
+    for name, n in run["shard"].items():
+        out[name] -= n
+        out[name + "_shard"] = n
+    n = run["forms"].get("rows", 0)
+    if n:
+        out["decode_attention"] -= n
+        out["decode_attention_rows"] = n
+    return out
+
+
+def phase_a85(smi: str) -> tuple[dict, dict, dict]:
+    """``[a85]``: B7-B10's shard form and the two-rank engine (phase 28).
+    -> (rows of the kernels line for the shard forms, their launches in the
+    engine's runs, max abs error per row at the runs' call signatures)."""
+    t0 = time.perf_counter()
+    rows = _a85_kernels(smi)
+    t1 = time.perf_counter()
+    shard, errs = _a85_engine(smi)
+    log(f"[a85] wall {time.perf_counter() - t0:.1f} s: shard kernels {t1 - t0:.1f} s, "
+        f"two-rank engine and its signatures {time.perf_counter() - t1:.1f} s")
+    return rows, shard, errs
+
+
 def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -5502,7 +5916,10 @@ def main() -> None:
     lap("phase 26")
     a84_launches, a84_errs = phase_a84(smi)
     lap("phase 27")
-    for name, e in list(launch_errs.items()) + list(a84_errs.items()):
+    a85_rows, a85_shard, a85_errs = phase_a85(smi)
+    rows.update(a85_rows)
+    lap("phase 28")
+    for name, e in list(launch_errs.items()) + list(a84_errs.items()) + list(a85_errs.items()):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
 
     cu = "src/repro_torch/csrc/"
@@ -5526,8 +5943,20 @@ def main() -> None:
         "paged_decode_attention_int8": (
             "paged_decode_attention.cu", "src/repro/kernels/paged_decode_attention.py:214"),
     }
+    for name in PAGED:
+        kernels[name + "_shard"] = kernels[name]
     out = []
     for name, (src, replaces) in kernels.items():
+        if name.endswith("_shard"):
+            n = a85_shard.get(name[:-len("_shard")], 0)
+            if n == 0:
+                fail(f"{name}: launched no time in phase 28's two-rank engine")
+            log(f"[launches] {name}: {n} in phase 28's two-rank engine runs (rank 0; also "
+                f"counted under {name[:-len('_shard')]}, its whole form's name, there)")
+            r = {k: v for k, v in rows[name].items() if k != "host_us"}
+            out.append(dict(name=name, route="cuda", source=cu + src, replaces=replaces,
+                            launches=n, **r))
+            continue
         sd, ar = sd_launches.get(name, 0), ar_launches.get(name, 0)
         sv = serve_launches.get(name, 0)
         sl = sum(d.get(name, 0) for d in slot_paths)

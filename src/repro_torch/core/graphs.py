@@ -32,8 +32,8 @@ from repro_torch.kernels import build, cfg_combine, decode_attention, flash_atte
 
 # every counter of kernel launches, in a fixed order
 COUNTERS = (cfg_combine.LAUNCHES, decode_attention.LAUNCHES, decode_attention.LAUNCH_FORMS,
-            flash_attention.LAUNCHES, paged_decode_attention.LAUNCHES, rmsnorm.LAUNCHES,
-            rmsnorm.LAUNCH_SHAPES)
+            flash_attention.LAUNCHES, paged_decode_attention.LAUNCHES,
+            paged_decode_attention.SHARD_LAUNCHES, rmsnorm.LAUNCHES, rmsnorm.LAUNCH_SHAPES)
 
 
 def snapshot(counters=COUNTERS) -> tuple[dict, ...]:

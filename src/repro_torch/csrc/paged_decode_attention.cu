@@ -106,6 +106,19 @@
 // the blocks' states into one block's shared memory behind a single
 // barrier were both slower here.
 //
+// The shard form (kShard; the C entry paged_decode_attention_shard) is the
+// same walk over one rank's share of a pool split by pages: the table holds
+// this rank's local page ids, and an entry outside [0, P) is a page another
+// rank owns. Its keys are neither read (the copies zero-fill them) nor
+// attended (their scores are masked like keys past pos): the mask reads the
+// key's table entry again, from L1, where the softmax needs it. It writes o
+// in float32 and each (row, head)'s natural log-sum-exp of the attended
+// scores, (m + log2 l) ln 2 from the cluster merge's (m, l); a live row with
+// no local key gets o = 0 and lse = -inf, a row at phase 0 exact zeros and
+// -inf. The ranks' (o, lse) merge into the whole pool's attention
+// (dist/exchange.py merge_partials). The whole-pool instantiations are the
+// ones above, unchanged.
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise and returns cudaGetLastError().
 
@@ -132,6 +145,7 @@ constexpr int kSplitWarps = kSplitThreads / 32;
 constexpr int kMaxCluster = 8;                   // MAX_CLUSTER in the wrapper
 constexpr int kMaxStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 // Blocks an SM holds at once at head dims up to D, by registers (at most
 // 80 a thread at D 64, 128 at D 128): 640 blocks at the serve shape (R 16,
 // K 8, clusters of 5) stay resident in one wave.
@@ -175,6 +189,10 @@ __host__ __device__ __forceinline__ int split_smem_bytes(bool f32, bool int8, in
   const int loop = stages * stage_bytes(f32, int8, D) + extra;
   const int merge = 4 * (kSplitWarps + 1) * rep * (hd + 2);
   return loop > merge ? loop : merge;
+}
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(static_cast<int>(0xff800000u));
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -243,17 +261,20 @@ __device__ __forceinline__ float col_sum(float x) {
 // ring. A thread keeps (m, l) of two heads: columns 2(lane%4) and
 // 2(lane%4) + 1 of the transposed products (bf16), whose accumulators hold
 // rows lane/4 and lane/4 + 8 (keys, or dims); or heads warp and warp + 4
-// (float32), with acc over dims lane D/32 + e.
-template <typename T, bool kInt8, int D, int NS>
+// (float32), with acc over dims lane D/32 + e. kShard: the shard form, out
+// float32 and lse (R, K rep) float32; else out of T and lse unused.
+template <typename T, bool kInt8, bool kShard, int D, int NS>
 __global__ void __launch_bounds__(kSplitThreads, kSplitBlocksPerSm<D>)
 paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
                    const void* __restrict__ vpages, const float* __restrict__ ks,
                    const float* __restrict__ vs, const int* __restrict__ bt,
                    const int* __restrict__ pos, const int* __restrict__ phase,
-                   T* __restrict__ out, int K, int hd, int rep, int P, int ps, int nb,
-                   int window, float scale_log2) {
+                   void* __restrict__ out_, float* __restrict__ lse, int K, int hd, int rep,
+                   int P, int ps, int nb, int window, float scale_log2) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   using E = typename std::conditional<kInt8, int8_t, T>::type;
+  using O = typename std::conditional<kShard, float, T>::type;
+  O* __restrict__ out = static_cast<O*>(out_);
   constexpr int TK = split_tile(kF32);
   constexpr int KPW = TK / kSplitWarps;   // keys of a tile a warp copies
   constexpr int CB = kInt8 ? 8 : 16;      // bytes of one copy
@@ -294,13 +315,26 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
   }
   if (ph == 0) {  // the whole cluster leaves; no page is read
     for (int i = rank * kSplitThreads + tid; i < rep * hd; i += csize * kSplitThreads)
-      out[qoff + i] = from_f32<T>(0.0f);
+      out[qoff + i] = from_f32<O>(0.0f);
+    if constexpr (kShard)
+      for (int i = rank * kSplitThreads + tid; i < rep; i += csize * kSplitThreads)
+        lse[((long long)r * K + g) * rep + i] = neg_inf();
     return;
   }
   // this block's keys: tiles [t_begin, t_end) of the row's keys [lo, hi] from lo
   const int hi = min(p_r, nb * ps - 1);
   const int lo = window > 0 ? max(0, p_r - window + 1) : 0;
   const int ntiles = hi >= lo ? (hi - lo + TK) / TK : 0;
+  const int* btr = bt + (long long)r * nb;
+  // the shard form: whether key kp (lo <= kp <= hi) lies on a page of this rank
+  auto local_key = [&](int kp) {
+    if constexpr (kShard) {
+      const int e = btr[kp / ps];
+      return e >= 0 && e < P;
+    } else {
+      return true;
+    }
+  };
   const int per = (ntiles + csize - 1) / csize;
   const int t_begin = min(ntiles, rank * per), t_end = min(ntiles, t_begin + per);
 
@@ -314,7 +348,6 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
   const int which = lane / KPW, jl = lane % KPW;
   const E* kp = static_cast<const E*>(kpages);
   const E* vp = static_cast<const E*>(vpages);
-  const int* btr = bt + (long long)r * nb;
   const int row0 = lane / CPR, chunk = lane % CPR;
   const bool chunk_in = chunk * EPC < hd;
   // key jl of the next tile to read, tn, as (table column pg, offset off),
@@ -339,7 +372,8 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
   auto issue = [&](int t, int2 f) {  // f: tile t's fetch()
     if (t < t_end) {
       // key jl's row of the pool, (page * ps + offset) * K + g, or -1 past the range
-      const int myrow = f.y >= 0 ? (min(max(f.x, 0), P - 1) * ps + f.y) * K + g : -1;
+      const bool mine = f.y >= 0 && (!kShard || (f.x >= 0 && f.x < P));
+      const int myrow = mine ? (min(max(f.x, 0), P - 1) * ps + f.y) * K + g : -1;
       unsigned char* st = sbuf + (t - t_begin) % NS * sbytes;
       const uint32_t dst = smem_u32(st) + (warp * KPW + row0) * rse + chunk * CB;
 #pragma unroll
@@ -389,7 +423,7 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
     if constexpr (kF32) {
       __syncthreads();  // every warp's rows of tile t, and q, visible to the block
       // key j = lane's scores for heads warp and warp + 4, two partial sums each
-      const bool ok = lo + t * TK + lane <= hi;
+      const bool ok = lo + t * TK + lane <= hi && local_key(lo + t * TK + lane);
       const unsigned char* kr = st + lane * rse;
       float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
       for (int d = 0; d < hd; d += 8) {
@@ -471,7 +505,8 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
       // online softmax of heads 2tq + e over the warp's 16 keys: the thread
       // holds keys gq (x[e]) and gq + 8 (x[2 + e])
       const int kw = lo + t * TK + warp * KPW;  // the warp's first key
-      const bool ok0 = kw + gq <= hi, ok1 = kw + gq + 8 <= hi;
+      const bool ok0 = kw + gq <= hi && local_key(kw + gq);
+      const bool ok1 = kw + gq + 8 <= hi && local_key(kw + gq + 8);
       const float* wscale = kscale + warp * KPW;
       float f0 = scale_log2, f1 = scale_log2;
       if constexpr (kInt8) {
@@ -627,7 +662,10 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
       ls += lb[b] * wt;
       a += ab[b] * wt;
     }
-    out[qoff + idx] = from_f32<T>(a / fmaxf(ls, 1e-20f));
+    out[qoff + idx] = from_f32<O>(a / fmaxf(ls, 1e-20f));
+    if constexpr (kShard)
+      if (idx == h * hd)
+        lse[((long long)r * K + g) * rep + h] = ls > 0.0f ? (mc + log2f(ls)) * kLn2 : neg_inf();
   }
   // no block leaves while another reads its shared memory (the reads are
   // done: no ordering needed)
@@ -635,27 +673,27 @@ paged_split_kernel(const T* __restrict__ q, const void* __restrict__ kpages,
                    "memory");
 }
 
-template <typename T, bool kInt8, int D, int NS>
+template <typename T, bool kInt8, bool kShard, int D, int NS>
 int launch_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                 const int* bt, const int* pos, const int* phase, void* out, int R, int K, int hd,
-                 int rep, int P, int ps, int nb, int window, int cluster, int smem, float scale,
-                 cudaStream_t st) {
-  return cluster_launch(paged_split_kernel<T, kInt8, D, NS>, dim3(cluster, K, R), kSplitThreads,
-                        (size_t)smem, st, static_cast<const T*>(q), k, v,
+                 const int* bt, const int* pos, const int* phase, void* out, float* lse, int R,
+                 int K, int hd, int rep, int P, int ps, int nb, int window, int cluster, int smem,
+                 float scale, cudaStream_t st) {
+  return cluster_launch(paged_split_kernel<T, kInt8, kShard, D, NS>, dim3(cluster, K, R),
+                        kSplitThreads, (size_t)smem, st, static_cast<const T*>(q), k, v,
                         static_cast<const float*>(ks), static_cast<const float*>(vs), bt, pos,
-                        phase, static_cast<T*>(out), K, hd, rep, P, ps, nb, window,
-                        scale * kLog2e);
+                        phase, out, lse, K, hd, rep, P, ps, nb, window, scale * kLog2e);
 }
 
 // The plan (kernels/paged_decode_attention.py ``paged_split_plan``) must be
 // the one the shapes give: tiles of split_tile keys, the cluster covering
 // the keys a row can reach with none of its blocks idle at the longest row,
 // the ring's depth and the shared memory that goes with them.
-template <typename T, bool kInt8>
+template <typename T, bool kInt8, bool kShard>
 int dispatch_split(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-                   const int* bt, const int* pos, const int* phase, void* out, int R, int H,
-                   int K, int hd, int P, int ps, int nb, int window, int tile, int cluster,
-                   int per_block, int stages, int smem, float scale, cudaStream_t st) {
+                   const int* bt, const int* pos, const int* phase, void* out, float* lse,
+                   int R, int H, int K, int hd, int P, int ps, int nb, int window, int tile,
+                   int cluster, int per_block, int stages, int smem, float scale,
+                   cudaStream_t st) {
   constexpr bool kF32 = std::is_same<T, float>::value;
   const int rep = H / K;
   const long long reach = window > 0 && window < (long long)nb * ps ? window : (long long)nb * ps;
@@ -666,12 +704,13 @@ int dispatch_split(const void* q, const void* k, const void* v, const void* ks, 
       smem != split_smem_bytes(kF32, kInt8, hd, rep, stages) || R > 65535 ||
       (long long)P * ps * K > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-#define SPLIT_ARGS \
-  q, k, v, ks, vs, bt, pos, phase, out, R, K, hd, rep, P, ps, nb, window, cluster, smem, scale, st
+#define SPLIT_ARGS                                                                        \
+  q, k, v, ks, vs, bt, pos, phase, out, lse, R, K, hd, rep, P, ps, nb, window, cluster, smem, \
+      scale, st
 #define SPLIT_STAGES(D)                                                     \
-  if (stages == 1) return launch_split<T, kInt8, D, 1>(SPLIT_ARGS);         \
-  if (stages == 2) return launch_split<T, kInt8, D, 2>(SPLIT_ARGS);         \
-  return launch_split<T, kInt8, D, 3>(SPLIT_ARGS)
+  if (stages == 1) return launch_split<T, kInt8, kShard, D, 1>(SPLIT_ARGS); \
+  if (stages == 2) return launch_split<T, kInt8, kShard, D, 2>(SPLIT_ARGS); \
+  return launch_split<T, kInt8, kShard, D, 3>(SPLIT_ARGS)
   if (hd <= 64) {
     SPLIT_STAGES(64);
   }
@@ -691,28 +730,59 @@ extern "C" {
 // most 128 (kMaxHeadDim); window 0 for none. (tile, cluster, per_block,
 // stages, smem) is kernels/paged_decode_attention.py ``paged_split_plan``'s
 // for these shapes and q's dtype; paged_split_kernel refuses any other.
+// With shard = 1: the shard form, out (R,H,hd) float32 whatever q's dtype,
+// lse (R,H) float32, table entries outside [0, P) another rank's pages.
+static int paged_entry(const void* q, const void* k, const void* v, const void* ks,
+                       const void* vs, const void* bt, const void* pos, const void* phase,
+                       void* out, float* lse, int R, int H, int K, int hd, int P, int ps, int nb,
+                       int window, int tile, int cluster, int per_block, int stages, int smem,
+                       float scale, int dtype, int int8, int shard, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 0) return (int)cudaGetLastError();
+  if (K <= 0 || H % K != 0 || H / K > kMaxRep || hd <= 0 || hd % 8 != 0 || hd > kMaxHeadDim ||
+      P <= 0 || ps <= 0 || nb <= 0 || window < 0 || (int8 && (ks == nullptr || vs == nullptr)) ||
+      (shard && lse == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define SPLIT_ARGS                                                                             \
+  q, k, v, ks, vs, static_cast<const int*>(bt), static_cast<const int*>(pos),                  \
+      static_cast<const int*>(phase), out, lse, R, H, K, hd, P, ps, nb, window, tile, cluster, \
+      per_block, stages, smem, scale, st
+#define SPLIT_PICK(T)                                                        \
+  if (shard)                                                                 \
+    return int8 ? dispatch_split<T, true, true>(SPLIT_ARGS)                  \
+                : dispatch_split<T, false, true>(SPLIT_ARGS);                \
+  return int8 ? dispatch_split<T, true, false>(SPLIT_ARGS)                   \
+              : dispatch_split<T, false, false>(SPLIT_ARGS)
+  if (dtype == 0) {
+    SPLIT_PICK(float);
+  }
+  if (dtype == 1) {
+    SPLIT_PICK(__nv_bfloat16);
+  }
+#undef SPLIT_PICK
+#undef SPLIT_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 int paged_decode_attention(const void* q, const void* k, const void* v, const void* ks,
                            const void* vs, const void* bt, const void* pos, const void* phase,
                            void* out, int R, int H, int K, int hd, int P, int ps, int nb,
                            int window, int tile, int cluster, int per_block, int stages, int smem,
                            float scale, int dtype, int int8, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 0) return (int)cudaGetLastError();
-  if (K <= 0 || H % K != 0 || H / K > kMaxRep || hd <= 0 || hd % 8 != 0 || hd > kMaxHeadDim ||
-      P <= 0 || ps <= 0 || nb <= 0 || window < 0 || (int8 && (ks == nullptr || vs == nullptr)))
-    return (int)cudaErrorInvalidValue;
-#define SPLIT_ARGS                                                                             \
-  q, k, v, ks, vs, static_cast<const int*>(bt), static_cast<const int*>(pos),                  \
-      static_cast<const int*>(phase), out, R, H, K, hd, P, ps, nb, window, tile, cluster,      \
-      per_block, stages, smem, scale, st
-  if (dtype == 0)
-    return int8 ? dispatch_split<float, true>(SPLIT_ARGS)
-                : dispatch_split<float, false>(SPLIT_ARGS);
-  if (dtype == 1)
-    return int8 ? dispatch_split<__nv_bfloat16, true>(SPLIT_ARGS)
-                : dispatch_split<__nv_bfloat16, false>(SPLIT_ARGS);
-#undef SPLIT_ARGS
-  return (int)cudaErrorInvalidValue;
+  return paged_entry(q, k, v, ks, vs, bt, pos, phase, out, nullptr, R, H, K, hd, P, ps, nb,
+                     window, tile, cluster, per_block, stages, smem, scale, dtype, int8, 0,
+                     stream);
+}
+
+int paged_decode_attention_shard(const void* q, const void* k, const void* v, const void* ks,
+                                 const void* vs, const void* bt, const void* pos,
+                                 const void* phase, void* out, void* lse, int R, int H, int K,
+                                 int hd, int P, int ps, int nb, int window, int tile, int cluster,
+                                 int per_block, int stages, int smem, float scale, int dtype,
+                                 int int8, void* stream) {
+  return paged_entry(q, k, v, ks, vs, bt, pos, phase, out, static_cast<float*>(lse), R, H, K,
+                     hd, P, ps, nb, window, tile, cluster, per_block, stages, smem, scale, dtype,
+                     int8, 1, stream);
 }
 
 }  // extern "C"

@@ -35,6 +35,7 @@ SIGNATURES = {
     "flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _I, _P],
     "decode_attention": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     "paged_decode_attention": [_P] * 9 + [_I] * 13 + [_F, _I, _I, _P],
+    "paged_decode_attention_shard": [_P] * 10 + [_I] * 13 + [_F, _I, _I, _P],
 }
 # dtype codes the C entry points take
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -58,11 +58,12 @@ def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
 
 
-def grouped_attention_plain(q, k, v, valid=None):
+def grouped_attention_plain(q, k, v, valid=None, *, lse: bool = False):
     """The one plain grouped-query attention body of the port. q (B,Q,H,hd),
     k, v (B,S,K,hd), ``valid`` a bool mask that broadcasts to (B,1,1,Q,S)
     or None -> (B,Q,H,hd). Scores from the einsum in q's dtype, softmax in
-    float32, weights cast back to q's dtype (as ``repro/kernels/ref.py``)."""
+    float32, weights cast back to q's dtype (as ``repro/kernels/ref.py``).
+    With ``lse`` -> (out, the masked scores' log-sum-exp (B,Q,H) float32)."""
     B, Q, H, hd = q.shape
     K = k.shape[2]
     qg = q.reshape(B, Q, K, H // K, hd)
@@ -70,7 +71,10 @@ def grouped_attention_plain(q, k, v, valid=None):
     if valid is not None:
         s = torch.where(valid, s, NEG_INF)
     w = torch.softmax(s, dim=-1).to(q.dtype)
-    return torch.einsum("bkrqs,bskh->bqkrh", w, v).reshape(B, Q, H, hd)
+    out = torch.einsum("bkrqs,bskh->bqkrh", w, v).reshape(B, Q, H, hd)
+    if not lse:
+        return out
+    return out, s.logsumexp(dim=-1).permute(0, 3, 1, 2).reshape(B, Q, H)
 
 
 def _prefill_mask(S: int, causal: bool, window: int | None, device):

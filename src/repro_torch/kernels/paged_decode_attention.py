@@ -33,6 +33,16 @@ accumulators, p rounded to the pages' dtype before the PV product for
 bf16/float32 pages, float32 throughout for int8 pages (with a bf16 q the
 tensor-core PV takes the float32 p * v_scale as a bf16 pair hi + lo, within
 2^-16 of it). ``LAUNCHES`` counts kernel launches by name.
+
+``paged_decode_attention_shard`` is the four kernels' shard form, for a
+pool split by pages over ranks: the table holds this rank's local page ids,
+an entry outside [0, P) marks a page another rank owns, and such a page is
+neither read nor attended (never clamped to a real page). It returns o in
+float32 and each (row, head)'s log-sum-exp of the attended scores, float32
+(R, H); a live row with no local key gives o = 0 and lse = -inf, a row at
+phase 0 zeros and -inf. ``dist.exchange.merge_partials`` merges the ranks'
+(o, lse) into the whole pool's attention. Its launches count under the
+kernel's name in ``LAUNCHES`` and again in ``SHARD_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from repro_torch.kernels.quant import dequantize_kv
 
 LAUNCHES = {"ragged_paged_decode_attention": 0, "ragged_paged_decode_attention_int8": 0,
             "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+SHARD_LAUNCHES = dict(LAUNCHES)   # the shard form's launches, also counted in LAUNCHES
 MAX_HEAD_DIM = 128  # kMaxHeadDim in csrc/paged_decode_attention.cu
 MAX_GROUP = 8      # query heads per kv head; kMaxRep there
 TILE = {torch.bfloat16: 64, torch.float32: 32}   # keys per tile, by q's dtype; split_tile
@@ -60,6 +71,7 @@ SPLIT_WARPS = 4    # warps per block of the split kernel; kSplitWarps
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        SHARD_LAUNCHES[k] = 0
 
 
 def resolve_block_k(block_k, page_size: int) -> int:
@@ -70,20 +82,37 @@ def resolve_block_k(block_k, page_size: int) -> int:
     return bk
 
 
+def local_table(block_table, first: int, num_pages: int):
+    """A global block table as the rank holding pages [first, first +
+    num_pages) reads it: local page ids, -1 for a page another rank holds;
+    the shard form's table."""
+    local = block_table - first
+    return torch.where((local >= 0) & (local < num_pages), local, -1).contiguous()
+
+
 def paged_attention_plain(q, k_pages, v_pages, block_table, pos, *, window=None,
-                          phase=None, k_scales=None, v_scales=None):
+                          phase=None, k_scales=None, v_scales=None, shard: bool = False):
     """The plain version of all four kernels: gather each row's pages through
     its clamped table into (R, nb*page_size, K, hd), then masked grouped
     attention. With scales the pages are int8 and are dequantized to q's
-    dtype; with ``phase`` the rows at phase 0 are zeros."""
+    dtype; with ``phase`` the rows at phase 0 are zeros. With ``shard``, the
+    shard form: entries outside [0, P) are other ranks' pages, gathered as
+    zeros and masked, and -> (o float32 (R,H,hd), lse float32 (R,H)), o the
+    same attention as the whole form's over the keys left (its very values,
+    widened), zeros and -inf where a row attends no key."""
     R, H, hd = q.shape
     P, ps, K = k_pages.shape[:3]
     nb = block_table.shape[1]
-    bt = block_table.long().clamp(0, P - 1)
+    bt = block_table.long()
+    own = (bt >= 0) & (bt < P) if shard else None
+    bt = torch.where(own, bt, 0) if shard else bt.clamp(0, P - 1)
     k, v = k_pages[bt], v_pages[bt]
     if k_scales is not None:
         k = dequantize_kv(k, k_scales[bt], q.dtype)
         v = dequantize_kv(v, v_scales[bt], q.dtype)
+    if shard:
+        mine = own[:, :, None, None, None]
+        k, v = torch.where(mine, k, torch.zeros_like(k)), torch.where(mine, v, torch.zeros_like(v))
     k = k.reshape(R, nb * ps, K, hd)
     v = v.reshape(R, nb * ps, K, hd)
     kpos = torch.arange(nb * ps, device=q.device)
@@ -91,10 +120,18 @@ def paged_attention_plain(q, k_pages, v_pages, block_table, pos, *, window=None,
     valid = kpos[None, :] <= pos[:, None]
     if window is not None:
         valid = valid & (kpos[None, :] > pos[:, None] - window)
-    ctx = grouped_attention_plain(q[:, None], k, v, valid[:, None, None, None, :])[:, 0]
-    if phase is not None:
-        ctx = torch.where((phase > 0)[:, None, None], ctx, torch.zeros_like(ctx))
-    return ctx
+    if shard:
+        valid = valid & own.repeat_interleave(ps, dim=1)
+    mask = valid[:, None, None, None, :]
+    if not shard:
+        ctx = grouped_attention_plain(q[:, None], k, v, mask)[:, 0]
+        if phase is not None:
+            ctx = torch.where((phase > 0)[:, None, None], ctx, torch.zeros_like(ctx))
+        return ctx
+    ctx, lse = grouped_attention_plain(q[:, None], k, v, mask, lse=True)
+    live = valid.any(dim=1) if phase is None else valid.any(dim=1) & (phase > 0)
+    return (torch.where(live[:, None, None], ctx[:, 0].float(), 0.0),
+            torch.where(live[:, None], lse[:, 0], -math.inf))
 
 
 class PagedPlan(NamedTuple):
@@ -164,14 +201,15 @@ def _check(q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scales, win
 
 
 def _launch(name, q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scales,
-            window, block_k):
+            window, block_k, shard: bool = False):
     _check(q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scales, window)
     resolve_block_k(block_k, k_pages.shape[1])
     tensors = [q, k_pages, v_pages, block_table, pos] + [
         t for t in (phase, k_scales, v_scales) if t is not None]
     if not build.on_cuda(*tensors):
         return paged_attention_plain(q, k_pages, v_pages, block_table, pos, window=window,
-                                     phase=phase, k_scales=k_scales, v_scales=v_scales)
+                                     phase=phase, k_scales=k_scales, v_scales=v_scales,
+                                     shard=shard)
     build.check_inputs(q)
     int8 = k_scales is not None
     for t in (block_table, pos) + (() if phase is None else (phase,)):
@@ -194,16 +232,24 @@ def _launch(name, q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scal
         raise ValueError("kernel takes 16-byte aligned q and pages")
     nb = block_table.shape[1]
     plan = paged_split_plan(nb, ps, window, H // K, hd, int8, q.dtype)
-    out = torch.empty_like(q)
     lib = build.load()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    code = lib.paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales), ptr(v_scales),
-        block_table.data_ptr(), pos.data_ptr(), ptr(phase), out.data_ptr(),
-        R, H, K, hd, P, ps, nb, window or 0, *plan, 1.0 / math.sqrt(hd),
-        build.DTYPES[q.dtype], int(int8), build.stream(q))
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ptr(k_scales), ptr(v_scales),
+            block_table.data_ptr(), pos.data_ptr(), ptr(phase))
+    tail = (R, H, K, hd, P, ps, nb, window or 0, *plan, 1.0 / math.sqrt(hd),
+            build.DTYPES[q.dtype], int(int8), build.stream(q))
+    if shard:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty(R, H, dtype=torch.float32, device=q.device)
+        code = lib.paged_decode_attention_shard(*args, out.data_ptr(), lse.data_ptr(), *tail)
+    else:
+        out = torch.empty_like(q)
+        code = lib.paged_decode_attention(*args, out.data_ptr(), *tail)
     build.check(lib, name, code)
     LAUNCHES[name] += 1
+    if shard:
+        SHARD_LAUNCHES[name] += 1
+        return out, lse
     return out
 
 
@@ -238,6 +284,20 @@ def paged_decode_attention_int8(q, k_pages, k_scales, v_pages, v_scales, block_t
     """B10: B9 over int8 pages with float32 scales (P, page_size, K, 1)."""
     return _launch("paged_decode_attention_int8", q, k_pages, v_pages, block_table, pos,
                    None, k_scales, v_scales, window, block_k)
+
+
+def paged_decode_attention_shard(q, k_pages, v_pages, block_table, pos, *, phase=None,
+                                 k_scales=None, v_scales=None, window: int | None = None,
+                                 block_k: int | None = None):
+    """The shard form of B7-B10, the kernel picked as the whole form picks
+    it: ragged with ``phase``, int8 with scales. block_table (R, nb) int32
+    holds local page ids, entries outside [0, P) other ranks' pages. -> (o
+    (R,H,hd) float32, lse (R,H) float32). ``local_table`` makes the table
+    from a global one."""
+    name = ("ragged_" if phase is not None else "") + "paged_decode_attention" + (
+        "_int8" if k_scales is not None else "")
+    return _launch(name, q, k_pages, v_pages, block_table, pos, phase, k_scales, v_scales,
+                   window, block_k, shard=True)
 
 
 # -- block size ---------------------------------------------------------------

@@ -22,6 +22,17 @@ caches. Counterpart of ``repro.models.attention``.
                          version; ``paged_scatter_prefill`` writes a
                          batched prefill's KV into the pool.
 
+On a mesh of several devices (a ``MeshShard``: the serve engine's pools
+split over ranks, one process a device) ``attn_decode`` and
+``attn_decode_paged`` run on this rank's share. A paged pool's pages split
+over ``data``: the global block table is translated to local page ids, a
+write to another rank's page lands on the local spare, the kernels' shard
+form attends the local keys and the ranks' (o, lse) are gathered and merged
+(``dist.exchange``). A slot pool's rows split the same way, each row on
+one rank. Kv heads split over ``model``: a rank attends its kv heads and
+their query heads, then gathers every head and runs the whole
+o-projection itself, in the meshless sum order.
+
 The decoder paths take RoPE tables (``layers.rope_tables``) that the stack
 computes once per forward. Grouped-head products never replicate KV.
 """
@@ -35,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import exchange as X
 from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels import flash_attention as KF
 from repro_torch.kernels import paged_decode_attention as KP
@@ -159,6 +171,49 @@ def quantize_linear_cache(cache: dict) -> dict:
     return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
 
 
+class MeshShard(NamedTuple):
+    """One rank's share of a serve pool split over a mesh: ``lead`` the
+    split of the pool's leading axis (a paged pool's pages, a slot pool's
+    rows), ``lead_local`` the pages or rows this rank holds (its own spare
+    past them), ``heads`` the kv heads' split."""
+    lead: X.Split
+    lead_local: int
+    heads: X.Split
+
+    def head_range(self, K: int) -> tuple[int, int]:
+        """This rank's kv heads [g0, g1) of ``K``."""
+        n = K // self.heads.n
+        return self.heads.index * n, (self.heads.index + 1) * n
+
+    def first(self) -> int:
+        """The global id of this rank's first page or row."""
+        return self.lead.index * self.lead_local
+
+
+def _local_qkv(q, k_new, v_new, shard: MeshShard | None, K: int):
+    """The query and new K/V heads of this rank's kv heads, sliced from the
+    whole projections: the meshless engine's bits."""
+    if shard is None or shard.heads.n == 1:
+        return q, k_new, v_new
+    g0, g1 = shard.head_range(K)
+    rep = q.shape[2] // K
+    return q[:, :, g0 * rep:g1 * rep].contiguous(), k_new[:, :, g0:g1], v_new[:, :, g0:g1]
+
+
+def _merge_lead(o, lse, shard: MeshShard, dtype):
+    """The ranks' partials over the leading axis, merged; -> in ``dtype``."""
+    o, _ = X.merge_partials(X.all_gather(o, shard.lead), X.all_gather(lse, shard.lead))
+    return o.to(dtype)
+
+
+def _gather_heads(ctx, shard: MeshShard | None):
+    """ctx (R, H_local, hd) -> (R, H, hd), every rank's heads in order."""
+    if shard is None or shard.heads.n == 1:
+        return ctx
+    R, _, hd = ctx.shape
+    return X.all_gather(ctx, shard.heads).permute(1, 0, 2, 3).reshape(R, -1, hd)
+
+
 def _cache_put(cache, name: str, dp: DecodePos, new) -> None:
     """Write ``new`` (B,1,...) at the step's position, in place: for every
     batch row, or at each row's own cache row and position."""
@@ -168,17 +223,25 @@ def _cache_put(cache, name: str, dp: DecodePos, new) -> None:
         cache[name].index_put_((dp.row_index, dp.index), new[:, 0])
 
 
-def attn_decode(p, cfg, x, cache, pos, rope, *, window=None):
+def attn_decode(p, cfg, x, cache, pos, rope, *, window=None, shard: MeshShard | None = None):
     """One token at ``pos`` (see ``decode_pos``) vs a linear cache {k, v}
     (B,S,K,hd), or (N,S,K,hd) read through per-row cache rows. Writes the new K/V
     at ``pos`` in place by a device index (the reference updates
     functionally), then attends to keys ``<= pos`` (and inside
     ``window``). An int8 cache (``kv_quant``: {k, v int8, k_scale,
     v_scale}) is written quantized, then read dequantized to x's dtype, as
-    the reference does; the flash-decode kernel runs on that copy. x
-    (B,1,D) -> (out (B,1,D), cache)."""
+    the reference does; the flash-decode kernel runs on that copy. With
+    ``shard`` (per-row form) the cache is this rank's rows and kv heads:
+    a row another rank holds reads and writes the local spare row and its
+    partial is dropped at the merge. x (B,1,D) -> (out (B,1,D), cache)."""
     dp = decode_pos(pos, x.device)
-    q, k_new, v_new = _qkv(p, cfg, x, rope)
+    q, k_new, v_new = _local_qkv(*_qkv(p, cfg, x, rope), shard, cfg.num_kv_heads)
+    mine = None
+    if shard is not None and shard.lead.n > 1:
+        n, first = shard.lead_local, shard.first()
+        mine = (dp.rows >= first) & (dp.rows < first + n)
+        rows = torch.where(mine, dp.rows - first, n)
+        dp = DecodePos(dp.pos, dp.index, rows, rows.long())
     if cache["k"].dtype == torch.int8:
         if "k_scale" not in cache:
             raise ValueError("an int8 linear cache needs its k_scale and v_scale leaves "
@@ -195,7 +258,10 @@ def attn_decode(p, cfg, x, cache, pos, rope, *, window=None):
         _cache_put(cache, "v", dp, v_new)
         k, v = cache["k"], cache["v"]
     ctx = KD.decode_attention(q[:, 0], k, v, dp.pos, window=window, rows=dp.rows)
-    return _out_proj(p, ctx[:, None]), cache
+    if mine is not None:
+        lse = torch.where(mine[:, None], 0.0, -math.inf).expand(ctx.shape[:2])
+        ctx = _merge_lead(ctx.float(), lse.contiguous(), shard, ctx.dtype)
+    return _out_proj(p, _gather_heads(ctx, shard)[:, None]), cache
 
 
 def attn_decode_ring(p, cfg, x, cache, pos, rope, *, window: int):
@@ -302,7 +368,9 @@ def cache_from_prefill(kv, *, window: int | None, seq_len: int):
 # drops (``mode="drop"``: padding rows, masked uncond shares, positions a
 # short prompt's table does not cover), so a dropped write never lands on a
 # real page and no write needs a host-side mask. Nothing reads it: reads go
-# through ``pool_view``, which clamps table entries into [0, P).
+# through ``pool_view``, which clamps table entries into [0, P). A rank's
+# share of a pool split over a mesh has its own spare past its P_local
+# pages, which takes the writes to every other rank's pages too.
 
 
 def paged_cache_spec(cfg, num_pages: int, page_size: int, *, kv_dtype: str = "bf16",
@@ -354,24 +422,34 @@ def _pool_put(pool, pages, offs, name: str, vals):
     pool[name][pages, offs] = vals.to(pool[name].dtype)
 
 
-def attn_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, window=None, phase=None):
+def attn_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, window=None, phase=None,
+                      shard: MeshShard | None = None):
     """One token per row vs the shared paged pool. x (B,1,D); block_table
     (B, nb) int32, entries >= P are padding; pos (B,) int32 per-row
     positions, ``rope`` from them; ``phase`` (B,) int32 marks a ragged pass
     list, rows at phase 0 give zeros. The new K/V is written (in place) at
-    each row's position before attention, quantized for int8 pools.
-    -> (out (B,1,D), pool)."""
+    each row's position before attention, quantized for int8 pools. With
+    ``shard`` the pool is this rank's pages and kv heads (the table stays
+    global). -> (out (B,1,D), pool)."""
     P, ps = pool["k"].shape[0] - 1, pool["k"].shape[1]
     nb = block_table.shape[1]
-    q, k_new, v_new = _qkv(p, cfg, x, rope)
+    q, k_new, v_new = _local_qkv(*_qkv(p, cfg, x, rope), shard, cfg.num_kv_heads)
+    first = 0 if shard is None else shard.first()
     col = (pos // ps).long()
-    wpage = block_table.gather(1, col.clamp(max=nb - 1)[:, None])[:, 0].long()
+    wpage = block_table.gather(1, col.clamp(max=nb - 1)[:, None])[:, 0].long() - first
     wpage = _spare(torch.where(col < nb, wpage, P), P)
     woff = (pos % ps).long()
     _pool_put(pool, wpage, woff, "k", k_new[:, 0])
     _pool_put(pool, wpage, woff, "v", v_new[:, 0])
     view = pool_view(pool)
-    if "k_scale" in pool:
+    if shard is not None and shard.lead.n > 1:
+        local = KP.local_table(block_table, first, P)
+        scales = dict(k_scales=view["k_scale"], v_scales=view["v_scale"]) \
+            if "k_scale" in pool else {}
+        o, lse = KP.paged_decode_attention_shard(q[:, 0], view["k"], view["v"], local, pos,
+                                                 phase=phase, window=window, **scales)
+        ctx = _merge_lead(o, lse, shard, q.dtype)
+    elif "k_scale" in pool:
         kv = (view["k"], view["k_scale"], view["v"], view["v_scale"])
         if phase is None:
             ctx = KP.paged_decode_attention_int8(q[:, 0], *kv, block_table, pos, window=window)
@@ -384,18 +462,22 @@ def attn_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, window=None, p
     else:
         ctx = KP.ragged_paged_decode_attention(q[:, 0], view["k"], view["v"], block_table, pos,
                                                phase, window=window)
-    return _out_proj(p, ctx[:, None]), pool
+    return _out_proj(p, _gather_heads(ctx, shard)[:, None]), pool
 
 
-def paged_scatter_prefill(pool, cache, pages, offs):
+def paged_scatter_prefill(pool, cache, pages, offs, shard: MeshShard | None = None):
     """Write one layer's batched prefill KV, cache {k, v} (kb, Sb, K, hd),
     into its pool at the flattened (kb*Sb,) destinations ``pages``,
     ``offs``; pages outside [0, P) drop (to the spare page). int8 pools
-    quantize on write. -> pool (updated in place)."""
+    quantize on write. With ``shard``: global pages into this rank's share,
+    its kv heads; another rank's pages drop. -> pool (updated in place)."""
     P = pool["k"].shape[0] - 1
-    pages = _spare(pages.long(), P)
+    pages = _spare(pages.long() - (0 if shard is None else shard.first()), P)
     offs = offs.long()
     for name in ("k", "v"):
         c = cache[name]
+        if shard is not None and shard.heads.n > 1:
+            g0, g1 = shard.head_range(c.shape[2])
+            c = c[:, :, g0:g1]
         _pool_put(pool, pages, offs, name, c.reshape(-1, *c.shape[2:]))
     return pool

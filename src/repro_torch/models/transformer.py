@@ -202,10 +202,12 @@ def block_forward(p, cfg, kind: str, x, rope, *, moe: bool = False, window=None)
     return x, cache, aux
 
 
-def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, window=None):
+def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, window=None,
+                 shard=None):
     """One-token step; updates ``cache`` (a KV cache, latents or a recurrent
     state) in place; with a per-row ``pos`` (``attention.decode_pos`` with
-    rows), the rows of a slot arena's pool. -> (y, cache)."""
+    rows), the rows of a slot arena's pool; ``shard`` (``MeshShard``): this
+    rank's share of a linear KV pool. -> (y, cache)."""
     h = _norm(cfg, p.norm1, x)
     if kind in ATTN:
         if cfg.mla is not None:
@@ -213,7 +215,8 @@ def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, w
         elif "slot_pos" in cache:
             mix, cache = A.attn_decode_ring(p.attn, cfg, h, cache, pos, rope, window=window)
         else:
-            mix, cache = A.attn_decode(p.attn, cfg, h, cache, pos, rope, window=window)
+            mix, cache = A.attn_decode(p.attn, cfg, h, cache, pos, rope, window=window,
+                                       shard=shard)
     elif kind in ("rglru", "mlstm", "slstm"):
         decode = {"rglru": RG.rglru_decode, "mlstm": XL.mlstm_decode,
                   "slstm": XL.slstm_decode}[kind]
@@ -225,12 +228,12 @@ def block_decode(p, cfg, kind: str, x, cache, pos, rope, *, moe: bool = False, w
 
 
 def block_decode_paged(p, cfg, x, pool, block_table, pos, rope, *, moe: bool = False,
-                       window=None, phase=None):
+                       window=None, phase=None, shard=None):
     """One-token step per row against the layer's paged pool (updated in
-    place). -> (y, pool)."""
+    place; ``shard``: this rank's share of it). -> (y, pool)."""
     h = _norm(cfg, p.norm1, x)
     mix, pool = A.attn_decode_paged(p.attn, cfg, h, pool, block_table, pos, rope,
-                                    window=window, phase=phase)
+                                    window=window, phase=phase, shard=shard)
     x, _ = _ffn(p, cfg, x + mix, moe)
     return x, pool
 
@@ -387,7 +390,8 @@ class Transformer(nn.Module):
                 aux = aux + a
         return x, (caches if want_caches else None), aux
 
-    def decode_step(self, token_embeds, caches, pos, *, rows=None, long_ctx: bool = False):
+    def decode_step(self, token_embeds, caches, pos, *, rows=None, long_ctx: bool = False,
+                    shard=None):
         """One token at ``pos`` for the whole stack; the caches are updated in
         place. ``pos`` a 0-d or one-element int32 tensor on the device (the
         step then reads no value on the host and can be captured in a CUDA
@@ -396,32 +400,37 @@ class Transformer(nn.Module):
         (B,) pool row of each batch row, read and written in place (KV rows
         and latents at the row's position, recurrent states whole), and a
         (B,) int32 tensor of per-row positions (RoPE, the cache write and
-        the attention mask per row). -> (hidden (B,1,D), caches)."""
+        the attention mask per row). ``shard`` (``attention.MeshShard``):
+        the pools are this rank's share of a slot arena split over a mesh.
+        -> (hidden (B,1,D), caches)."""
         cfg = self.cfg
         x = token_embeds
         pos = A.decode_pos(pos, x.device, rows)
         rope = self._rope(pos.pos.view(-1, 1))
         for i, (kind, layer, cache) in enumerate(zip(cfg.blocks, self.layers, caches)):
             x, _ = block_decode(layer, cfg, kind, x, cache, pos, rope, moe=is_moe_layer(cfg, i),
-                                window=self._window(kind, long_ctx))
+                                window=self._window(kind, long_ctx), shard=shard)
         return x, caches
 
     def decode_step_paged(self, token_embeds, pools, block_table, pos, *, phase=None,
-                          long_ctx: bool = False):
+                          long_ctx: bool = False, shard=None):
         """One token per row for the whole stack against the paged pools of
         ``paged_cache_specs`` (updated in place). token_embeds (B,1,D);
         block_table (B, nb) int32, one table per request-stream shared by
         every layer; pos (B,) int32 per-row positions, for RoPE and the
         masks; ``phase`` (B,) int32 marks a ragged pass list (rows at phase
-        0 are padding: zero attention output, dropped writes). -> (hidden
-        (B,1,D), pools)."""
+        0 are padding: zero attention output, dropped writes); ``shard``
+        (``attention.MeshShard``): the pools are this rank's share of a
+        pool split over a mesh, the table global. -> (hidden (B,1,D),
+        pools)."""
         cfg = self.cfg
         x = token_embeds
         rope = self._rope(pos[:, None])
         for i, (kind, layer, pool) in enumerate(zip(cfg.blocks, self.layers, pools)):
             x, _ = block_decode_paged(layer, cfg, x, pool, block_table, pos, rope,
                                       moe=is_moe_layer(cfg, i),
-                                      window=self._window(kind, long_ctx), phase=phase)
+                                      window=self._window(kind, long_ctx), phase=phase,
+                                      shard=shard)
         return x, pools
 
     def prepare_decode_caches(self, caches, *, seq_len: int, capacity: int,

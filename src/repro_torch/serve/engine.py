@@ -61,7 +61,8 @@ Two step modes:
   ``("pstep", n_full, n_cond)`` bucket, in the slot arena through B5 per
   row, one per ``("step", n_full, n_cond)``.
 
-On a GPU every step is a CUDA graph (``graphs``, on by default there), the
+On a GPU every step is a CUDA graph (``graphs``, on by default there, off
+on a mesh of several devices), the
 counterpart of the reference's jitted steps: captured at the step's counted
 compile (the embedding, the forwards over the pools, the combine, the
 divergence and the argmax), one graph for the ragged step and one per
@@ -103,14 +104,27 @@ counted, not read off a compiled executable, and the autotuner's budget
 rounding is fixed (ROADMAP C).
 
 ``mesh`` places the arena's pools by the rule tables (``rules``, the
-serve table by default): a ``DeviceMesh`` of one device
-(``launch.mesh.make_host_mesh``) holds every pool leaf as a ``DTensor``
-(``placed``) whose local tensor the steps, graphs and kernels run on, so
-outputs equal the meshless engine's. With a mesh the default page count
-rounds up to a multiple of the pages axis' shard count, as the
-reference's does. A mesh of more devices raises ``NotImplementedError``
-(nothing holds the arena's multi-GPU execution against anything), and a
-``MeshShape`` (sizes without devices) raises when the pools are built.
+serve table by default) on a ``DeviceMesh`` (``launch.mesh.make_host_mesh``),
+one process a device under ``torch.distributed``: every rank runs this
+engine on the same requests (SPMD), the weights replicated, and holds
+each pool leaf as a ``DTensor`` (``placed``) whose local tensor, its shard
+plus its own spare page or row past it, the steps and kernels run on. On
+one device that is the whole pool and the steps are the meshless ones. On
+several, the spec decides the path: pages split over ``data`` (the
+attention's shard form on each rank's pages, the ranks' (o, lse) gathered
+and merged), a slot pool's rows over ``data`` (each row on one rank), kv
+heads over ``model`` (each rank attends its heads, gathers every head and
+runs the whole o-projection); a dim that does not divide replicates and
+needs no exchange. A copy-on-write copy between two owners goes from the
+owner of the source page to the owner of the destination. The steps run
+eagerly there (``graphs=None`` is off; ``graphs=True`` raises
+``ValueError``: a gloo collective cannot be captured, and no card has
+tested an NCCL-captured step). With a mesh the default page count rounds
+up to a multiple of the pages axis' shard count, as the reference's does.
+On several devices the host tier, the content cache, async ticks, MLA and
+recurrent stacks, windowed rings and a slot pool split along ``kv_seq``
+raise ``NotImplementedError`` (ROADMAP §A), and a ``MeshShape`` (sizes
+without devices) raises when the pools are built.
 The engine serves every decoder stack of ``Transformer``:
 GQA (with qk-norm, windows, MoE FFNs), MLA and recurrent (RG-LRU, mLSTM,
 sLSTM) stacks in the slot arena, a row of each pool leaf a slot; GQA stacks
@@ -135,7 +149,9 @@ from repro_torch.core.policy import (GUIDANCE_POLICIES, DivergenceGuidancePolicy
                                      DynamicPlanCursor, GuidancePolicy, make_policy)
 from repro_torch.core.selective import GuidancePlan, Mode, PlanCursor, round_half_up
 from repro_torch.data.tokenizer import EOS, PAD, encode
-from repro_torch.dist.sharding import RULES_SERVE, MeshShape, spec_placements
+from repro_torch.dist import exchange as X
+from repro_torch.dist.sharding import (RULES_SERVE, MeshShape, as_mesh_shape, local_shape,
+                                       spec_placements)
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.serve.autotune import BudgetAutotuner
@@ -147,7 +163,7 @@ from repro_torch.serve.scheduler import (Scheduler, TickPlan, admission_cutoff, 
 from repro_torch.serve.state import (ContentPrefixRegistry, HostPagePool, PageAllocator,
                                      PrefixShareRegistry, StatePool, content_key,
                                      fresh_lazy_needs, host_pages_for_bytes, kv_page_bytes,
-                                     paged_pool_shardings, pages_for, pages_shard_count,
+                                     paged_partition_specs, pages_for, pages_shard_count,
                                      plan_swap_out, pool_partition_specs, resume_lazy_needs,
                                      stream_page_needs)
 
@@ -386,11 +402,6 @@ class ContinuousEngine:
             raise ValueError(f"combine {combine!r} not in {COMBINE_MODES}")
         if not 0.0 <= interval[0] < interval[1] <= 1.0:
             raise ValueError(f"interval {interval!r} must satisfy 0 <= start < stop <= 1")
-        if mesh is not None and not isinstance(mesh, MeshShape) and mesh.size() > 1:
-            raise NotImplementedError(
-                f"a mesh of {mesh.size()} devices: the arena's multi-GPU execution is not "
-                "ported (ROADMAP §A: nothing holds it against anything, one card to test on); "
-                "pass a one-device mesh (launch.mesh.make_host_mesh) or none")
         if kv == "paged":
             T.check_pageable(cfg)       # the reference's ValueError first
         if cfg.is_encoder:
@@ -403,14 +414,23 @@ class ContinuousEngine:
         self.model = model
         self.cfg = cfg
         self.device = next(model.parameters()).device
-        if graphs and self.device.type != "cuda":
-            raise ValueError("graphs=True needs a model on a CUDA device")
-        # every step as a CUDA graph (a port option: None = on a GPU)
-        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         self.num_slots = num_slots
         self.prompt_len = prompt_len           # engine-wide maximum
         self.max_new = max_new
         self.capacity = prompt_len + max_new
+        # the devices of a DeviceMesh (a MeshShape places nothing)
+        self.mesh_devices = 1 if mesh is None or isinstance(mesh, MeshShape) else mesh.size()
+        if self.mesh_devices > 1:
+            self._check_mesh_options(kv, host_pool_bytes, prefix_cache, tick_mode)
+            if graphs:
+                raise ValueError(f"graphs=True on a mesh of {self.mesh_devices} devices: the "
+                                 "steps run eagerly there (a gloo collective cannot be "
+                                 "captured)")
+            graphs = False
+        if graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True needs a model on a CUDA device")
+        # every step as a CUDA graph (a port option: None = on a GPU)
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
         self.selective_fraction = selective_fraction
         if mesh is not None and rules is None:
             # the serve rules already name the pages/page logical axes
@@ -418,6 +438,7 @@ class ContinuousEngine:
         self.rules = rules
         self.mesh = mesh
         self.placed: dict = {}                 # pool name -> its DTensor leaves, with a mesh
+        self._shard: A.MeshShard | None = None  # this rank's share, on several devices
         self.tick_mode = tick_mode
         self.stop_on_eos = stop_on_eos
         self.guidance_policy = guidance_policy
@@ -505,6 +526,24 @@ class ContinuousEngine:
         # async: (tick, deferred metric calls, admissions) decided in the
         # previous tick's overlap window
         self._stash: tuple | None = None
+
+    def _check_mesh_options(self, kv: str, host_pool_bytes: int, prefix_cache: str,
+                            tick_mode: str) -> None:
+        """On several devices: refuse what has no sharded form yet."""
+        why = None
+        if host_pool_bytes > 0:
+            why = "the host tier (host_pool_bytes > 0)"
+        elif prefix_cache == "content":
+            why = 'prefix_cache="content"'
+        elif tick_mode == "async":
+            why = 'tick_mode="async"'
+        elif self.cfg.mla is not None or any(k not in T.ATTN for k in self.cfg.blocks):
+            why = f"{self.cfg.name}: MLA latents and recurrent states"
+        elif kv == "slot" and any(w is not None for w in self._rings()):
+            why = f"{self.cfg.name}: windowed rings in the slot arena"
+        if why is not None:
+            raise NotImplementedError(f"{why} on a mesh of {self.mesh_devices} devices is not "
+                                      "ported (ROADMAP §A)")
 
     # -- public API --------------------------------------------------------
 
@@ -964,16 +1003,18 @@ class ContinuousEngine:
         """The slot arena's cond and uncond pools (``_pool_specs``) of
         ``num_slots + 1`` rows. Row ``num_slots`` is a spare that a group's
         padding rows read and write (the reference's out-of-range slot
-        index: reads clamp, writes drop); no live row reads it."""
-        self._pool_c, self._pool_u = (self._pool_specs(self.num_slots + 1, self.device)
-                                      for _ in range(2))
-        if self.mesh is not None:
-            specs = pool_partition_specs(self.cfg, self.num_slots, self.capacity,
-                                         rules=self.rules, mesh=self._device_mesh())
-            placements = [{n: spec_placements(sp, self.mesh) for n, sp in layer.items()}
-                          for layer in specs]
-            self._pool_c = self._place("c", self._pool_c, placements)
-            self._pool_u = self._place("u", self._pool_u, placements)
+        index: reads clamp, writes drop); no live row reads it. On a mesh,
+        each rank's share of them, with a spare row of its own."""
+        if self.mesh is None:
+            self._pool_c, self._pool_u = (self._pool_specs(self.num_slots + 1, self.device)
+                                          for _ in range(2))
+            return
+        specs = pool_partition_specs(self.cfg, self.num_slots, self.capacity,
+                                     rules=self.rules, mesh=self._device_mesh())
+        self._shard = self._mesh_shard(specs[0]["k"], self.num_slots)
+        meta = self._pool_specs(self.num_slots + 1, "meta")
+        self._pool_c = self._place("c", meta, specs)
+        self._pool_u = self._place("u", meta, specs)
 
     def _prefill_slot(self, req: ServeRequest, slot: int, key: int) -> int:
         """Both streams' prefill of one request into row ``slot`` of the two
@@ -989,15 +1030,23 @@ class ContinuousEngine:
         tok = self._dev(self._tokenize(req.prompt, S)[None], torch.long)
         l_c, caches_c = AR.prefill(self.model, tok)
         l_u, caches_u = AR.prefill(self.model, AR.null_prompt(tok))
+        row, heads = slot, slice(None)
+        if self._shard is not None:
+            # this rank's share: the row where it holds it, its kv heads
+            row -= self._shard.first()
+            heads = slice(*self._shard.head_range(self.cfg.num_kv_heads))
+        mine = 0 <= row < (self.num_slots if self._shard is None else self._shard.lead_local)
         for pool, caches in ((self._pool_c, caches_c), (self._pool_u, caches_u)):
-            for layer, c in zip(pool, caches):
+            for layer, c in zip(pool, caches if mine else ()):
                 if "slot_pos" in layer:
                     c = A.cache_from_prefill(c, window=layer["k"].shape[1], seq_len=S)
-                    layer["slot_pos"][slot] = c.pop("slot_pos")
+                    layer["slot_pos"][row] = c.pop("slot_pos")
                 elif "k_scale" in layer:                 # REPRO_KV_QUANT=int8 rows
                     c = A.quantize_linear_cache(c)
                 for name, t in c.items():
-                    layer[name][slot][tuple(slice(0, n) for n in t.shape[1:])] = t[0]
+                    if self._shard is not None:
+                        t = t[:, :, heads]
+                    layer[name][row][tuple(slice(0, n) for n in t.shape[1:])] = t[0]
         scale = self._dev(np.asarray([self._eff_scale(req.uid, 0)], np.float32))
         logits = self._combine(l_u, l_c, scale)
         return int(self._sample(logits, [req.uid], [req.temperature], [key], [0])[0])
@@ -1015,9 +1064,17 @@ class ContinuousEngine:
         self._seen(("defrag",), step=False)
         idx = self._dev(src, torch.long)
         n = self.num_slots
+        sh = self._shard
+        split = sh is not None and sh.lead.n > 1
+        if split:
+            # rows split over ranks: every rank's rows gathered, each rank
+            # keeping the ones it now holds
+            n, first = sh.lead_local, sh.first()
+            idx = idx[first:first + n]
         for layer in self._pool_c + self._pool_u:
             for t in layer.values():
-                t[:n] = t[:n].index_select(0, idx)
+                rows = X.all_gather(t[:n], sh.lead).flatten(0, 1) if split else t[:n]
+                t[:n] = rows.index_select(0, idx)
         self._slots.permute(src)
         for slot, uid in self.pool.active():
             self._states[uid].slot = slot
@@ -1314,8 +1371,8 @@ class ContinuousEngine:
         pages_c = self._dev(btc[:, col].reshape(-1))
         pages_u = self._dev(btu[:, col].reshape(-1))
         for pool, cc, cu in zip(self._pool_p, caches_c, caches_u):
-            A.paged_scatter_prefill(pool, cc, pages_c, offs)
-            A.paged_scatter_prefill(pool, cu, pages_u, offs)
+            A.paged_scatter_prefill(pool, cc, pages_c, offs, self._shard)
+            A.paged_scatter_prefill(pool, cu, pages_u, offs, self._shard)
         emit = [i for i, it in enumerate(items) if it.emit]
         out = [items[i] for i in emit]
         if not emit:
@@ -1390,10 +1447,27 @@ class ContinuousEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """The copy behind a copy-on-write detach: page ``src`` to ``dst`` in
-        every layer's pool, values and (int8) scales."""
-        for pool in self._pool_p:
-            for t in pool.values():
+        every layer's pool, values and (int8) scales. With pages split over
+        ranks, the owner of ``src`` copies it locally or sends it, every
+        leaf in one message, to the owner of ``dst``."""
+        sh = self._shard
+        leaves = [t for pool in self._pool_p for t in pool.values()]
+        if sh is None or sh.lead.n == 1:
+            for t in leaves:
                 t[dst] = t[src]
+            return
+        (a, src), (b, dst) = divmod(src, sh.lead_local), divmod(dst, sh.lead_local)
+        me = sh.lead.index
+        if a == b == me:
+            for t in leaves:
+                t[dst] = t[src]
+        elif a == me:
+            X.send(torch.cat([t[src].reshape(-1).view(torch.uint8) for t in leaves]), sh.lead, b)
+        elif b == me:
+            sizes = [t[dst].numel() * t.element_size() for t in leaves]
+            buf = X.recv(sum(sizes), sh.lead, a, self.device)
+            for t, part in zip(leaves, buf.split(sizes)):
+                t[dst] = part.view(t.dtype).reshape(t[dst].shape)
 
     def _swap_out(self, uid: str, swap: dict[str, int], placed: dict[str, list[int]]) -> None:
         """Copy a preemption victim's pages into its host slots, stream by
@@ -1463,36 +1537,74 @@ class ContinuousEngine:
 
     def _init_paged_pool(self) -> None:
         """The page pool, and the host tier's arena beside it (pinned for a
-        GPU pool: allocated here, not in the tick that first swaps)."""
-        self._pool_p = T.paged_cache_specs(self.cfg, self.num_pages, self.page_size,
-                                           kv_dtype=self.kv_dtype, device=self.device)
-        if self.mesh is not None:
-            placements = paged_pool_shardings(self.cfg, self.num_pages, self.page_size,
-                                              rules=self.rules, mesh=self._device_mesh(),
-                                              kv_dtype=self.kv_dtype)
-            self._pool_p = self._place("p", self._pool_p, placements)
+        GPU pool: allocated here, not in the tick that first swaps). On a
+        mesh, this rank's share of it, with a spare page of its own."""
+        if self.mesh is None:
+            self._pool_p = T.paged_cache_specs(self.cfg, self.num_pages, self.page_size,
+                                               kv_dtype=self.kv_dtype, device=self.device)
+        else:
+            specs = paged_partition_specs(self.cfg, self.num_pages, self.page_size,
+                                          rules=self.rules, mesh=self._device_mesh(),
+                                          kv_dtype=self.kv_dtype)
+            self._shard = self._mesh_shard(specs[0]["k"], self.num_pages)
+            meta = T.paged_cache_specs(self.cfg, self.num_pages, self.page_size,
+                                       kv_dtype=self.kv_dtype, device="meta")
+            self._pool_p = self._place("p", meta, specs)
         if self._host is not None:
             self._host.attach(self._pool_p)
 
     def _device_mesh(self):
         if isinstance(self.mesh, MeshShape):
             raise NotImplementedError("a MeshShape has sizes and no devices: the arena cannot "
-                                      "be placed on it (ROADMAP §A: multi-GPU execution is "
-                                      "not ported); pass a one-device DeviceMesh "
+                                      "be placed on it (ROADMAP §A); pass a DeviceMesh "
                                       "(launch.mesh.make_host_mesh)")
         return self.mesh
 
-    def _place(self, name: str, pool: list, placements: list) -> list:
-        """Each leaf of ``pool`` distributed on the mesh by its placements;
-        the DTensors are kept in ``placed[name]``, and -> their local
-        tensors, which share their storage: what the steps write in place,
-        the DTensors hold. The reference's specs are for its pool sizes;
-        the port's spare page or row past them rides along (one device:
-        nothing splits)."""
-        from torch.distributed.tensor import distribute_tensor
-        self.placed[name] = [{n: distribute_tensor(t, self.mesh, pl[n]) for n, t in layer.items()}
-                             for layer, pl in zip(pool, placements)]
-        return [{n: d.to_local() for n, d in layer.items()} for layer in self.placed[name]]
+    def _place(self, name: str, meta: list, specs: list) -> list:
+        """This rank's share of a pool: ``meta`` the meshless pool's leaves
+        on the meta device (a spare page or row past the reference's pool
+        sizes), ``specs`` their specs at the reference's sizes. Each leaf's
+        shard (``local_shape``) is allocated empty on this device with a
+        spare page or row of its own past it, and, without the spare, is
+        the local tensor of a ``DTensor`` of the reference's shape, kept in
+        ``placed[name]``. -> the local tensors with their spares, which
+        share the DTensors' storage: what the steps write in place, the
+        DTensors hold. No rank allocates more than its shard and spare."""
+        from torch.distributed.tensor import DTensor
+        sizes = as_mesh_shape(self.mesh)
+        local, self.placed[name] = [], []
+        for layer, lspecs in zip(meta, specs):
+            local.append({})
+            self.placed[name].append({})
+            for n, t in layer.items():
+                full = (t.shape[0] - 1,) + tuple(t.shape[1:])
+                part = local_shape(full, lspecs[n], sizes)
+                # a ring's slot positions start empty (-1, as ring_pool_spec
+                # makes them), every other leaf at zero
+                z = torch.full((part[0] + 1,) + part[1:], -1 if n == "slot_pos" else 0,
+                               dtype=t.dtype, device=self.device)
+                local[-1][n] = z
+                self.placed[name][-1][n] = DTensor.from_local(
+                    z[:-1], self.mesh, spec_placements(lspecs[n], self.mesh), run_check=False,
+                    shape=torch.Size(full), stride=torch.empty(full, device="meta").stride())
+        return local
+
+    def _mesh_shard(self, spec, lead: int) -> A.MeshShard | None:
+        """This rank's ``MeshShard`` from the spec of a pool's K leaf: (pages,
+        page, kv heads, head_dim) or (rows, kv_seq, kv heads, head_dim) over
+        ``lead`` pages or rows. None on one device or where nothing splits;
+        a slot pool split along kv_seq raises."""
+        if self.mesh_devices == 1:
+            return None
+        spec = tuple(spec) + (None,) * 4
+        if X.split_of(self.mesh, spec[1]).n > 1:
+            raise NotImplementedError(
+                f"a slot pool split along kv_seq ({spec[1]!r}) on a mesh of "
+                f"{self.mesh_devices} devices needs a shard form of B5 (ROADMAP §A)")
+        first, heads = X.split_of(self.mesh, spec[0]), X.split_of(self.mesh, spec[2])
+        if first.n == 1 and heads.n == 1:
+            return None
+        return A.MeshShard(first, lead // first.n, heads)
 
     def _seen(self, key: tuple, *, step: bool) -> None:
         """Note the first use of a step shape: what the reference counts as
@@ -1583,9 +1695,10 @@ class ContinuousEngine:
         pos = dev[f"{group}_pos"]
         if self.kv == "slot":
             pool = self._pool_c if stream == "c" else self._pool_u
-            return self.model.decode_step(emb, pool, pos, rows=dev[f"{group}_rows"])[0]
+            return self.model.decode_step(emb, pool, pos, rows=dev[f"{group}_rows"],
+                                          shard=self._shard)[0]
         return self.model.decode_step_paged(emb, self._pool_p, dev[f"{group}_bt{stream}"],
-                                            pos)[0]
+                                            pos, shard=self._shard)[0]
 
     def _ragged_step(self, st: dict, uids: list):
         """One fixed-shape decode step for the whole tick's flat pass list
@@ -1614,7 +1727,7 @@ class ContinuousEngine:
         model = self.model
         emb = model.embed_tokens(dev["tok"].long()[:, None])
         h, _ = model.decode_step_paged(emb, self._pool_p, dev["bt"], dev["pos"],
-                                       phase=dev["phase"])
+                                       phase=dev["phase"], shard=self._shard)
         logits = model.unembed(h)[:, 0, :].float()
         u_idx = dev["u_idx"].long()
         combined = self._combine(logits[u_idx], logits, dev["scale"])

@@ -116,6 +116,9 @@ class ServeFleet:
                  seed: int = 0):
         if not engines:
             raise ValueError("a fleet needs at least one engine")
+        if any(e.mesh_devices > 1 for e in engines):
+            raise NotImplementedError("a fleet of engines on meshes of several devices is not "
+                                      "ported (ROADMAP §A)")
         self.engines = list(engines)
         self.router = FleetRouter(len(engines), policy=policy, seed=seed)
         self.assignments: dict[str, int] = {}

@@ -272,9 +272,10 @@ def test_divergence_policy_switches_like_the_reference(world):
 @pytest.mark.parametrize("kw", [dict(kv="paged", mesh=MeshShape((2, 1), ("data", "model")))],
                          ids=["mesh"])
 def test_out_of_slice_options_raise(world, kw):
-    """A mesh of more than one device: the arena's multi-GPU execution is
-    not ported. A ``MeshShape`` holds its sizes (the page rounding reads
-    them) and raises when the pools are placed."""
+    """A ``MeshShape`` (sizes without devices) holds its sizes (the page
+    rounding reads them) and raises when the pools are placed; what raises
+    on a ``DeviceMesh`` of several devices is held by
+    ``tests/test_torch_serve_mesh.py``."""
     eng = ContinuousEngine(world.model, world.cfg, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng._init_paged_pool()
